@@ -1,0 +1,116 @@
+"""Public entry points over the sweep kernels.
+
+Encoding, sorting and padding are plain torch; the sweeps themselves run on
+the kernels of :mod:`repro_torch.kernels.sbm_sweep` for CUDA tensors and
+on their plain versions for CPU tensors.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core import prefix as prefix_lib
+from repro_torch.core.intervals import Extents
+from repro_torch.core.sweep import _indicator_deltas, _pad_stream, encode_endpoints
+from repro_torch.kernels import sbm_sweep as sweep_kernels
+
+COUNT_BLOCK = 2048
+# One segment of pass C holds ceil(n/32) words per mask per segment, six
+# mask arrays in all: at n = m = 1e6 a 4096-endpoint segment keeps each
+# array near 122 MB (512 endpoints would need about 1 GB each).
+ENUMERATE_BLOCK = 4096
+
+
+def _empty_count(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int64, device=device)
+
+
+def sbm_count_kernel(subs: Extents, upds: Extents, *,
+                     block_size: int = COUNT_BLOCK) -> torch.Tensor:
+    """K via the two-pass sweep kernels (sort in torch, sweep on passes A
+    and B), as an exact 0-d int64 tensor."""
+    if subs.size == 0 or upds.size == 0:
+        return _empty_count(subs.lo.device)
+    ep = _pad_stream(encode_endpoints(subs, upds), block_size)
+    deltas = torch.stack(_indicator_deltas(ep))          # (4, total)
+    _, _, k = sweep_kernels.sweep_count(deltas, block_size=block_size)
+    return k
+
+
+def _num_words(count: int) -> int:
+    return max(-(-count // 32), 1)
+
+
+def _type_bitmasks(ep, up, n: int, m: int, block_size: int):
+    real = ep.owner >= 0
+    valid_s = (ep.is_sub & real).to(torch.int32)
+    valid_u = (~ep.is_sub & real).to(torch.int32)
+    sadd, sdel = sweep_kernels.delta_bitmasks(
+        ep.owner, up, valid_s, num_words=_num_words(n), block_size=block_size)
+    uadd, udel = sweep_kernels.delta_bitmasks(
+        ep.owner, up, valid_u, num_words=_num_words(m), block_size=block_size)
+    return sadd, sdel, uadd, udel
+
+
+def sbm_delta_bitmasks(subs: Extents, upds: Extents, *,
+                       block_size: int = ENUMERATE_BLOCK):
+    """Algorithm 6's (Sadd, Sdel, Uadd, Udel) as per-segment int32 words."""
+    ep = _pad_stream(encode_endpoints(subs, upds), block_size)
+    up = ep.is_upper.to(torch.int32)
+    return _type_bitmasks(ep, up, subs.size, upds.size, block_size)
+
+
+def _stitch_blocks(out_i, out_j, block_sums, k_total, *, max_pairs: int,
+                   cap: int) -> torch.Tensor:
+    """Final (max_pairs, 2) buffer from per-segment emission regions: slot
+    s lives in the segment whose exclusive pair-offset range contains it
+    (the output-space analogue of the counting master step)."""
+    num_blocks = out_i.shape[0]
+    incl = torch.cumsum(block_sums, dim=0, dtype=torch.int64)
+    slots = torch.arange(max_pairs, dtype=torch.int64, device=out_i.device)
+    b = torch.searchsorted(incl, slots, right=True).clamp(max=num_blocks - 1)
+    r = slots - (incl[b] - block_sums[b])
+    valid = (slots < torch.clamp(k_total, max=max_pairs)) & (r < cap)
+    r = r.clamp(0, cap - 1)
+    pairs = torch.stack([out_i[b, r], out_j[b, r]], dim=-1)
+    return torch.where(valid[:, None], pairs, -1)
+
+
+def sbm_enumerate_kernel(subs: Extents, upds: Extents, *, max_pairs: int,
+                         block_size: int = ENUMERATE_BLOCK
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All matching (i, j) pairs via the four sweep kernels.
+
+    Passes A/B size the output: the per-segment emission totals and their
+    exclusive scan are the cross-segment pair offsets.  The delta-bitmask
+    kernel plus the Algorithm-6 monoid scan seed each segment's active
+    sets, and pass C writes each segment's pairs into its own region,
+    stitched by the offset table.  Returns (pairs (max_pairs, 2) int32
+    padded with −1, exact count as a 0-d int64 tensor) — the contract of
+    :func:`repro_torch.core.enumerate.sbm_enumerate`, in pass C's
+    segment-sequential order.  Each segment's region holds the largest
+    segment total, read with one host sync, so no pair is ever dropped.
+    """
+    dev = subs.lo.device
+    n, m = subs.size, upds.size
+    if n == 0 or m == 0:
+        return (torch.full((max_pairs, 2), -1, dtype=torch.int32, device=dev),
+                _empty_count(dev))
+    ep = _pad_stream(encode_endpoints(subs, upds), block_size)
+    deltas = torch.stack(_indicator_deltas(ep))
+    _, seg_totals, k_total = sweep_kernels.sweep_count(deltas,
+                                                       block_size=block_size)
+    cap = max(int(seg_totals.max()), 1)
+
+    up = ep.is_upper.to(torch.int32)
+    sadd, sdel, uadd, udel = _type_bitmasks(ep, up, n, m, block_size)
+    sub_active0 = prefix_lib.delta_scan_exclusive(sadd, sdel)
+    upd_active0 = prefix_lib.delta_scan_exclusive(uadd, udel)
+    out_i, out_j = sweep_kernels.emit_pairs(
+        ep.owner.clamp(min=0), up, ep.is_sub.to(torch.int32),
+        (ep.owner >= 0).to(torch.int32), sub_active0, upd_active0,
+        block_size=block_size, cap=cap)
+    pairs = _stitch_blocks(out_i, out_j, seg_totals, k_total,
+                           max_pairs=max_pairs, cap=cap)
+    return pairs, k_total

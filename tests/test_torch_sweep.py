@@ -1,0 +1,305 @@
+"""Parity of the PyTorch port's sweep (repro_torch) with the JAX package.
+
+The same numpy inputs go through both packages on the CPU; where the
+reference reaches a Pallas kernel it runs in interpret mode, and the port's
+kernel wrappers take their plain versions (the tensors lie on the CPU).
+Every quantity is an integer, a bit word or a float32 endpoint passed
+through unchanged, so every comparison is exact.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import enumerate as ref_enum
+from repro.core import prefix as ref_prefix
+from repro.core import sweep as ref_sweep
+from repro.core.intervals import Extents as RefExtents
+from repro.kernels import ops as ref_ops
+from repro.kernels import sbm_sweep as ref_kernels
+from repro_torch.core import enumerate as tenum
+from repro_torch.core import prefix as tprefix
+from repro_torch.core import runtime as truntime
+from repro_torch.core import sweep as tsweep
+from repro_torch.core.intervals import Extents
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import sbm_sweep as tkernels
+
+jax.config.update("jax_platform_name", "cpu")
+
+
+def _both(lo_s, hi_s, lo_u, hi_u):
+    """One workload as (reference Extents, port Extents on the CPU)."""
+    arrs = [np.asarray(a, np.float32) for a in (lo_s, hi_s, lo_u, hi_u)]
+    ref = (RefExtents(jnp.asarray(arrs[0]), jnp.asarray(arrs[1])),
+           RefExtents(jnp.asarray(arrs[2]), jnp.asarray(arrs[3])))
+    port = (Extents(torch.from_numpy(arrs[0]), torch.from_numpy(arrs[1])),
+            Extents(torch.from_numpy(arrs[2]), torch.from_numpy(arrs[3])))
+    return ref, port
+
+
+def _uniform(seed, n, m, alpha, length=1000.0):
+    rng = np.random.default_rng(seed)
+    seg = alpha * length / (n + m)
+    lo = rng.uniform(0.0, length - seg, n + m).astype(np.float32)
+    hi = lo + np.float32(seg)
+    return _both(lo[:n], hi[:n], lo[n:], hi[n:])
+
+
+def _clustered(seed, n, m, alpha, length=1000.0, clusters=4):
+    rng = np.random.default_rng(seed)
+    seg = alpha * length / (n + m)
+    centers = rng.uniform(0.0, length, clusters)
+    lo = np.clip(centers[rng.integers(0, clusters, n + m)]
+                 + rng.normal(0.0, length / 80, n + m), 0.0, length - seg)
+    lo = lo.astype(np.float32)
+    hi = lo + np.float32(seg)
+    return _both(lo[:n], hi[:n], lo[n:], hi[n:])
+
+
+def _duplicates(seed, n, m):
+    """Integer grid endpoints: heavy ties, duplicates, zero-length extents."""
+    rng = np.random.default_rng(seed)
+    lo = rng.integers(0, 12, n + m).astype(np.float32)
+    hi = lo + rng.integers(0, 4, n + m).astype(np.float32)
+    return _both(lo[:n], hi[:n], lo[n:], hi[n:])
+
+
+WORKLOADS = {
+    "uniform": lambda: _uniform(1, 90, 70, 20.0),
+    "clustered": lambda: _clustered(2, 80, 100, 8.0),
+    "duplicates": lambda: _duplicates(3, 60, 50),
+}
+
+
+def _np(x):
+    return x.numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# stream order
+# ---------------------------------------------------------------------------
+
+ORDER_CASES = {
+    "ties_and_duplicates": ([1.0, 1.0, 2.0], [1.0, 3.0, 2.0],
+                            [1.0, 2.0, 0.0], [2.0, 2.0, 1.0]),
+    "lower_before_upper": ([0.0, 1.0], [1.0, 2.0], [1.0, 2.0], [1.0, 3.0]),
+    "signed_zero": ([0.0, -0.0, -0.0], [0.0, 0.0, -0.0],
+                    [-0.0, 0.0], [-0.0, 1.0]),
+    "zero_length": ([5.0, 5.0], [5.0, 5.0], [5.0], [5.0]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ORDER_CASES) + sorted(WORKLOADS))
+def test_encode_endpoints_matches_reference_lexsort(case):
+    if case in ORDER_CASES:
+        (rs, ru), (ts, tu) = _both(*ORDER_CASES[case])
+    else:
+        (rs, ru), (ts, tu) = WORKLOADS[case]()
+    want = ref_sweep.encode_endpoints(rs, ru)
+    got = tsweep.encode_endpoints(ts, tu)
+    # float32 bit patterns, so −0.0 and +0.0 must land where the reference
+    # put them
+    np.testing.assert_array_equal(_np(got.values).view(np.int32),
+                                  np.asarray(want.values).view(np.int32))
+    for field in ("is_upper", "is_sub", "owner"):
+        np.testing.assert_array_equal(_np(getattr(got, field)),
+                                      np.asarray(getattr(want, field)))
+
+
+# ---------------------------------------------------------------------------
+# counting: passes A/B and the count entry points
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("block_size", [64, 256])
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_pass_ab_plain_matches_pallas_interpret(name, block_size):
+    (rs, ru), (ts, tu) = WORKLOADS[name]()
+    ep = ref_sweep._pad_stream(ref_sweep.encode_endpoints(rs, ru), block_size)
+    deltas = jnp.stack(ref_sweep._indicator_deltas(ep))
+    emit_r, k_r = ref_kernels.sweep_count_pallas(deltas, block_size=block_size,
+                                                 interpret=True)
+    tdeltas = torch.from_numpy(np.array(deltas))
+    emit, seg, k = tkernels.sweep_count(tdeltas, block_size=block_size)
+    np.testing.assert_array_equal(emit.numpy(), np.asarray(emit_r))
+    assert int(k) == int(k_r) == int(seg.sum())
+    np.testing.assert_array_equal(
+        seg.numpy(), np.asarray(emit_r).reshape(-1, block_size).sum(axis=1))
+    emit_m, k_m = tref.ref_sweep_count(tdeltas)      # monolithic oracle
+    assert torch.equal(emit_m, emit) and int(k_m) == int(k)
+    assert tkernels.block_sums.launches == 0         # CPU: no kernel launched
+
+
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_counts_match_sbm_count_exact(name):
+    (rs, ru), (ts, tu) = WORKLOADS[name]()
+    want = ref_sweep.sbm_count_exact(rs, ru)
+    assert want == ref_sweep.sequential_sbm_count_numpy(rs, ru)
+    assert tsweep.sbm_count_exact(ts, tu) == want
+    assert int(tsweep.sbm_count(ts, tu, num_segments=4)) == want
+    assert tsweep.sequential_sbm_count_numpy(ts, tu) == want
+    for bs in (64, 2048):
+        k = tops.sbm_count_kernel(ts, tu, block_size=bs)
+        assert k.dtype == torch.int64 and int(k) == want
+    assert tsweep.probe_count(ts, tu)[0] == want
+
+
+def test_count_exact_beyond_int32():
+    """Identical extents: K = n·m = 2^32 overflows int32; the port's counts
+    are int64-exact (the reference's x64 behaviour)."""
+    n = 1 << 16
+    subs = Extents(torch.zeros(n), torch.ones(n))
+    assert tsweep.sbm_count_exact(subs, subs) == n * n
+    assert int(tops.sbm_count_kernel(subs, subs)) == n * n
+
+
+# ---------------------------------------------------------------------------
+# prefix: bit layout and the delta monoid
+# ---------------------------------------------------------------------------
+
+def test_pack_bits_layout_matches_reference():
+    rng = np.random.default_rng(4)
+    mask = rng.random((3, 70)) < 0.4
+    want = np.asarray(ref_prefix.pack_bits(jnp.asarray(mask)))
+    got = tprefix.pack_bits(torch.from_numpy(mask))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    np.testing.assert_array_equal(tprefix.unpack_bits(got, 70).numpy(), mask)
+
+
+def test_delta_scan_exclusive_matches_reference():
+    rng = np.random.default_rng(5)
+    add = rng.integers(0, 2**32, (6, 3), dtype=np.uint64).astype(np.uint32)
+    rem = rng.integers(0, 2**32, (6, 3), dtype=np.uint64).astype(np.uint32) \
+        & ~add
+    want = np.asarray(ref_prefix.delta_scan_exclusive(jnp.asarray(add),
+                                                      jnp.asarray(rem)))
+    got = tprefix.delta_scan_exclusive(torch.from_numpy(add.view(np.int32)),
+                                       torch.from_numpy(rem.view(np.int32)))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    a, d = tprefix.delta_combine_bits(
+        (torch.from_numpy(add[0].view(np.int32)),
+         torch.from_numpy(rem[0].view(np.int32))),
+        (torch.from_numpy(add[1].view(np.int32)),
+         torch.from_numpy(rem[1].view(np.int32))))
+    ra, rd = ref_prefix.delta_combine_bits((jnp.asarray(add[0]), jnp.asarray(rem[0])),
+                                           (jnp.asarray(add[1]), jnp.asarray(rem[1])))
+    np.testing.assert_array_equal(a.numpy().view(np.uint32), np.asarray(ra))
+    np.testing.assert_array_equal(d.numpy().view(np.uint32), np.asarray(rd))
+
+
+# ---------------------------------------------------------------------------
+# delta bitmasks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("block_size", [32, 128])
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_delta_bitmasks_match_pallas_interpret(name, block_size):
+    (rs, ru), (ts, tu) = WORKLOADS[name]()
+    want = ref_ops.sbm_delta_bitmasks(rs, ru, block_size=block_size,
+                                      interpret=True)
+    got = tops.sbm_delta_bitmasks(ts, tu, block_size=block_size)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy().view(np.uint32), np.asarray(w))
+    # second check: the vectorized plain version against the sequential
+    # replay of Algorithm 6
+    ep = tsweep._pad_stream(tsweep.encode_endpoints(ts, tu), block_size)
+    up = ep.is_upper.to(torch.int32)
+    valid = (ep.is_sub & (ep.owner >= 0)).to(torch.int32)
+    replay = tref.ref_delta_bitmasks_replay(ep.owner.clamp(min=0), up, valid,
+                                            num_words=got[0].shape[1],
+                                            block_size=block_size)
+    np.testing.assert_array_equal(got[0].numpy().view(np.uint32), replay[0])
+    np.testing.assert_array_equal(got[1].numpy().view(np.uint32), replay[1])
+
+
+# ---------------------------------------------------------------------------
+# pass C and the kernel enumeration engine
+# ---------------------------------------------------------------------------
+
+def _pass_c_inputs(rs, ru, block_size):
+    """Pass C's inputs, built by the reference and handed to both."""
+    n, m = rs.lo.shape[0], ru.lo.shape[0]
+    ep = ref_sweep._pad_stream(ref_sweep.encode_endpoints(rs, ru), block_size)
+    deltas = jnp.stack(ref_sweep._indicator_deltas(ep))
+    emit, _ = ref_kernels.sweep_count_pallas(deltas, block_size=block_size,
+                                             interpret=True)
+    cap = max(int(np.asarray(emit).reshape(-1, block_size).sum(1).max()), 1)
+    sadd, sdel, uadd, udel = ref_ops.sbm_delta_bitmasks(
+        rs, ru, block_size=block_size, interpret=True)
+    args = (jnp.clip(ep.owner, 0, None), ep.is_upper.astype(jnp.int32),
+            ep.is_sub.astype(jnp.int32), (ep.owner >= 0).astype(jnp.int32),
+            ref_prefix.delta_scan_exclusive(sadd, sdel),
+            ref_prefix.delta_scan_exclusive(uadd, udel))
+    assert n and m
+    return args, cap
+
+
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_pass_c_arrays_match_pallas_interpret(name):
+    (rs, ru), (ts, tu) = WORKLOADS[name]()
+    block_size = 64
+    args, cap = _pass_c_inputs(rs, ru, block_size)
+    want_i, want_j = ref_kernels.sweep_emit_pairs_pallas(
+        *args, block_size=block_size, cap=cap, interpret=True)
+    targs = [torch.from_numpy(np.array(a).view(np.int32)) for a in args]
+    got_i, got_j = tkernels.emit_pairs(*targs, block_size=block_size, cap=cap)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_j.numpy(), np.asarray(want_j))
+
+
+@pytest.mark.parametrize("max_pairs", [16, 4096])
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_enumerate_kernel_arrays_match_pallas_interpret(name, max_pairs):
+    """The whole engine (passes A/B, bitmasks, monoid scan, pass C, stitch)
+    gives the reference's padded buffer element for element, including a
+    buffer too short for K (count stays exact)."""
+    (rs, ru), (ts, tu) = WORKLOADS[name]()
+    want, k_r = ref_ops.sbm_enumerate_kernel(rs, ru, max_pairs=max_pairs,
+                                             block_size=64, interpret=True)
+    got, k = tops.sbm_enumerate_kernel(ts, tu, max_pairs=max_pairs,
+                                       block_size=64)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(k) == int(k_r)
+
+
+@pytest.mark.parametrize("max_pairs", [16, 4096])
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_sbm_enumerate_order_matches_reference(name, max_pairs):
+    (rs, ru), (ts, tu) = WORKLOADS[name]()
+    want, k_r = ref_enum.sbm_enumerate(rs, ru, max_pairs=max_pairs)
+    got, k = tenum.sbm_enumerate(ts, tu, max_pairs=max_pairs)
+    assert got.dtype == torch.int32 and k.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(k) == int(k_r)
+
+
+def test_oracles_match_reference():
+    (rs, ru), (ts, tu) = WORKLOADS["duplicates"]()
+    want, k_r = ref_enum.enumerate_matches(rs, ru, max_pairs=512, block=16)
+    got, k = tenum.enumerate_matches(ts, tu, max_pairs=512, block=16)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(k) == int(k_r)
+    np.testing.assert_array_equal(tenum.enumerate_matches_sweep_numpy(ts, tu),
+                                  ref_enum.enumerate_matches_sweep_numpy(rs, ru))
+    assert tsweep.sequential_sbm_pairs_numpy(ts, tu) \
+        == ref_sweep.sequential_sbm_pairs_numpy(rs, ru)
+
+
+def test_planned_enumeration_is_retry_free_and_counts_builds():
+    (_, _), (ts, tu) = WORKLOADS["uniform"]()
+    rec = truntime.StatsRecorder()
+    pairs, count, stats = tenum.sbm_enumerate_planned(ts, tu, recorder=rec)
+    assert stats.retries == 0 and stats.recompiles == 0
+    assert stats.capacity == truntime.round_up_pow2(int(count))
+    assert rec.calls == 1
+    assert truntime.pair_set(pairs) == tsweep.sequential_sbm_pairs_numpy(ts, tu)
+
+
+def test_round_up_pow2_matches_reference_ladder():
+    from repro.core.runtime import round_up_pow2
+    for k in list(range(1, 70)) + [1000, 1 << 20, (1 << 20) + 1]:
+        assert truntime.round_up_pow2(k) == round_up_pow2(k)
