@@ -1,6 +1,6 @@
 """repro_torch.api — the public surface of the port.
 
-* :class:`DDMService` — the single-tenant service (d = 1) with the unified
+* :class:`DDMService` — the single-tenant service (any d >= 1) with the unified
   mutation surface: ``register(side, lo, hi)``, ``move(side, rids, lo,
   hi)``, ``unregister(side, rids)`` (each a scalar region or a block), plus
   ``flush`` / ``pairs`` / ``match_count`` / ``stats``.

@@ -39,10 +39,10 @@ def _table(state, side: str) -> _RegionTable:
     hi = np.array(state.hi, dtype=np.float32, copy=True)
     live = np.array(state.live, dtype=bool, copy=True)
     free = [int(r) for r in state.free]
-    if lo.ndim != 2 or lo.shape[0] != 1 or hi.shape != lo.shape \
+    if lo.ndim != 2 or lo.shape[0] < 1 or hi.shape != lo.shape \
             or live.shape != (lo.shape[1],):
         raise ValidationError(
-            f"{side} table must be d = 1 with lo/hi (1, capacity) and live "
+            f"{side} table must have lo/hi (d, capacity) with d >= 1 and live "
             f"(capacity,): got lo {lo.shape}, hi {hi.shape}, live {live.shape}")
     bad = [r for r in free if not 0 <= r < live.shape[0] or live[r]]
     if bad or len(set(free)) != len(free):
@@ -61,11 +61,19 @@ def service_from_tables(subs, upds, *, device="cuda",
     are taken as they are: their order reflects the reference's history and
     decides which rids later registrations get.  The index is loaded with
     every live region under its own rid; the match cache starts cold, so the
-    first ``pairs()`` rebuilds it with the sweep.
+    first ``pairs()`` rebuilds it with the sweep.  The service's ``dims``
+    is the tables' d; both tables must have the same d.
     """
-    svc = DDMService(dims=1, device=device, **service_kwargs)
-    svc._subs = _table(subs, SUB)
-    svc._upds = _table(upds, UPD)
+    sub_table = _table(subs, SUB)
+    upd_table = _table(upds, UPD)
+    dims = sub_table.lo.shape[0]
+    if upd_table.lo.shape[0] != dims:
+        raise ValidationError(
+            f"{SUB} table has d = {dims}, {UPD} table d = "
+            f"{upd_table.lo.shape[0]}")
+    svc = DDMService(dims=dims, device=device, **service_kwargs)
+    svc._subs = sub_table
+    svc._upds = upd_table
     adds = {}
     for side, table in ((SUB, svc._subs), (UPD, svc._upds)):
         rids = table.live_ids()

@@ -33,6 +33,14 @@ class Extents:
     def size(self) -> int:
         return self.lo.shape[-1]
 
+    def dim(self, d: int) -> "Extents":
+        """Project onto dimension ``d`` (paper §3: d-dim reduces to 1-dim)."""
+        if self.lo.ndim == 1:
+            if d != 0:
+                raise ValidationError(f"1-d extents have no dimension {d}")
+            return self
+        return Extents(self.lo[d], self.hi[d])
+
     def validate(self) -> "Extents":
         if self.lo.shape != self.hi.shape:
             raise ValidationError(
@@ -114,6 +122,36 @@ def make_clustered_workload(n_sub: int, n_upd: int, alpha: float,
     lo = (centers[..., assign] + jitter).clamp(0.0, length - seg_len) \
         .to(torch.float32)
     hi = lo + seg_len
+    return _split(lo, hi, n_sub, device)
+
+
+def make_tall_thin_workload(n_sub: int, n_upd: int, alpha: float = 1.0,
+                            length: float = 1.0e6, d: int = 2,
+                            wide_dim: int = 0, *,
+                            generator: Optional[torch.Generator] = None,
+                            device="cuda") -> Tuple[Extents, Extents]:
+    """The adversarial d-dim workload: dim ``wide_dim`` is non-selective.
+
+    Every extent spans 98 % of the routing space along ``wide_dim`` (so all
+    n·m pairs overlap in that projection — the HLA tall/thin routing
+    shape), while the other dimensions carry the paper-§5 thin segments of
+    length αL/N.  A candidate generator pinned to the wide dimension needs
+    an O(n·m) buffer; the selective-dimension sweep and the bit-matrix AND
+    stay proportional to the true K.  Drawn on the generator's device, then
+    moved to ``device``.
+    """
+    if d < 2:
+        raise ValidationError("tall-thin needs d >= 2 (one wide + one thin dim)")
+    total = n_sub + n_upd
+    seg_len = _segment_length(alpha, length, total)
+    gdev = generator.device if generator is not None else "cpu"
+    lo = torch.rand((d, total), generator=generator, dtype=torch.float32,
+                    device=gdev) * (length - seg_len)
+    hi = lo + seg_len
+    wide_lo = torch.rand((total,), generator=generator, dtype=torch.float32,
+                         device=gdev) * (0.02 * length)
+    lo[wide_dim] = wide_lo
+    hi[wide_dim] = wide_lo + 0.98 * length
     return _split(lo, hi, n_sub, device)
 
 

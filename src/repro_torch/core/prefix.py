@@ -5,7 +5,8 @@
 * :func:`delta_combine_bits` / :func:`delta_scan_exclusive` — Algorithm 6's
   set monoid on boolean masks or packed bitmask words.
 * :func:`pack_bits` / :func:`unpack_bits` — the packed word layout shared
-  with the JAX package: bit ``k`` of word ``w`` is element ``32·w + k``.
+  with the JAX package: bit ``k`` of word ``w`` is element ``32·w + k``;
+  :func:`popcount32` counts a word's set bits.
 
 Packed words are held as ``int32`` tensors carrying the uint32 bit pattern:
 torch's ``uint32`` lacks ``~``, ``<<`` and ``>>`` on the CPU, while the
@@ -114,3 +115,13 @@ def unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
     bits = ((words.to(torch.int64)[..., :, None] & 0xFFFFFFFF) >> shifts) & 1
     flat = bits.reshape(words.shape[:-1] + (words.shape[-1] * _WORD_BITS,))
     return flat[..., :n].to(torch.bool)
+
+
+def popcount32(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32-held word, as int64 (torch has no popcount):
+    the SWAR bit-sum over the word's unsigned value."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24

@@ -1,4 +1,4 @@
-"""DDM service — the HLA-style Data Distribution Management facade (d = 1).
+"""DDM service — the HLA-style Data Distribution Management facade.
 
 Stateful register/modify/unregister of subscription and update regions,
 matching, and event routing — the service the paper's algorithm exists to
@@ -17,10 +17,12 @@ The stateless sweep is the rebuild path: :meth:`match_count` runs the
 counting sweep (passes A and B of :mod:`repro_torch.kernels.sbm_sweep`) and
 the rebuild in :meth:`_planned_sweep` runs the kernel pair enumeration
 (passes A and B, the delta-bitmask pass and pass C) under the runtime's
-count-then-retry executor.  On a CUDA ``device`` those are the
-hand-written kernels; on ``device="cpu"`` the same calls take the kernels'
-plain PyTorch versions.  Only ``dims == 1`` is served by this package: the
-d-dimensional engines are not ported yet.
+count-then-retry executor.  For ``dims > 1`` both run the
+selective-dimension sweep of :mod:`repro_torch.core.ddim` on the same
+kernels: the counting sweep probes every projection, the most selective
+one generates candidates and the other projections filter them.  On a CUDA
+``device`` those are the hand-written kernels; on ``device="cpu"`` the same
+calls take the kernels' plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import ddim as ddim_lib
 from repro_torch.core import incremental as incr_lib
 from repro_torch.core import runtime as runtime_lib
 from repro_torch.core.errors import ValidationError
@@ -193,10 +196,11 @@ class _RegionTable:
         return np.nonzero(self.live)[0]
 
     def compact(self, ids: np.ndarray, device) -> Extents:
-        """Live d = 1 extents only (the sweep precondition: lo <= hi), as
-        tensors on ``device``."""
-        return Extents(torch.from_numpy(self.lo[0, ids]).to(device),
-                       torch.from_numpy(self.hi[0, ids]).to(device))
+        """Live extents only (the sweep precondition: lo <= hi), as tensors
+        on ``device``: ``(n,)`` for d = 1, ``(d, n)`` for d > 1."""
+        rows = 0 if self.lo.shape[0] == 1 else slice(None)
+        return Extents(torch.from_numpy(self.lo[rows, ids]).to(device),
+                       torch.from_numpy(self.hi[rows, ids]).to(device))
 
 
 class DDMService:
@@ -223,11 +227,6 @@ class DDMService:
                  index_impl: str = "blocked",
                  block_target: Optional[int] = None,
                  device="cuda"):
-        if dims != 1:
-            raise ValidationError(
-                f"dims={dims}: this package serves d = 1 only; the "
-                "d-dimensional engines (selective-dimension sweep, "
-                "bit-matrix AND) are not ported yet")
         self.dims = dims
         # where the sweeps run: "cuda" launches the hand-written kernels,
         # "cpu" their plain PyTorch versions
@@ -530,7 +529,12 @@ class DDMService:
 
     def match_count(self) -> int:
         """K — cached match state when warm, else the SBM counting sweep
-        (:func:`repro_torch.kernels.ops.sbm_count_kernel`)."""
+        (:func:`repro_torch.kernels.ops.sbm_count_kernel`).
+
+        d > 1 probes every projection with the counting sweep and
+        enumerates candidates on the most selective dimension, filtering
+        the rest pairwise; only the count leaves the device.
+        """
         self._flush(want_delta=False)
         if self._match_cache is not None:
             return len(self._match_cache)
@@ -538,30 +542,46 @@ class DDMService:
         ul = self._upds.live_ids()
         if sl.size == 0 or ul.size == 0:
             return 0
-        return int(kernel_ops.sbm_count_kernel(
-            self._subs.compact(sl, self.device),
-            self._upds.compact(ul, self.device)))
+        subs = self._subs.compact(sl, self.device)
+        upds = self._upds.compact(ul, self.device)
+        if self.dims == 1:
+            return int(kernel_ops.sbm_count_kernel(subs, upds))
+        _, count, _ = self._planned_sweep(subs, upds, engine="service_count")
+        return int(count)
 
     def _planned_sweep(self, subs: Extents, upds: Extents, *, engine: str):
         """Probe → plan → emit over compacted live extents, instrumented.
 
-        The counting sweep's exact K seeds the planner's initial capacity,
-        so the executor's retry loop is structurally retry-free.  Stats land
-        in the service recorder under ``engine``.
+        The probe (the 1-d count, or for d > 1 the generator selection over
+        every projection's count) seeds the planner's initial capacity, so
+        the executor's retry loop is structurally retry-free.  Stats land in
+        the service recorder under ``engine``; d > 1 records the generator
+        dimension as the regime.
         """
         t0 = time.perf_counter()
-        k = int(kernel_ops.sbm_count_kernel(subs, upds))
+        if self.dims == 1:
+            gen, k = 0, int(kernel_ops.sbm_count_kernel(subs, upds))
+            regime = "sweep_1d"
+        else:
+            gen, counts = ddim_lib.select_dimension(
+                subs, upds, count_fn=kernel_ops.sbm_count_kernel)
+            k = counts[gen]
+            regime = f"sweep_dim{gen}"
         probe_s = time.perf_counter() - t0
-        regime = "sweep_1d"
         if k == 0:
             stats = runtime_lib.MatchStats(engine=engine, regime=regime)
             stats.add_phase("probe", probe_s)
             self._recorder.record(stats)
             return None, 0, stats
+
+        def fn(s, u, *, max_pairs):
+            return ddim_lib.enumerate_matches_ddim(
+                s, u, max_pairs=max_pairs, method="sweep", generator_dim=gen,
+                engine=kernel_ops.sbm_enumerate_kernel)
+
         return runtime_lib.execute_enumeration(
-            kernel_ops.sbm_enumerate_kernel, subs, upds, estimate=k,
-            policy=self._policy, engine=engine, regime=regime,
-            probe_seconds=probe_s, recorder=self._recorder)
+            fn, subs, upds, estimate=k, policy=self._policy, engine=engine,
+            regime=regime, probe_seconds=probe_s, recorder=self._recorder)
 
     def _sweep_pairs(self, subs: Extents, upds: Extents):
         """(i, j) index pairs over compacted live extents via the sweep."""

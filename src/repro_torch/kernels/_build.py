@@ -2,9 +2,10 @@
 
 The sources under ``csrc/`` have a plain C interface.  At first use in a
 process, :func:`library` compiles them with ``nvcc`` for ``sm_90a`` into
-``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
-named by a hash of the sources and flags so an edited source rebuilds and
-an unchanged one is reused, and loads the shared library with ``ctypes``.
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``):
+one ``nvcc`` per source, all started together, then one link into a shared
+library named by a hash of the sources and flags (an edited source
+rebuilds, an unchanged one is reused), loaded with ``ctypes``.
 Nothing here runs at import time: the CPU-only test environment imports
 every module and has no ``nvcc``.
 
@@ -25,19 +26,19 @@ import threading
 import torch
 
 from repro_torch.core import runtime as runtime_lib
-from repro_torch.core.errors import KernelError
+from repro_torch.core.errors import KernelError, ValidationError
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "sbm_sweep.cu",)
+SOURCES = (CSRC / "sbm_sweep.cu", CSRC / "bitmatch.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
-# C entry points of csrc/sbm_sweep.cu: name -> argument types (all return
-# the int value of cudaGetLastError()).  Pointers and the stream are
+# C entry points of csrc/*.cu: name -> argument types (all return the int
+# value of cudaGetLastError()).  Pointers and the stream are
 # c_void_p: ctypes would otherwise pass Python ints as 32-bit C ints.
 SIGNATURES = {
     "sbm_block_sums": (_P, _P, _LL, _I, _P),
@@ -45,6 +46,7 @@ SIGNATURES = {
     "sbm_delta_bitmasks": (_P, _P, _P, _P, _P, _LL, _I, _I, _P),
     "sbm_emit_pairs": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
                        _I, _LL, _P),
+    "bitmatch_words": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -68,17 +70,32 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs) -> str:
+    """Wait for every (cmd, Popen); raise on the first that failed."""
+    outs = [(cmd, *proc.communicate(), proc.returncode) for cmd, proc in procs]
+    for cmd, out, err, rc in outs:
+        if rc != 0:
+            raise KernelError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}{err}")
+    return "".join(out + err for _, out, err, _ in outs)
+
+
+def _spawn(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
 def _compile(target: pathlib.Path) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{target.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    log = _run([_spawn([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+                for src, obj in zip(SOURCES, objs)])
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
+    log += _run([_spawn([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)])])
     os.replace(tmp, target)
-    return proc.stdout + proc.stderr
+    for obj in objs:
+        obj.unlink()
+    return log
 
 
 def library() -> ctypes.CDLL:
@@ -91,7 +108,7 @@ def library() -> ctypes.CDLL:
             raise KernelError(
                 f"kernel sources not found in a checkout ({missing or CSRC}); "
                 "run the port from the repository with PYTHONPATH=src")
-        target = BUILD_DIR / f"sbm_sweep_{_digest()}.so"
+        target = BUILD_DIR / f"kernels_{_digest()}.so"
         log = _compile(target) if not target.exists() else ""
         lib = ctypes.CDLL(str(target))
         for name, argtypes in SIGNATURES.items():
@@ -107,6 +124,25 @@ def build_log() -> str:
     """nvcc's output of this process's build (``-Xptxas -v`` resource
     usage per kernel); empty when the library was already built."""
     return _state["log"]
+
+
+def on_card(*tensors: torch.Tensor, dtype: torch.dtype) -> bool:
+    """The wrappers' input rule: one device, ``dtype``, contiguous.  True
+    for CUDA tensors (launch the kernel), False for CPU tensors (take the
+    plain version); raises :class:`ValidationError` otherwise."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValidationError(f"tensors on {dev} and {t.device}")
+        if t.dtype != dtype:
+            raise ValidationError(f"expected {dtype} tensors, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValidationError("kernel inputs must be contiguous")
+    if dev.type == "cpu":
+        return False
+    if dev.type == "cuda":
+        return True
+    raise ValidationError(f"no kernel for device {dev}")
 
 
 def check(rc: int, name: str) -> None:

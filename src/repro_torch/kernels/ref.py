@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the four sweep kernels (the correctness contract).
+"""Plain PyTorch versions of the CUDA kernels (the correctness contract).
 
 Each ``ref_*`` function computes exactly what its CUDA kernel in
-:mod:`repro_torch.kernels.sbm_sweep` computes, with straightforward tensor
-code: the wrappers there use them for CPU tensors, and ``chip_smoke.py``
-holds each kernel against its plain version on the card.  All results are
-integers or bit words, so every comparison is exact.
+:mod:`repro_torch.kernels.sbm_sweep` or :mod:`repro_torch.kernels.bitmatch`
+computes, with straightforward tensor code: the wrappers there use them for
+CPU tensors, and ``chip_smoke.py`` holds each kernel against its plain
+version on the card.  All results are integers or bit words (the bit-matrix
+from the same float32 comparisons), so every comparison is exact.
 
 Bitmask words are int32 tensors carrying the uint32 bit pattern (see
 :mod:`repro_torch.core.prefix`).
@@ -14,7 +15,43 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.prefix import words_from_values
+from repro_torch.core.prefix import pack_bits, popcount32, words_from_values
+
+# mask elements per row block of ref_bitmatrix: pack_bits widens them to
+# int64, so a block's temporaries stay near 128 MiB at any m
+_BITMATRIX_BLOCK_ELEMS = 16 * 1024 * 1024
+
+
+def ref_bitmatrix(s_lo: torch.Tensor, s_hi: torch.Tensor, u_lo: torch.Tensor,
+                  u_hi: torch.Tensor, *, row_block: int = 0):
+    """The d-dim bit-matrix AND: (d, n) / (d, m) float32 bounds →
+    (words (n, ceil(m/32)) int32 in ``pack_bits`` layout, row popcounts
+    (n,) int32).
+
+    Bit ``j % 32`` of word ``(i, j // 32)`` is set iff the closed intervals
+    of subscription i and update j overlap in every dimension; bits at
+    j >= m stay 0.  Runs over blocks of ``row_block`` rows (default: about
+    16M mask elements each), so the (n, m) mask never exists whole.
+    """
+    d, n = s_lo.shape
+    m = u_lo.shape[1]
+    num_words = max(-(-m // 32), 1)
+    words = torch.zeros((n, num_words), dtype=torch.int32, device=s_lo.device)
+    counts = torch.zeros(n, dtype=torch.int32, device=s_lo.device)
+    if n == 0 or m == 0:
+        return words, counts
+    step = row_block or max(1, _BITMATRIX_BLOCK_ELEMS // m)
+    for start in range(0, n, step):
+        rows = slice(start, min(start + step, n))
+        mask = None
+        for k in range(d):
+            hit = (s_lo[k, rows, None] <= u_hi[k, None, :]) \
+                & (u_lo[k, None, :] <= s_hi[k, rows, None])
+            mask = hit if mask is None else mask & hit
+        block = pack_bits(mask)
+        words[rows] = block
+        counts[rows] = popcount32(block).sum(dim=1, dtype=torch.int32)
+    return words, counts
 
 
 def ref_block_sums(deltas: torch.Tensor, *, block_size: int) -> torch.Tensor:

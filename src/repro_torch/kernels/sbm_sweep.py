@@ -36,20 +36,7 @@ from repro_torch.kernels import ref as ref_lib
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
-            raise ValidationError(f"tensors on {dev} and {t.device}")
-        if t.dtype != torch.int32:
-            raise ValidationError(f"expected int32 tensors, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValidationError("kernel inputs must be contiguous")
-    if dev.type == "cpu":
-        return False
-    if dev.type == "cuda":
-        return True
-    raise ValidationError(f"no sweep kernel for device {dev}")
+    return _build.on_card(*tensors, dtype=torch.int32)
 
 
 def _blocks(total: int, block_size: int) -> int:

@@ -19,6 +19,8 @@ from repro_torch.core import intervals
 from repro_torch.core.errors import ValidationError
 from repro_torch.core.incremental import IncrementalIndex
 from repro_torch.core.service import DDMService
+from repro_torch.data import ddm_workload
+from repro_torch.kernels import bitmatch as tbitmatch
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import sbm_sweep as tkernels
 
@@ -51,7 +53,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_entry_points_default_to_the_card():
     for fn in (DDMService, IncrementalIndex, intervals.make_uniform_workload,
-               intervals.make_clustered_workload, extents_from_arrays):
+               intervals.make_clustered_workload,
+               intervals.make_tall_thin_workload, ddm_workload,
+               extents_from_arrays):
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn
     assert DDMService().device == torch.device("cuda")
@@ -137,5 +141,15 @@ def test_kernels_match_plain_versions_on_the_card():
                   real.to(torch.int32), *masks)
         got = tkernels.emit_pairs(*c_args, block_size=bs, cap=cap)
         want = tref.ref_emit_pairs(*c_args, block_size=bs, cap=cap)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # the bit-matrix AND, d = 1..4, ragged rows and words
+    for d, n, m in ((1, 33, 40), (2, 37, 130), (3, 300, 257), (4, 65, 1000)):
+        g = torch.Generator().manual_seed(d)
+        subs, upds = intervals.make_uniform_workload(n, m, 50.0, d=d,
+                                                     generator=g)
+        rows = [x if x.ndim == 2 else x[None] for x in
+                (subs.lo, subs.hi, upds.lo, upds.hi)]
+        got = tbitmatch.bitmatch(*(x.contiguous() for x in rows))
+        want = tref.ref_bitmatrix(*(x.contiguous() for x in rows))
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     torch.cuda.synchronize()
