@@ -47,9 +47,39 @@ Phases (any failure exits non-zero and prints no result line):
 8. The bit-matrix kernel timed at cell (a) beside its plain version and its
    bound (the larger of bytes over the HBM rate and compares over the
    float32 rate).
+9. Flash battery: the block-sparse flash attention kernel against its plain
+   version ``ref_flash_attention`` (same schedule) and the dense oracle
+   ``ref_attention``, in float32 (within 2e-5) and bfloat16 (within 2e-2):
+   the shapes of ``tests/test_kernels_attention.py`` (GQA 2:1 and 4:1,
+   MQA with 5 heads), windows of 64, 100 and 128, softcap 30, segments,
+   q_offset > 0, a global block, 32-blocks, 512-blocks (eight q tiles per
+   block, with and without a window), D = 64 and 128.
+10. Flash at full width: smollm-360m's prefill shapes (B = 4, H = 15,
+    Hkv = 5, S = 2048, D = 64, bfloat16, causal 512-blocks) with a peaked
+    softmax (scores of std 4): kernel == plain within one bf16 unit in the
+    last place, then its device time beside the plain version's, one
+    ``scaled_dot_product_attention`` call on the same tensors (the
+    yardstick; the port never calls it) and the bound over the live
+    (q, k) pairs, S(S+1)/2 per (batch, head).
+11. The serving path: smollm-360m at full width and depth (32 layers,
+    bfloat16 compute, float32 weights from a seeded generator) behind
+    ``ServeEngine`` with 4 slots answers 8 requests of 2048-token prompts,
+    16 new tokens each (max_len 2560).  Every request returns 16 tokens
+    below the vocabulary size, every decode step's logits are finite, and
+    the flash kernel's launch count, zeroed just before, is 32 layers x 2
+    waves = 64 just after.  Prints prefill ms per wave, decode ms per step
+    and tokens/s; then one more wave (prefill and 4 decode steps) under
+    ``torch.profiler``: device time by kernel class and the device's idle
+    share.
+12. Model twin: a 2-layer smollm-360m at full width in float32, one
+    1024-token prefill (the blockwise path, so the kernel) and 4 greedy
+    decode steps on the card and on a ``device="cpu"`` twin with the same
+    weights: last-position logits and KV caches within 1e-3 relative, and
+    equal greedy tokens.
 
-The last lines are the ``{"kernels": [...]}`` record, the launch counts,
-the phase timings, the card line, and ``{"ok": true, "device": {...}}``.
+The last lines are the ``{"kernels": [...]}`` record, the launch counts
+(d = 1 main path, d-dim service path, serving path), the phase timings,
+the card line, and ``{"ok": true, "device": {...}}``.
 Data come from a fixed seed.  Exits 2 without a result when no CUDA device
 is present or the script stands outside the repository.
 """
@@ -75,22 +105,82 @@ CHURN = (("sub", 1), ("upd", 100), ("sub", 1000), ("upd", 10_000))
 BITMATCH_SHAPES = ((1, 33, 40), (2, 64, 70), (2, 37, 130), (3, 96, 257))
 BITMATCH_FULL = (("a", 32_768, 2, 10.0), ("b", 100_000, 3, 100.0))
 DDIM_N = 100_000               # the d-dim service's regions per side
+# the slice's serving traffic: prompts a multiple of attn_block_q (512), so
+# prefill takes the blockwise path (the flash kernel)
+SERVE = dict(arch="smollm-360m", slots=4, requests=8, prompt_len=2048,
+             max_new=16, max_len=2560)
+TWIN = dict(layers=2, prompt_len=1024, steps=4)
+DECODE_PROFILED = 4            # decode steps under the profiler
+# substrings of cuBLAS / CUTLASS matrix-product kernel names
+MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+# (B, H, Hkv, Sq, Skv, D, block, features): tests/test_kernels_attention.py
+# and the CPU tests' feature grid
+FLASH_CASES = (
+    (1, 2, 2, 256, 256, 64, 64, {}),
+    (2, 4, 2, 128, 128, 64, 64, {}),
+    (1, 8, 2, 256, 256, 128, 64, {}),
+    (1, 5, 1, 128, 128, 64, 64, {}),
+    (1, 2, 2, 256, 256, 64, 64, {"window": 64}),
+    (1, 2, 2, 256, 256, 64, 64, {"window": 100}),
+    (1, 2, 2, 256, 256, 64, 64, {"window": 128}),
+    (1, 2, 2, 128, 128, 64, 64, {"softcap": 30.0}),
+    (2, 2, 2, 256, 256, 64, 64, {"segments": True}),
+    (1, 2, 2, 128, 512, 64, 64, {}),
+    (1, 2, 2, 256, 256, 64, 64, {"window": 64, "num_global_blocks": 1}),
+    (2, 6, 2, 96, 192, 128, 32, {"window": 40, "softcap": 30.0,
+                                 "segments": True}),
+    # the serving schedule's 512-blocks: eight 64-row q tiles per block
+    (1, 4, 2, 1024, 1024, 64, 512, {}),
+    (1, 3, 1, 512, 1536, 128, 512, {"window": 300}),
+)
+# (atol, rtol) as |kernel - ref| <= atol + rtol * |ref|;
+# tests/test_kernels_attention.py's bounds
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
+# at full width both sides round the same float32 result to bf16, so they
+# may differ by one bf16 unit in the last place, 2^-7 of the value at most
+FLASH_FULL_TOL = (1e-4, 2.0 ** -7)
+# full-width query gain: scores q.k/sqrt(D) of std 4, so the softmax is
+# peaked and the online rescale between KV blocks is exercised
+FLASH_FULL_Q_GAIN = 4.0
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores, data sheet
 REPLACES = {
     "block_sums": "src/repro/kernels/sbm_sweep.py:54",
     "emission": "src/repro/kernels/sbm_sweep.py:63",
     "delta_bitmasks": "src/repro/kernels/sbm_sweep.py:126",
     "emit_pairs": "src/repro/kernels/sbm_sweep.py:205",
     "bitmatch": "src/repro/kernels/bitmatch.py:40",
+    "flash_attention": "src/repro/kernels/flash_attention.py:33",
 }
 SOURCES = dict.fromkeys(
     ("block_sums", "emission", "delta_bitmasks", "emit_pairs"),
     "src/repro_torch/kernels/csrc/sbm_sweep.cu")
 SOURCES["bitmatch"] = "src/repro_torch/kernels/csrc/bitmatch.cu"
+SOURCES["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
 DEVICE = "cuda"
 
 
 class SmokeFailure(Exception):
     pass
+
+
+def live_pairs(kv_index, kv_count, block: int, sq: int, skv: int,
+               window=None) -> int:
+    """(q, k) pairs of a causal schedule that its token masks leave live,
+    per (batch, head): the work the function needs (q right-aligned)."""
+    import numpy as np
+
+    rows = np.arange(block)[:, None]
+    cols = np.arange(block)[None, :]
+    total = 0
+    for i, n in enumerate(kv_count):
+        q_pos = skv - sq + i * block + rows
+        for kb in kv_index[i, :n]:
+            k_pos = kb * block + cols
+            live = k_pos <= q_pos
+            if window is not None:
+                live &= k_pos > q_pos - window
+            total += int(live.sum())
+    return total
 
 
 def require(cond, what: str) -> None:
@@ -129,6 +219,10 @@ def main() -> int:
         smoke.bitmatch_full(cell, n, d, alpha)
     smoke.ddim_service()
     smoke.bitmatch_timing()
+    smoke.flash_battery()
+    smoke.flash_full()
+    smoke.serve()
+    smoke.model_twin()
     smoke.report(card)
     return 0
 
@@ -139,13 +233,17 @@ class Smoke:
         from repro_torch.kernels import _build, ops, ref
         from repro_torch.kernels import bitmatch as B
         from repro_torch.kernels import sbm_sweep as K
+        from repro_torch.kernels.flash_attention import KERNEL_WRAPPERS as F
 
         self.torch = torch
         self.K, self.B, self.ref, self.ops, self._build = K, B, ref, ops, _build
+        self.flash = F[0]
+        self.wrappers = K.KERNEL_WRAPPERS + B.KERNEL_WRAPPERS + F
         self.round_up_pow2 = runtime.round_up_pow2
         self.dev = torch.device(DEVICE)
-        self.err = {w.__name__: 0
-                    for w in K.KERNEL_WRAPPERS + B.KERNEL_WRAPPERS}
+        self.err = {w.__name__: 0 for w in K.KERNEL_WRAPPERS
+                    + B.KERNEL_WRAPPERS}
+        self.err["flash_attention"] = 0.0
         self.phase_ms = {}
         self.launches = {}
         self.rows = {}
@@ -646,19 +744,373 @@ class Smoke:
               f"({ops_ms:.4f} ms at {FP32_OPS_PER_S:.3g}/s), source "
               f"{self.timing_source.get('bitmatch_kernel')}", flush=True)
 
+    # -- the model stack's serving path: block-sparse flash attention -----
+    def flash_inputs(self, B, H, Hkv, Sq, Skv, D, dtype, gen, q_gain=None):
+        """randn q, k, v; scores of std 1/sqrt(D) (near-uniform softmax)
+        unless ``q_gain``, which gives scores of std ``q_gain``."""
+        torch = self.torch
+        q = torch.randn((B, H, Sq, D), generator=gen)
+        k = torch.randn((B, Hkv, Skv, D), generator=gen)
+        v = torch.randn((B, Hkv, Skv, D), generator=gen)
+        if q_gain is None:
+            q, k = q / D ** 0.25, k / D ** 0.25
+        else:
+            q = q * q_gain
+        return tuple(x.to(self.dev, dtype) for x in (q, k, v))
+
+    def flash_check(self, what, q, k, v, seg, block, window=None,
+                    softcap=None, num_global_blocks=0, tol=None):
+        """Kernel against the plain replay of the same schedule and, on the
+        same inputs, the dense oracle, within ``tol`` (atol, rtol; by default
+        FLASH_TOL of q's dtype); returns (the kernel's output, its max
+        |kernel - plain|)."""
+        torch = self.torch
+        sq, skv, d = q.shape[2], k.shape[2], q.shape[3]
+        qseg = None if seg is None else seg[:, skv - sq:].contiguous()
+        idx, cnt, _ = self.ops.build_block_structure(
+            sq, skv, block_q=block, block_k=block, window=window,
+            num_global_blocks=num_global_blocks)
+        # the schedule stays on the host: the wrapper checks and uploads it
+        args = (q, k, v, torch.from_numpy(idx), torch.from_numpy(cnt), qseg,
+                seg)
+        kw = dict(scale=d ** -0.5, causal=True, window=window,
+                  softcap=softcap, block_q=block, block_k=block,
+                  q_offset=skv - sq)
+        got = self.flash(*args, **kw)
+        want = self.ref.ref_flash_attention(*args, **kw)
+        dense = self.ref.ref_attention(q, k, v, window=window,
+                                       softcap=softcap, q_segments=qseg,
+                                       kv_segments=seg)
+        torch.cuda.synchronize()
+        atol, rtol = tol or FLASH_TOL[str(q.dtype).split(".")[-1]]
+        require(got.shape == q.shape and got.dtype == q.dtype,
+                f"flash {what}: output {got.shape}/{got.dtype}")
+        require(bool(torch.isfinite(got).all()), f"flash {what}: not finite")
+        errs = []
+        for name, ref_out in (("plain", want), ("dense oracle", dense)):
+            diff = (got.float() - ref_out.float()).abs()
+            errs.append(float(diff.max()))
+            require(bool((diff <= atol + rtol * ref_out.float().abs()).all()),
+                    f"flash {what}: kernel != {name} (max |diff| {errs[-1]}, "
+                    f"tolerance {atol} + {rtol:.4g} |ref|)")
+        self.err["flash_attention"] = max(self.err["flash_attention"], errs[0])
+        return got, errs[0]
+
+    def flash_battery(self):
+        torch = self.torch
+        gen = torch.Generator().manual_seed(SEED + 8)
+        worst = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for B, H, Hkv, Sq, Skv, D, blk, feats in FLASH_CASES:
+                q, k, v = self.flash_inputs(B, H, Hkv, Sq, Skv, D, dtype, gen)
+                seg = None
+                if feats.get("segments"):
+                    seg = torch.sort(torch.randint(0, 3, (B, Skv),
+                                                   generator=gen), dim=1) \
+                        .values.to(torch.int32).to(self.dev)
+                key = str(dtype)[6:]
+                what = (f"{key} B={B} H={H}/{Hkv} Sq={Sq} Skv={Skv} D={D} "
+                        f"block={blk} {feats}")
+                _, err = self.flash_check(
+                    what, q, k, v, seg, blk, window=feats.get("window"),
+                    softcap=feats.get("softcap"),
+                    num_global_blocks=feats.get("num_global_blocks", 0))
+                worst[key] = max(worst.get(key, 0.0), err)
+        print(f"flash battery: {len(FLASH_CASES)} cases x 2 dtypes, kernel "
+              f"== plain == dense oracle; max |kernel - plain| {worst}",
+              flush=True)
+
+    def flash_full(self):
+        """Full-width prefill shapes: parity, then device time, plain time,
+        the library call and the bound."""
+        from repro_torch.configs import get_config
+
+        torch = self.torch
+        F = torch.nn.functional
+        cfg = get_config(SERVE["arch"])
+        cfg_b, cfg_s = SERVE["slots"], SERVE["prompt_len"]
+        H, Hkv, D, blk = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                          cfg.attn_block_q)
+        gen = torch.Generator().manual_seed(SEED + 9)
+        q, k, v = self.flash_inputs(cfg_b, H, Hkv, cfg_s, cfg_s, D,
+                                    torch.bfloat16, gen,
+                                    q_gain=FLASH_FULL_Q_GAIN)
+        tag = f"B={cfg_b} H={H}/{Hkv} S={cfg_s} D={D} bf16 block {blk}"
+        got, err = self.flash_check(f"full width {tag}", q, k, v, None, blk,
+                                    tol=FLASH_FULL_TOL)
+        idx, cnt, _ = self.ops.build_block_structure(cfg_s, cfg_s,
+                                                     block_q=blk, block_k=blk)
+        args = (q, k, v, torch.from_numpy(idx), torch.from_numpy(cnt))
+        kw = dict(scale=D ** -0.5, causal=True, block_q=blk, block_k=blk)
+        lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                 enable_gqa=True)
+        lib_err = float((lib_out.float() - got.float()).abs().max())
+        require(lib_err <= 5e-2, f"flash full width: kernel vs "
+                f"scaled_dot_product_attention max |diff| {lib_err}")
+        pairs = live_pairs(idx, cnt, blk, cfg_s, cfg_s)
+        require(pairs == cfg_s * (cfg_s + 1) // 2,
+                f"flash full width: {pairs} live pairs, causal S(S+1)/2 is "
+                f"{cfg_s * (cfg_s + 1) // 2}")
+        ops = 4 * D * pairs * cfg_b * H
+        nbytes = 2 * (2 * q.numel() + 2 * cfg_b * Hkv * cfg_s * D) \
+            + 4 * (idx.size + cnt.size)
+        ops_ms = ops / BF16_OPS_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        self.flash_f32_ms = ops / FP32_OPS_PER_S * 1e3
+        self.rows["flash_attention"] = {
+            "name": "flash_attention", "route": "cuda",
+            "source": SOURCES["flash_attention"],
+            "replaces": REPLACES["flash_attention"],
+            "launches": None, "max_abs_err": None,
+            "ms": self.time_ms(lambda: self.flash(*args, **kw), 20,
+                               "flash_attention_fwd_kernel"),
+            "plain_ms": self.time_ms(
+                lambda: self.ref.ref_flash_attention(
+                    *args, window=None, softcap=None, q_offset=0, **kw), 3),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": self.time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), 20),
+        }
+        print(f"flash at full width ({tag}, scores of std "
+              f"{FLASH_FULL_Q_GAIN}): kernel == plain within "
+              f"{FLASH_FULL_TOL[0]} + 2^-7 |ref|, max |kernel - plain| "
+              f"{err:.4g}, max |kernel - sdpa| {lib_err:.4g}; "
+              f"{pairs} live (q, k) pairs per (b, h), {ops} flop "
+              f"({ops_ms:.4f} ms at bf16 tensor-core rate, "
+              f"{self.flash_f32_ms:.4f} ms at the float32 rate), {nbytes} "
+              f"bytes ({bytes_ms:.4f} ms); source "
+              f"{self.timing_source.get('flash_attention_fwd_kernel')}",
+              flush=True)
+
+    def serve(self):
+        """smollm-360m at full width through ServeEngine (the main path of
+        the model slice)."""
+        import numpy as np
+        from repro_torch.configs import get_config
+        from repro_torch.models import Model
+        from repro_torch.serve.engine import Request, ServeEngine
+
+        torch = self.torch
+        cfg = get_config(SERVE["arch"])
+        model = Model(cfg, device=DEVICE)
+        params = self.timed("serve init weights", lambda: model.init(
+            torch.Generator(DEVICE).manual_seed(SEED + 10)))
+        prefill_ms, decode_ms, finite = [], [], []
+        vocab = cfg.vocab_size
+
+        def timed_call(fn, log):
+            def call(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cache, logits = fn(*args)
+                finite.append(bool(torch.isfinite(logits[..., :vocab]).all()))
+                log.append((time.perf_counter() - t0) * 1e3)
+                return cache, logits
+            return call
+
+        plain_steps = (model.prefill, model.decode_step)
+        model.prefill = timed_call(model.prefill, prefill_ms)
+        model.decode_step = timed_call(model.decode_step, decode_ms)
+        eng = ServeEngine(model, params, num_slots=SERVE["slots"],
+                          max_len=SERVE["max_len"], device=DEVICE)
+        rng = np.random.default_rng(SEED + 11)
+        for rid in range(SERVE["requests"]):
+            eng.submit(Request(rid, rng.integers(
+                1, vocab, SERVE["prompt_len"]).tolist(), SERVE["max_new"]))
+        for w in self.wrappers:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        self.serve_launches = {w.__name__: w.launches for w in self.wrappers}
+        waves = -(-SERVE["requests"] // SERVE["slots"])
+        want = cfg.num_layers * waves
+        require(self.flash.launches == want,
+                f"serve: flash kernel launched {self.flash.launches} times, "
+                f"expected {cfg.num_layers} layers x {waves} waves = {want}")
+        require(sorted(results) == list(range(SERVE["requests"])),
+                f"serve: results for {sorted(results)}")
+        for rid, res in results.items():
+            require(len(res.tokens) == SERVE["max_new"]
+                    and all(0 <= t < vocab for t in res.tokens),
+                    f"serve: request {rid} returned {res.tokens}")
+        require(all(finite), "serve: non-finite logits")
+        self.rows["flash_attention"]["launches"] = self.flash.launches
+        tokens = sum(len(r.tokens) for r in results.values())
+        steps = decode_ms[1:] if len(decode_ms) > 1 else decode_ms
+        self.serve_numbers = {
+            "prefill_ms_per_wave": prefill_ms,
+            "decode_ms_per_step_mean": sum(steps) / len(steps),
+            "decode_steps": len(decode_ms),
+            "tokens_per_s": tokens / wall, "wall_s": wall,
+            "new_tokens": tokens,
+        }
+        self.phase_ms["serve (engine run)"] = wall * 1e3
+        print(f"serve: {cfg.name} full width ({cfg.param_count()} params, "
+              f"{cfg.num_layers} layers), {SERVE['requests']} requests x "
+              f"{SERVE['prompt_len']}-token prompts, {waves} waves of "
+              f"{SERVE['slots']}: {tokens} tokens, all < vocab, logits "
+              f"finite; flash launches {self.flash.launches}; "
+              + json.dumps(self.serve_numbers), flush=True)
+        print(f"  first tokens: {results[0].tokens[:8]}", flush=True)
+        self.serve_profile(model, params, *plain_steps)
+
+    def serve_profile(self, model, params, prefill, decode_step):
+        """Where a wave's time goes, after the counted run: one more prefill
+        and DECODE_PROFILED decode steps under ``torch.profiler``; device
+        time by kernel class (flash, matrix products, the rest) against
+        the host clock, so the device's idle share shows.  The profiler's
+        own cost inflates the host clock, so the idle share is an upper
+        bound; the unprofiled step times are the serve phase's."""
+        import numpy as np
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        cfg = model.cfg
+        rng = np.random.default_rng(SEED + 14)
+        toks = torch.from_numpy(rng.integers(
+            1, cfg.vocab_size, (SERVE["slots"], SERVE["prompt_len"]))).to(
+                self.dev)
+        cache = model.init_cache(SERVE["slots"], SERVE["max_len"])
+        out = {}
+        state = {}
+
+        def run_prefill():
+            state["cache"], state["logits"] = prefill(
+                params, {"tokens": toks}, cache)
+
+        def run_decode():
+            pos = SERVE["prompt_len"]
+            for _ in range(DECODE_PROFILED):
+                cur = state["logits"][:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+                state["cache"], state["logits"] = decode_step(
+                    params, cur, state["cache"], pos)
+                pos += 1
+
+        for phase, fn, steps in (("prefill", run_prefill, 1),
+                                 ("decode", run_decode, DECODE_PROFILED)):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            kinds = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+            launches = 0
+            top = []
+            for evt in prof.key_averages():
+                # device-side events only (kernels, copies, fills): the
+                # host ops that launched them carry the same time again
+                if evt.device_type != DeviceType.CUDA:
+                    continue
+                dev_us = getattr(evt, "self_device_time_total",
+                                 getattr(evt, "self_cuda_time_total", 0.0))
+                launches += evt.count
+                name = evt.key.lower()
+                kind = "flash" if "flash_attention_fwd" in name else (
+                    "matmul" if any(w in name for w in MATMUL_NAMES)
+                    else "other")
+                kinds[kind] += dev_us / 1e3
+                top.append((dev_us / 1e3, evt.key[:60]))
+            busy = sum(kinds.values())
+            out[phase] = {
+                "wall_ms_per_step": wall_ms / steps,
+                "device_ms_per_step": {k: v / steps for k, v in kinds.items()},
+                "device_idle_share": 1.0 - busy / wall_ms,
+                "device_events_per_step": launches / steps,
+                "top_kernels_ms": [(round(ms / steps, 4), name) for ms, name
+                                   in sorted(top, reverse=True)[:4]],
+            }
+        require(out["prefill"]["device_ms_per_step"]["flash"] > 0,
+                "serve profile: no flash kernel time in the prefill trace")
+        self.serve_numbers["profile"] = out
+        print("serve profile (one wave: prefill, then "
+              f"{DECODE_PROFILED} decode steps): " + json.dumps(out),
+              flush=True)
+
+    def model_twin(self):
+        """2-layer full-width float32 model on the card against a CPU twin."""
+        import dataclasses
+
+        import numpy as np
+        from repro_torch.configs import get_config
+        from repro_torch.models import Model
+
+        torch = self.torch
+        cfg = dataclasses.replace(get_config(SERVE["arch"]),
+                                  num_layers=TWIN["layers"],
+                                  dtype=torch.float32)
+        cpu_model, card_model = Model(cfg, device="cpu"), Model(cfg,
+                                                                device=DEVICE)
+        params = cpu_model.init(torch.Generator().manual_seed(SEED + 12))
+        card_params = _to_device(params, self.dev)
+        rng = np.random.default_rng(SEED + 13)
+        toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                             (1, TWIN["prompt_len"])))
+        max_len = TWIN["prompt_len"] + TWIN["steps"] + 1
+        runs = {}
+        before = self.flash.launches
+        for name, model, p, dev in (("cpu", cpu_model, params, "cpu"),
+                                    ("card", card_model, card_params,
+                                     self.dev)):
+            cache, logits = model.prefill(p, {"tokens": toks.to(dev)},
+                                          model.init_cache(1, max_len))
+            vocab = cfg.vocab_size     # the padded columns are all -1e30
+            out, tokens = [logits[:, -1, :vocab].cpu()], []
+            pos = TWIN["prompt_len"]
+            for _ in range(TWIN["steps"]):
+                cur = logits[:, -1, :vocab].argmax(-1)[:, None]
+                tokens.append(int(cur[0, 0]))
+                cache, logits = model.decode_step(p, cur, cache, pos)
+                out.append(logits[:, -1, :vocab].cpu())
+                pos += 1
+            runs[name] = (out, tokens,
+                          {n: (c.k.cpu(), c.v.cpu()) for n, c in cache.items()})
+        torch.cuda.synchronize()
+        require(self.flash.launches - before == cfg.num_layers,
+                f"twin: flash launches {self.flash.launches - before}")
+        worst = 0.0
+        (c_out, c_tok, c_kv), (g_out, g_tok, g_kv) = runs["cpu"], runs["card"]
+        pairs = list(zip(c_out, g_out)) + [
+            (a, b) for n in c_kv for a, b in zip(c_kv[n], g_kv[n])]
+        for want, got in pairs:
+            rel = float((got - want).abs().max() / want.abs().max())
+            worst = max(worst, rel)
+        require(worst <= 1e-3, f"twin: card vs cpu relative error {worst}")
+        require(c_tok == g_tok, f"twin: greedy tokens {g_tok} != cpu {c_tok}")
+        print(f"model twin: {cfg.num_layers}-layer {cfg.name} float32, "
+              f"{TWIN['prompt_len']}-token prefill + {TWIN['steps']} decode "
+              f"steps: logits and KV caches within {worst:.3g} relative of "
+              f"the cpu twin, greedy tokens {g_tok} equal", flush=True)
+
     def report(self, card: str):
         torch = self.torch
+        self.rows["flash_attention"]["max_abs_err"] = self.err["flash_attention"]
         print(json.dumps({"kernels": list(self.rows.values())}))
         print("launches on the main path (bitmatch: the bitmatrix path at "
               "cell (a)): " + json.dumps(self.launches))
         print("launches on the d-dim service path: "
               + json.dumps(self.ddim_launches))
+        print("launches on the serving path: "
+              + json.dumps(self.serve_launches))
         print("timings_ms: " + json.dumps(
             {k: round(v, 3) for k, v in self.phase_ms.items()}))
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
 
 
 if __name__ == "__main__":

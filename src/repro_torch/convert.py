@@ -8,6 +8,9 @@
 * :func:`extents_from_arrays` — extents from array-likes (numpy, or
   anything ``np.asarray`` reads, such as the JAX package's arrays) to the
   port's tensor :class:`~repro_torch.core.intervals.Extents`.
+* :func:`model_params_from_arrays` — a JAX ``Model.init`` parameter tree
+  (nested dicts of arrays, stacked on the leading ``layers`` axis) → the
+  port's parameter dict for the same config.
 
 Everything crosses as numpy arrays and lists, so nothing here imports the
 JAX package.
@@ -23,6 +26,8 @@ from repro_torch.core.errors import ValidationError
 from repro_torch.core.incremental import SUB, UPD
 from repro_torch.core.intervals import Extents
 from repro_torch.core.service import DDMService, _RegionTable
+from repro_torch.models.api import ModelConfig, iter_leaves
+from repro_torch.models.transformer import model_defs
 
 
 class RegionTableState(NamedTuple):
@@ -90,3 +95,35 @@ def extents_from_arrays(lo, hi, *, device="cuda") -> Extents:
     return Extents(
         torch.from_numpy(np.array(lo, np.float32)).to(device),
         torch.from_numpy(np.array(hi, np.float32)).to(device)).validate()
+
+
+def model_params_from_arrays(tree, cfg: ModelConfig, *, device="cuda"):
+    """The port's parameters from a JAX-layout parameter tree.
+
+    ``tree`` is a nested dict of array-likes with the structure and names
+    of ``model_defs(cfg)`` (as the JAX package's ``Model.init`` makes it:
+    ``embed``, ``final_norm``, ``blocks`` stacked on a leading ``layers``
+    axis).  Every leaf must have its ParamDef's shape; it becomes a tensor
+    of ``cfg.param_dtype`` on ``device``.  Raises :class:`ValidationError`
+    on a missing, extra or misshapen leaf.
+    """
+    given = dict(iter_leaves(tree))
+    defs = dict(iter_leaves(model_defs(cfg)))
+    if given.keys() != defs.keys():
+        raise ValidationError(
+            f"parameter tree does not match {cfg.name}: missing "
+            f"{sorted(defs.keys() - given.keys())[:4]}, extra "
+            f"{sorted(given.keys() - defs.keys())[:4]}")
+    out = {}
+    for path, d in defs.items():
+        arr = np.asarray(given[path])
+        if arr.shape != d.shape:
+            raise ValidationError(f"{path}: shape {arr.shape}, expected "
+                                  f"{d.shape}")
+        node = out
+        *parents, leaf = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = torch.from_numpy(np.array(arr, np.float32)).to(
+            device=device, dtype=cfg.param_dtype)
+    return out

@@ -29,7 +29,8 @@ from repro_torch.core import runtime as runtime_lib
 from repro_torch.core.errors import KernelError, ValidationError
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "sbm_sweep.cu", CSRC / "bitmatch.cu")
+SOURCES = (CSRC / "sbm_sweep.cu", CSRC / "bitmatch.cu",
+           CSRC / "flash_attention.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points of csrc/*.cu: name -> argument types (all return the int
 # value of cudaGetLastError()).  Pointers and the stream are
 # c_void_p: ctypes would otherwise pass Python ints as 32-bit C ints.
@@ -47,6 +49,8 @@ SIGNATURES = {
     "sbm_emit_pairs": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
                        _I, _LL, _P),
     "bitmatch_words": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _I, _P),
 }
 
 _lock = threading.Lock()

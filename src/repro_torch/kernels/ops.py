@@ -1,18 +1,23 @@
-"""Public entry points over the sweep kernels.
+"""Public entry points over the sweep kernels and the attention kernel.
 
 Encoding, sorting and padding are plain torch; the sweeps themselves run on
 the kernels of :mod:`repro_torch.kernels.sbm_sweep` for CUDA tensors and
-on their plain versions for CPU tensors.
+on their plain versions for CPU tensors.  :func:`flash_attention` builds
+the block schedule on the host (:func:`build_block_structure`, numpy) and
+runs :mod:`repro_torch.kernels.flash_attention` over it.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import prefix as prefix_lib
 from repro_torch.core.intervals import Extents
 from repro_torch.core.sweep import _indicator_deltas, _pad_stream, encode_endpoints
+from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels import sbm_sweep as sweep_kernels
 
 COUNT_BLOCK = 2048
@@ -114,3 +119,97 @@ def sbm_enumerate_kernel(subs: Extents, upds: Extents, *, max_pairs: int,
     pairs = _stitch_blocks(out_i, out_j, seg_totals, k_total,
                            max_pairs=max_pairs, cap=cap)
     return pairs, k_total
+
+
+# ---------------------------------------------------------------------------
+# Interest-managed (block-sparse) flash attention
+# ---------------------------------------------------------------------------
+
+def build_block_structure(
+    seq_len_q: int,
+    seq_len_kv: int,
+    *,
+    block_q: int = 128,
+    block_k: int = 128,
+    causal: bool = True,
+    window: Optional[int] = None,
+    num_global_blocks: int = 0,
+    extra_block_mask: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The static block schedule, by 1-D interval matching (host numpy).
+
+    Query block i subscribes to the key range it may see (causal prefix,
+    sliding window, everything for the first ``num_global_blocks``; q is
+    right-aligned to the KV window); KV block j updates its token span.
+    Returns (kv_index (nq, max_nk) int32 padded with 0, kv_count (nq,)
+    int32, block mask (nq, nk) bool) — the same arrays as the JAX
+    package's ``repro.kernels.ops.build_block_structure``.
+    """
+    nq = seq_len_q // block_q
+    nk = seq_len_kv // block_k
+    off = seq_len_kv - seq_len_q
+    q_start = np.arange(nq) * block_q + off
+    q_end = q_start + block_q - 1
+    lo = np.zeros(nq)
+    hi = q_end.astype(np.float64) if causal else np.full(nq, seq_len_kv - 1)
+    if window is not None:
+        lo = np.maximum(q_start - window + 1, 0).astype(np.float64)
+    if num_global_blocks:
+        lo[:num_global_blocks] = 0.0
+        hi[:num_global_blocks] = seq_len_kv - 1
+    k_start = np.arange(nk) * block_k
+    k_end = k_start + block_k - 1
+    bm = (lo[:, None] <= k_end[None, :]) & (k_start[None, :] <= hi[:, None])
+    if extra_block_mask is not None:
+        bm |= np.asarray(extra_block_mask, bool)
+    counts = bm.sum(axis=1, dtype=np.int32)
+    max_nk = max(int(counts.max()), 1)
+    kv_index = np.zeros((nq, max_nk), np.int32)
+    for i in range(nq):
+        idx = np.nonzero(bm[i])[0]
+        kv_index[i, :len(idx)] = idx
+    return kv_index, counts, bm
+
+
+@functools.lru_cache(maxsize=64)
+def _host_schedule(sq: int, skv: int, block_q: int, block_k: int,
+                   causal: bool, window: Optional[int],
+                   num_global_blocks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The schedule as CPU int32 tensors, built once per shape: the layers
+    of a prefill share it.  Nothing writes to the cached tensors."""
+    kv_index, kv_count, _ = build_block_structure(
+        sq, skv, block_q=block_q, block_k=block_k, causal=causal,
+        window=window, num_global_blocks=num_global_blocks)
+    return torch.from_numpy(kv_index), torch.from_numpy(kv_count)
+
+
+def flash_attention(
+    q: torch.Tensor,            # (B, H, Sq, D)
+    k: torch.Tensor,            # (B, Hkv, Skv, D)
+    v: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_segments: Optional[torch.Tensor] = None,
+    kv_segments: Optional[torch.Tensor] = None,
+    num_global_blocks: int = 0,
+    block_q: int = 128,
+    block_k: int = 128,
+) -> torch.Tensor:
+    """Interest-managed flash attention (public API).
+
+    The block schedule comes from matching the (causal, window, global)
+    interest extents; within a block the token masks handle the rest
+    (diagonal causality, window edges, document boundaries).  q is
+    right-aligned in the KV window (``q_offset = Skv - Sq``).  ``scale``
+    defaults to ``D ** -0.5``.
+    """
+    sq, skv = q.shape[2], k.shape[2]
+    kv_index, kv_count = _host_schedule(sq, skv, block_q, block_k, causal,
+                                        window, num_global_blocks)
+    return flash_attention_kernel(
+        q, k, v, kv_index, kv_count, q_segments, kv_segments, scale=scale,
+        causal=causal, window=window, softcap=softcap, block_q=block_q,
+        block_k=block_k, q_offset=skv - sq)

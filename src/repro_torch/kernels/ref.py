@@ -1,16 +1,22 @@
 """Plain PyTorch versions of the CUDA kernels (the correctness contract).
 
 Each ``ref_*`` function computes exactly what its CUDA kernel in
-:mod:`repro_torch.kernels.sbm_sweep` or :mod:`repro_torch.kernels.bitmatch`
-computes, with straightforward tensor code: the wrappers there use them for
-CPU tensors, and ``chip_smoke.py`` holds each kernel against its plain
-version on the card.  All results are integers or bit words (the bit-matrix
-from the same float32 comparisons), so every comparison is exact.
+:mod:`repro_torch.kernels.sbm_sweep`, :mod:`repro_torch.kernels.bitmatch`
+or :mod:`repro_torch.kernels.flash_attention` computes, with straightforward
+tensor code: the wrappers there use them for CPU tensors, and
+``chip_smoke.py`` holds each kernel against its plain version on the card.
+The sweep and bit-matrix results are integers or bit words (the bit-matrix
+from the same float32 comparisons), so those comparisons are exact; the
+attention outputs are floats, compared within a stated tolerance.
+:func:`ref_attention` is the dense-mask oracle of the attention kernel (no
+block schedule), as in the JAX package's ``repro/kernels/ref.py``.
 
 Bitmask words are int32 tensors carrying the uint32 bit pattern (see
 :mod:`repro_torch.core.prefix`).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -207,3 +213,125 @@ def ref_emit_pairs(owner, is_upper, is_sub, valid, sub_active0, upd_active0,
             else:
                 sets[side].add(o)
     return torch.from_numpy(out_i).to(dev), torch.from_numpy(out_j).to(dev)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1.0e30   # finite mask value: keeps exp() well-defined on dead rows
+
+
+def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  scale: Optional[float] = None, causal: bool = True,
+                  window: Optional[int] = None,
+                  softcap: Optional[float] = None,
+                  q_segments: Optional[torch.Tensor] = None,
+                  kv_segments: Optional[torch.Tensor] = None,
+                  block_mask: Optional[torch.Tensor] = None,
+                  block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """Dense-mask attention oracle (f32 softmax), GQA by head repetition.
+
+    q (B, H, Sq, D), k/v (B, Hkv, Skv, D); q is right-aligned in the KV
+    window (row r sits at position ``Skv - Sq + r``); ``block_mask``
+    (nq, nk) bool restricts the token mask to whole blocks; rows with no
+    live key come out as zeros.  Output in q's dtype.
+    """
+    _, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    rep = h // hkv
+    k = k.repeat_interleave(rep, dim=1)
+    v = v.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = (torch.arange(sq, device=q.device) + (skv - sq))[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    if block_mask is not None:
+        token_bm = torch.as_tensor(block_mask, device=q.device) \
+            .repeat_interleave(block_q, dim=0) \
+            .repeat_interleave(block_k, dim=1)[:sq, :skv]
+        mask &= token_bm
+    mask = mask[None, None]
+    if q_segments is not None:
+        seg = q_segments[:, :, None] == kv_segments[:, None, :]
+        mask = mask & seg[:, None]
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(dim=-1, keepdim=True), p, 0.0)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return out.to(q.dtype)
+
+
+def ref_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_index, kv_count,
+                        q_segments: Optional[torch.Tensor] = None,
+                        kv_segments: Optional[torch.Tensor] = None, *,
+                        scale: float, causal: bool, window: Optional[int],
+                        softcap: Optional[float], block_q: int, block_k: int,
+                        q_offset: int) -> torch.Tensor:
+    """The block-sparse flash forward by replay of its online softmax.
+
+    For each query block i, only the KV blocks ``kv_index[i, :kv_count[i]]``
+    are visited, in order; each one updates the running max ``m``, sum
+    ``l`` and accumulator (all float32, q/k/v cast to float32 before both
+    products) exactly as the kernel does: softcap before masking, masked
+    scores at −1e30 and masked probabilities forced to 0, output
+    ``acc / (l if l > 0 else 1)`` in q's dtype.  Positions: query row r at
+    ``q_offset + r``, key column c at c; segments (B, S) int32 restrict to
+    equal ids.  The answer depends on the schedule: a block left out of it
+    is never seen, whatever the token mask says.
+    """
+    b, h, sq, d = q.shape
+    hkv = k.shape[1]
+    g = h // hkv
+    dev = q.device
+    index = _host(kv_index)
+    count = _host(kv_count).tolist()
+    q5 = q.float().reshape(b, hkv, g, sq, d)
+    kf, vf = k.float(), v.float()
+    out = torch.empty((b, hkv, g, sq, d), dtype=torch.float32, device=dev)
+    rows = torch.arange(block_q, device=dev)[:, None]
+    cols = torch.arange(block_k, device=dev)[None, :]
+    for i in range(sq // block_q):
+        qs = slice(i * block_q, (i + 1) * block_q)
+        qb = q5[:, :, :, qs]                                  # (b,kv,g,bq,d)
+        m = torch.full((b, hkv, g, block_q), NEG_INF, device=dev)
+        l = torch.zeros((b, hkv, g, block_q), device=dev)
+        acc = torch.zeros((b, hkv, g, block_q, d), device=dev)
+        q_pos = q_offset + i * block_q + rows
+        for t in range(count[i]):
+            kb = int(index[i, t])
+            ks = slice(kb * block_k, (kb + 1) * block_k)
+            s = torch.einsum("bkgqd,bksd->bkgqs", qb, kf[:, :, ks]) * scale
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            k_pos = kb * block_k + cols
+            mask = torch.ones((block_q, block_k), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask &= k_pos <= q_pos
+            if window is not None:
+                mask &= k_pos > q_pos - window
+            mask = mask.expand(b, block_q, block_k)
+            if q_segments is not None:
+                mask = mask & (q_segments[:, qs, None]
+                               == kv_segments[:, None, ks])
+            mask = mask[:, None, None]                        # (b,1,1,bq,bk)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bksd->bkgqd", p, vf[:, :, ks])
+            m = m_new
+        out[:, :, :, qs] = acc / torch.where(l > 0, l, 1.0)[..., None]
+    return out.reshape(b, h, sq, d).to(q.dtype)

@@ -1,0 +1,143 @@
+"""Model configuration and the ParamDef system of the port.
+
+The counterpart of the JAX package's ``repro/models/api.py`` for the dense
+serving path: every layer declares its parameters once as ``ParamDef``s
+(shape, logical axes, initializer), and the same declaration drives
+initialization, :meth:`ModelConfig.param_count` and the check of parameters
+carried over from the JAX package (:mod:`repro_torch.convert`).
+
+``dtype`` (compute) and ``param_dtype`` are ``torch`` dtypes.  The fields of
+the MoE, Mamba, encoder-decoder and frontend paths that the dense path does
+not read are left out, apart from the flags the model checks to refuse
+them; those paths are later slices of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """One layer of the repeating pattern block."""
+    mixer: str          # "attn" | "attn_local" | "attn_bidir" | "mamba"
+    mlp: str            # "dense" | "moe" | "none"
+    cross_attn: bool = False   # decoder cross-attention (enc-dec models)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                  # dense | moe | vlm | audio | hybrid | ssm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    pattern: Tuple[LayerSpec, ...]          # repeats to num_layers
+    # attention details
+    window: Optional[int] = None            # for attn_local
+    attn_softcap: Optional[float] = None
+    logit_softcap: Optional[float] = None
+    rope_theta: float = 10_000.0
+    # paths of later slices (the model refuses them)
+    num_experts: int = 0
+    is_encoder_decoder: bool = False
+    frontend: Optional[str] = None          # "vision" | "audio"
+    # numerics
+    norm_eps: float = 1.0e-6
+    tie_embeddings: bool = True
+    dtype: torch.dtype = torch.bfloat16     # compute dtype
+    param_dtype: torch.dtype = torch.float32
+    attn_block_q: int = 512
+    attn_block_k: int = 512
+    vocab_pad_multiple: int = 256
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def num_blocks(self) -> int:
+        assert self.num_layers % len(self.pattern) == 0, \
+            f"{self.num_layers} layers not a multiple of pattern {len(self.pattern)}"
+        return self.num_layers // len(self.pattern)
+
+    def param_count(self) -> int:
+        """Total parameters (exact, from the ParamDef tree)."""
+        from repro_torch.models import transformer
+        return int(sum(np.prod(d.shape)
+                       for _, d in iter_leaves(transformer.model_defs(self))))
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]        # logical axis names
+    init: str = "normal"                   # normal | zeros | ones | embed | scale
+    scale_dim: Optional[int] = None        # fan-in override for "normal"
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def iter_leaves(tree, prefix: str = ""):
+    """(path, leaf) of a nested dict (of ParamDefs, arrays or tensors), in
+    insertion order; paths join the keys with "/"."""
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(val, dict):
+            yield from iter_leaves(val, path)
+        else:
+            yield path, val
+
+
+def _init_leaf(d: ParamDef, dtype, device, generator) -> torch.Tensor:
+    if d.init in ("zeros", "scale"):    # scale: RMSNorm, applied as (1 + s)
+        return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    fan_in = d.scale_dim if d.scale_dim is not None else d.shape[0]
+    if d.init == "embed":
+        fan_in = d.shape[-1]   # (vocab, d_model): unit-scale after ·√d input mult
+    std = 1.0 / float(np.sqrt(max(fan_in, 1)))
+    draw = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                       device=generator.device)
+    return (draw * std).to(device=device, dtype=dtype)
+
+
+def init_params(defs, dtype, generator: torch.Generator, *,
+                device="cuda") -> Dict:
+    """Materialize a ParamDef tree on ``device``.
+
+    The same distributions as the JAX package (normal with std
+    1/sqrt(fan-in), zeros for norm scales), not the same numbers: the
+    leaves are drawn one after another, in the tree's order, from
+    ``generator`` (on its own device), then moved to ``device``.
+    """
+    def build(node):
+        if isinstance(node, ParamDef):
+            return _init_leaf(node, dtype, device, generator)
+        return {key: build(val) for key, val in node.items()}
+
+    return build(defs)
+
+
+def stack_defs(defs, n: int, axis_name: Optional[str] = "layers") -> Dict:
+    """Prepend a stacking dimension (one entry per pattern block)."""
+    def stack(node):
+        if isinstance(node, ParamDef):
+            return ParamDef((n,) + node.shape, (axis_name,) + node.axes,
+                            node.init,
+                            node.scale_dim if node.scale_dim is not None
+                            else (node.shape[0] if node.init == "normal"
+                                  else None))
+        return {key: stack(val) for key, val in node.items()}
+
+    return stack(defs)

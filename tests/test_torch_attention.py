@@ -1,0 +1,230 @@
+"""The port's attention kernels' plain path against the JAX package.
+
+Inputs are made once with numpy from a seed and handed to both packages:
+``build_block_structure`` must give the same arrays; the port's
+``ref_flash_attention`` (the plain version of the CUDA flash kernel, which
+the wrapper runs on CPU tensors) must agree with the Pallas kernel in
+interpret mode and with the JAX model's ``blockwise_attention`` (float32,
+within 2e-5, the bound of ``tests/test_kernels_attention.py``); the port's
+``ref_attention`` must agree with the JAX dense oracle.  The feature grid is
+the one ``chip_smoke.py`` runs on the card: GQA, MQA, windows, softcap,
+segments, ``q_offset > 0``, global blocks, D = 64 and 128.
+"""
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels.ref import ref_attention as jax_ref_attention
+from repro.models.attention import blockwise_attention as jax_blockwise
+from repro_torch.core.errors import ValidationError
+from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.models.attention import blockwise_attention
+
+jax.config.update("jax_platform_name", "cpu")
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _qkv(seed, B, H, Hkv, Sq, Skv, D):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((B, H, Sq, D)) / D ** 0.25).astype(np.float32)
+    k = (rng.standard_normal((B, Hkv, Skv, D)) / D ** 0.25).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, Skv, D)).astype(np.float32)
+    return q, k, v
+
+
+def _segments(seed, B, S):
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.integers(0, 3, (B, S)), axis=1).astype(np.int32)
+
+
+# (B, H, Hkv, Sq, Skv, D, block, features)
+CASES = {
+    "mha": (1, 2, 2, 256, 256, 64, 64, {}),
+    "gqa2": (2, 4, 2, 128, 128, 64, 64, {}),
+    "gqa4_d128": (1, 8, 2, 256, 256, 128, 64, {}),
+    "mqa5": (1, 5, 1, 128, 128, 64, 64, {}),
+    "window64": (1, 2, 2, 256, 256, 64, 64, {"window": 64}),
+    "window100": (1, 2, 2, 256, 256, 64, 64, {"window": 100}),
+    "window128": (1, 2, 2, 256, 256, 64, 64, {"window": 128}),
+    "softcap": (1, 2, 2, 128, 128, 64, 64, {"softcap": 30.0}),
+    "segments": (2, 2, 2, 256, 256, 64, 64, {"segments": True}),
+    "q_offset": (1, 2, 2, 128, 512, 64, 64, {}),
+    "global": (1, 2, 2, 256, 256, 64, 64,
+               {"window": 64, "num_global_blocks": 1}),
+    "block32_all": (1, 4, 2, 128, 128, 16, 32,
+                    {"window": 40, "softcap": 30.0, "segments": True}),
+}
+
+
+def _case(name):
+    B, H, Hkv, Sq, Skv, D, blk, feats = CASES[name]
+    q, k, v = _qkv(len(name), B, H, Hkv, Sq, Skv, D)
+    seg = _segments(7, B, Skv) if feats.get("segments") else None
+    kw = dict(causal=True, window=feats.get("window"),
+              softcap=feats.get("softcap"),
+              num_global_blocks=feats.get("num_global_blocks", 0),
+              block_q=blk, block_k=blk)
+    return (q, k, v), seg, kw
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+@pytest.mark.parametrize("S,block,causal,window,globals_", [
+    (s, b, c, w, g) for s, b, c, w, g in itertools.product(
+        (128, 512), (32, 64), (True, False), (None, 40, 64, 130), (0, 1))])
+def test_block_structure_equals_jax(S, block, causal, window, globals_):
+    for sq in (S, S // 2):            # self-attention and q right-aligned
+        got = tops.build_block_structure(
+            sq, S, block_q=block, block_k=block, causal=causal,
+            window=window, num_global_blocks=globals_)
+        want = jops.build_block_structure(
+            sq, S, block_q=block, block_k=block, causal=causal,
+            window=window, num_global_blocks=globals_)
+        for g_, w_ in zip(got, want):
+            assert g_.dtype == w_.dtype
+            np.testing.assert_array_equal(g_, w_)
+
+
+def test_block_structure_extra_mask_equals_jax():
+    extra = np.zeros((4, 4), bool)
+    extra[0, 3] = extra[2, 3] = True
+    got = tops.build_block_structure(256, 256, block_q=64, block_k=64,
+                                     window=64, extra_block_mask=extra)
+    want = jops.build_block_structure(256, 256, block_q=64, block_k=64,
+                                      window=64, extra_block_mask=extra)
+    for g_, w_ in zip(got, want):
+        np.testing.assert_array_equal(g_, w_)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_flash_equals_pallas_interpret(name):
+    (q, k, v), seg, kw = _case(name)
+    sq = q.shape[2]
+    qseg = None if seg is None else seg[:, -sq:]
+    want = jops.flash_attention(_j(q), _j(k), _j(v), q_segments=_j(qseg),
+                                kv_segments=_j(seg), interpret=True, **kw)
+    got = tops.flash_attention(_t(q), _t(k), _t(v), q_segments=_t(qseg),
+                               kv_segments=_t(seg), **kw)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("name", ["mha", "gqa2", "gqa4_d128", "mqa5",
+                                  "window100", "softcap", "segments",
+                                  "block32_all"])
+def test_blockwise_attention_equals_jax(name):
+    (q, k, v), seg, kw = _case(name)
+    d = q.shape[-1]
+    args = dict(scale=d ** -0.5, causal=True, window=kw["window"],
+                softcap=kw["softcap"], block_q=kw["block_q"],
+                block_k=kw["block_k"])
+    want = jax_blockwise(_j(q), _j(k), _j(v), q_segments=_j(seg),
+                         kv_segments=_j(seg), **args)
+    got = blockwise_attention(_t(q), _t(k), _t(v), q_segments=_t(seg),
+                              kv_segments=_t(seg), **args)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_ref_attention_equals_jax_ref(name):
+    (q, k, v), seg, kw = _case(name)
+    sq = q.shape[2]
+    qseg = None if seg is None else seg[:, -sq:]
+    args = dict(causal=True, window=kw["window"], softcap=kw["softcap"])
+    want = jax_ref_attention(_j(q), _j(k), _j(v), q_segments=_j(qseg),
+                             kv_segments=_j(seg), **args)
+    got = tref.ref_attention(_t(q), _t(k), _t(v), q_segments=_t(qseg),
+                             kv_segments=_t(seg), **args)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_ref_attention_block_mask_equals_jax_ref():
+    q, k, v = _qkv(3, 1, 2, 2, 128, 128, 16)
+    _, _, bm = tops.build_block_structure(128, 128, block_q=32, block_k=32,
+                                          window=40)
+    want = jax_ref_attention(_j(q), _j(k), _j(v), block_mask=jnp.asarray(bm),
+                             block_q=32, block_k=32)
+    got = tref.ref_attention(_t(q), _t(k), _t(v), block_mask=_t(bm),
+                             block_q=32, block_k=32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_schedule_decides_the_answer():
+    """A schedule that leaves out a block the token mask allows gives
+    another answer than the dense oracle: the plain version follows the
+    schedule, not the mask."""
+    (q, k, v), _, _ = _case("mha")
+    q, k, v = _t(q), _t(k), _t(v)
+    idx, cnt, _ = tops.build_block_structure(256, 256, block_q=64,
+                                             block_k=64)
+    args = dict(scale=64 ** -0.5, causal=True, window=None, softcap=None,
+                block_q=64, block_k=64, q_offset=0)
+    full = tref.ref_flash_attention(q, k, v, idx, cnt, **args)
+    np.testing.assert_allclose(full.numpy(),
+                               tref.ref_attention(q, k, v).numpy(), **TOL)
+    cut = cnt.copy()
+    cut[3] -= 1                        # q block 3 loses its diagonal block
+    part = tref.ref_flash_attention(q, k, v, idx, cut, **args)
+    assert torch.equal(part[:, :, :192], full[:, :, :192])
+    assert not torch.allclose(part[:, :, 192:], full[:, :, 192:])
+
+
+def test_bf16_plain_flash_close_to_f32():
+    (q, k, v), _, kw = _case("gqa2")
+    kw.pop("num_global_blocks")
+    got = tops.flash_attention(*(_t(x).to(torch.bfloat16) for x in (q, k, v)),
+                               **kw)
+    want = tops.flash_attention(_t(q), _t(k), _t(v), **kw)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_wrapper_validates_and_counts_no_plain_run():
+    q = torch.zeros((1, 2, 64, 256))
+    k = torch.zeros((1, 2, 64, 256))
+    idx, cnt, _ = tops.build_block_structure(64, 64, block_q=32, block_k=32)
+    idx, cnt = torch.from_numpy(idx), torch.from_numpy(cnt)
+    before = flash_attention_kernel.launches
+    out = flash_attention_kernel(q, k, k, idx, cnt, block_q=32,
+                                        block_k=32)
+    assert out.shape == q.shape            # D = 256 is fine on the CPU
+    assert flash_attention_kernel.launches == before
+    with pytest.raises(ValidationError):   # ragged block
+        flash_attention_kernel(q, k, k, idx, cnt, block_q=48,
+                                      block_k=32)
+    with pytest.raises(ValidationError):   # H not a multiple of Hkv
+        flash_attention_kernel(torch.zeros((1, 3, 64, 256)), k, k, idx,
+                                      cnt, block_q=32, block_k=32)
+    with pytest.raises(ValidationError):   # int schedule of the wrong dtype
+        flash_attention_kernel(q, k, k, idx.long(), cnt, block_q=32,
+                                      block_k=32)
+    with pytest.raises(ValidationError):   # float16 is not taken
+        flash_attention_kernel(q.half(), k.half(), k.half(), idx, cnt,
+                                      block_q=32, block_k=32)
+    with pytest.raises(ValidationError):   # a KV block past Skv
+        flash_attention_kernel(q, k, k, idx + 2, cnt, block_q=32, block_k=32)
+    with pytest.raises(ValidationError):   # a count past max_nk
+        flash_attention_kernel(q, k, k, idx, cnt + 2, block_q=32, block_k=32)
+    with pytest.raises(ValidationError):   # one segment side only
+        flash_attention_kernel(q, k, k, idx, cnt,
+                                      torch.zeros((1, 64), dtype=torch.int32),
+                                      block_q=32, block_k=32)
+    with pytest.raises(ValidationError):   # no kernel for meta tensors
+        flash_attention_kernel(q.to("meta"), k.to("meta"),
+                                      k.to("meta"), idx.to("meta"),
+                                      cnt.to("meta"), block_q=32, block_k=32)

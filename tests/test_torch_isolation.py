@@ -14,15 +14,21 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.convert import extents_from_arrays
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.convert import extents_from_arrays, model_params_from_arrays
 from repro_torch.core import intervals
 from repro_torch.core.errors import ValidationError
 from repro_torch.core.incremental import IncrementalIndex
 from repro_torch.core.service import DDMService
 from repro_torch.data import ddm_workload
 from repro_torch.kernels import bitmatch as tbitmatch
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import sbm_sweep as tkernels
+from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.models import Model
+from repro_torch.models.api import init_params
+from repro_torch.serve.engine import ServeEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -55,10 +61,13 @@ def test_entry_points_default_to_the_card():
     for fn in (DDMService, IncrementalIndex, intervals.make_uniform_workload,
                intervals.make_clustered_workload,
                intervals.make_tall_thin_workload, ddm_workload,
-               extents_from_arrays):
+               extents_from_arrays, Model, init_params, ServeEngine,
+               model_params_from_arrays):
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn
     assert DDMService().device == torch.device("cuda")
+    cfg = reduce_config(get_config("smollm-360m"))
+    assert Model(cfg).device == torch.device("cuda")
 
 
 def test_no_silent_cpu_path_without_a_card():
@@ -71,6 +80,11 @@ def test_no_silent_cpu_path_without_a_card():
         svc.match_count()
     with pytest.raises((RuntimeError, AssertionError)):
         intervals.make_uniform_workload(4, 4, 1.0)
+    model = Model(reduce_config(get_config("smollm-360m")))
+    with pytest.raises((RuntimeError, AssertionError)):
+        model.init(torch.Generator().manual_seed(0))
+    with pytest.raises((RuntimeError, AssertionError)):
+        model.init_cache(1, 8)
 
 
 def test_wrappers_validate_and_do_not_count_plain_runs():
@@ -87,6 +101,17 @@ def test_wrappers_validate_and_do_not_count_plain_runs():
         tkernels.block_sums(deltas.t().contiguous().t(), block_size=32)
     with pytest.raises(ValidationError):                    # no meta kernel
         tkernels.block_sums(deltas.to("meta"), block_size=32)
+    # the flash wrapper: the plain version on the CPU, at any head width
+    q = torch.zeros((1, 2, 64, 256))
+    idx, cnt, _ = tops.build_block_structure(64, 64, block_q=32, block_k=32)
+    idx, cnt = torch.from_numpy(idx), torch.from_numpy(cnt)
+    before = flash_attention_kernel.launches
+    assert torch.equal(flash_attention_kernel(q, q, q, idx, cnt, block_q=32,
+                                              block_k=32), q)
+    assert flash_attention_kernel.launches == before
+    with pytest.raises(ValidationError):                    # mixed devices
+        flash_attention_kernel(q, q, q, idx.to("meta"), cnt, block_q=32,
+                               block_k=32)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
@@ -152,4 +177,42 @@ def test_kernels_match_plain_versions_on_the_card():
         got = tbitmatch.bitmatch(*(x.contiguous() for x in rows))
         want = tref.ref_bitmatrix(*(x.contiguous() for x in rows))
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # block-sparse flash attention, f32 and bf16: GQA, window, softcap,
+    # segments, q_offset, a ragged 32-block schedule, D = 64 and 128
+    gen = torch.Generator().manual_seed(5)
+    for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for h, hkv, sq, skv, d, blk, window, softcap, segs in (
+                (8, 2, 256, 256, 128, 64, None, None, False),
+                (5, 1, 128, 256, 64, 64, 100, 30.0, False),
+                (4, 2, 96, 96, 64, 32, 40, None, True)):
+            q = torch.randn((2, h, sq, d), generator=gen).cuda().to(dt)
+            k = torch.randn((2, hkv, skv, d), generator=gen).cuda().to(dt)
+            v = torch.randn((2, hkv, skv, d), generator=gen).cuda().to(dt)
+            seg = torch.sort(torch.randint(0, 3, (2, skv), generator=gen),
+                             dim=1).values.to(torch.int32).cuda() \
+                if segs else None
+            qseg = None if seg is None else seg[:, skv - sq:].contiguous()
+            idx, cnt, _ = tops.build_block_structure(
+                sq, skv, block_q=blk, block_k=blk, window=window)
+            args = (q, k, v, torch.from_numpy(idx), torch.from_numpy(cnt),
+                    qseg, seg)
+            kw = dict(scale=d ** -0.5, causal=True, window=window,
+                      softcap=softcap, block_q=blk, block_k=blk,
+                      q_offset=skv - sq)
+            before = flash_attention_kernel.launches
+            got = flash_attention_kernel(*args, **kw)
+            assert flash_attention_kernel.launches == before + 1
+            want = tref.ref_flash_attention(*args, **kw)
+            assert got.dtype == dt
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+    q = torch.zeros((1, 2, 64, 256), device="cuda")
+    idx, cnt, _ = tops.build_block_structure(64, 64, block_q=32, block_k=32)
+    idx, cnt = torch.from_numpy(idx), torch.from_numpy(cnt)
+    with pytest.raises(ValidationError):                    # D = 256
+        flash_attention_kernel(q, q, q, idx, cnt, block_q=32, block_k=32)
+    q64 = torch.zeros((1, 2, 64, 64), device="cuda")
+    with pytest.raises(ValidationError):            # schedule on the card
+        flash_attention_kernel(q64, q64, q64, idx.cuda(), cnt.cuda(),
+                               block_q=32, block_k=32)
     torch.cuda.synchronize()
