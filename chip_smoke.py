@@ -49,18 +49,25 @@ Phases (any failure exits non-zero and prints no result line):
    float32 rate).
 9. Flash battery: the block-sparse flash attention kernel against its plain
    version ``ref_flash_attention`` (same schedule) and the dense oracle
-   ``ref_attention``, in float32 (within 2e-5) and bfloat16 (within 2e-2):
-   the shapes of ``tests/test_kernels_attention.py`` (GQA 2:1 and 4:1,
-   MQA with 5 heads), windows of 64, 100 and 128, softcap 30, segments,
-   q_offset > 0, a global block, 32-blocks, 512-blocks (eight q tiles per
-   block, with and without a window), D = 64 and 128.
+   ``ref_attention``, in float32 (within 2e-5; the scalar kernel) and
+   bfloat16 (the tensor-core kernel; scores of std 4, within 2e-2 and
+   within the bound derived at ``flash_full_tol``): the shapes of
+   ``tests/test_kernels_attention.py`` (GQA 2:1 and 4:1, MQA with 5 heads),
+   windows of 64, 100 and 128, softcap 30 and 50, segments, q_offset > 0, a
+   global block, 32-blocks, 512-blocks (eight q tiles per block, with and
+   without a window), D = 64, 128 and 256.
 10. Flash at full width: smollm-360m's prefill shapes (B = 4, H = 15,
     Hkv = 5, S = 2048, D = 64, bfloat16, causal 512-blocks) with a peaked
-    softmax (scores of std 4): kernel == plain within one bf16 unit in the
-    last place, then its device time beside the plain version's, one
-    ``scaled_dot_product_attention`` call on the same tensors (the
-    yardstick; the port never calls it) and the bound over the live
-    (q, k) pairs, S(S+1)/2 per (batch, head).
+    softmax (scores of std 4): kernel == plain and dense oracle within the
+    bound derived at ``flash_full_tol``, then its device time beside the
+    plain version's, one ``scaled_dot_product_attention`` call on the same
+    tensors (the yardstick; the port never calls it) and the bound over
+    the live (q, k) pairs, S(S+1)/2 per (batch, head).  Then the same at
+    gemma2-2b's shapes (B = 2, H = 8, Hkv = 4, S = 8192, D = 256,
+    softcap 50), once for a global layer (causal) and once for a local
+    one (window 4096), each beside the same function in one
+    ``flex_attention`` call (compiled; a tanh score_mod and a causal or
+    sliding-window block mask), the yardstick.
 11. The serving path: smollm-360m at full width and depth (32 layers,
     bfloat16 compute, float32 weights from a seeded generator) behind
     ``ServeEngine`` with 4 slots answers 8 requests of 2048-token prompts,
@@ -71,14 +78,23 @@ Phases (any failure exits non-zero and prints no result line):
     and tokens/s; then one more wave (prefill and 4 decode steps) under
     ``torch.profiler``: device time by kernel class and the device's idle
     share.
-12. Model twin: a 2-layer smollm-360m at full width in float32, one
+12. gemma2-2b at full width and depth (26 layers, head_dim 256, local
+    window 4096 and global layers alternating, softcap 50 on every
+    layer) behind ``ServeEngine`` with 2 slots answers 2 requests of
+    8192-token prompts, 8 new tokens each (max_len 8704): the same checks,
+    and 26 flash launches for its one wave (counts zeroed just before),
+    counted also per layer kind at the call site: 13 global, 13 local.
+13. Model twin: a 2-layer smollm-360m at full width in float32, one
     1024-token prefill (the blockwise path, so the kernel) and 4 greedy
     decode steps on the card and on a ``device="cpu"`` twin with the same
     weights: last-position logits and KV caches within 1e-3 relative, and
     equal greedy tokens.
 
-The last lines are the ``{"kernels": [...]}`` record, the launch counts
-(d = 1 main path, d-dim service path, serving path), the phase timings,
+The build prints every kernel's registers, shared memory and spills from
+nvcc's ``-Xptxas -v`` report.
+The last lines are the ``{"kernels": [...]}`` record, the flash rows at
+gemma2-2b's shapes, the launch counts (d = 1 main path, d-dim service
+path, the two serving paths), the phase timings,
 the card line, and ``{"ok": true, "device": {...}}``.
 Data come from a fixed seed.  Exits 2 without a result when no CUDA device
 is present or the script stands outside the repository.
@@ -86,7 +102,10 @@ is present or the script stands outside the repository.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -105,10 +124,14 @@ CHURN = (("sub", 1), ("upd", 100), ("sub", 1000), ("upd", 10_000))
 BITMATCH_SHAPES = ((1, 33, 40), (2, 64, 70), (2, 37, 130), (3, 96, 257))
 BITMATCH_FULL = (("a", 32_768, 2, 10.0), ("b", 100_000, 3, 100.0))
 DDIM_N = 100_000               # the d-dim service's regions per side
-# the slice's serving traffic: prompts a multiple of attn_block_q (512), so
-# prefill takes the blockwise path (the flash kernel)
+# the serving traffic: prompts a multiple of attn_block_q (512), so prefill
+# takes the blockwise path (the flash kernel)
 SERVE = dict(arch="smollm-360m", slots=4, requests=8, prompt_len=2048,
              max_new=16, max_len=2560)
+# gemma 2's context: 16 blocks of 512, so the local layers' 4096-window
+# drops blocks while the global layers stay causal over all 8192
+SERVE_GEMMA = dict(arch="gemma2-2b", slots=2, requests=2, prompt_len=8192,
+                   max_new=8, max_len=8704)
 TWIN = dict(layers=2, prompt_len=1024, steps=4)
 DECODE_PROFILED = 4            # decode steps under the profiler
 # substrings of cuBLAS / CUTLASS matrix-product kernel names
@@ -132,13 +155,37 @@ FLASH_CASES = (
     # the serving schedule's 512-blocks: eight 64-row q tiles per block
     (1, 4, 2, 1024, 1024, 64, 512, {}),
     (1, 3, 1, 512, 1536, 128, 512, {"window": 300}),
+    # head width 256 (gemma2-2b): causal; 32-blocks with every feature;
+    # 512-blocks with a window, softcap 50 and q_offset
+    (1, 4, 2, 256, 256, 256, 64, {}),
+    (2, 4, 2, 128, 128, 256, 32, {"window": 40, "softcap": 50.0,
+                                  "segments": True}),
+    (1, 4, 2, 512, 1536, 256, 512, {"window": 700, "softcap": 50.0}),
 )
 # (atol, rtol) as |kernel - ref| <= atol + rtol * |ref|;
 # tests/test_kernels_attention.py's bounds
 FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
-# at full width both sides round the same float32 result to bf16, so they
-# may differ by one bf16 unit in the last place, 2^-7 of the value at most
-FLASH_FULL_TOL = (1e-4, 2.0 ** -7)
+
+
+def flash_full_tol(v) -> tuple:
+    """(atol, rtol) of the bf16 kernel against a float32 reference that is
+    rounded to bf16, |kernel - ref| <= atol + rtol |ref|, for values v.
+
+    The kernel rounds each probability p to bf16 (RNE) before P·V, so
+    p~ = p (1 + eps) with |eps| <= 2^-9.  l is summed from the float32 p,
+    so its float32 result a = sum p~ v / l differs from the reference's
+    b = sum p v / l by |a - b| = |sum (p/l) eps v| <= 2^-9 max|v| =: delta.
+    Both sides round to bf16, half a unit in the last place each, at most
+    2^-8 of the value: |rnd(a) - ref| <= 2^-8 |a| + delta + 2^-8 |b| with
+    |b| <= |ref| / (1 - 2^-8) and |a| <= |b| + delta, hence
+    <= (1 + 2^-8) delta + 2^-7 |ref| / (1 - 2^-8).  1e-4 more covers the
+    float32 sums taken in another order and exp2 with log2(e) folded into
+    the scale (score errors of ~1e-5 at scores of std 4, times max|v| ~ 5).
+    """
+    delta = 2.0 ** -9 * float(v.float().abs().max())
+    return (1 + 2.0 ** -8) * delta + 1e-4, 2.0 ** -7 / (1 - 2.0 ** -8)
+
+
 # full-width query gain: scores q.k/sqrt(D) of std 4, so the softmax is
 # peaked and the online rescale between KV blocks is exercised
 FLASH_FULL_Q_GAIN = 4.0
@@ -157,6 +204,8 @@ SOURCES = dict.fromkeys(
 SOURCES["bitmatch"] = "src/repro_torch/kernels/csrc/bitmatch.cu"
 SOURCES["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
 DEVICE = "cuda"
+# SASS opcodes counted per kernel: tensor cores, cp.async, ldmatrix
+SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "LDSM")
 
 
 class SmokeFailure(Exception):
@@ -183,6 +232,83 @@ def live_pairs(kv_index, kv_count, block: int, sq: int, skv: int,
     return total
 
 
+def _short_names(mangled) -> dict:
+    """Mangled kernel name -> demangled, template arguments kept, return
+    type, namespace and parameter list dropped (mangled if no c++filt)."""
+    mangled = list(mangled)
+    full = dict(zip(mangled, mangled))
+    if mangled and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(mangled),
+                             capture_output=True, text=True).stdout
+        full.update(zip(mangled, out.splitlines()))
+    short = {}
+    for name, text in full.items():
+        text = re.sub(r"^(void )?(\(anonymous namespace\)::)?", "", text)
+        short[name] = text[:text.index(">") + 1] if "<" in text \
+            else text.split("(")[0]
+    return short
+
+
+def ptxas_resources(log: str) -> dict:
+    """Registers, spill bytes and static shared memory of every kernel in
+    nvcc's ``-Xptxas -v`` report, by short demangled name."""
+    names = _short_names(re.findall(r"Compiling entry function '(\w+)'", log))
+    res, cur = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            cur = names[entry.group(1)]
+            res[cur] = {}
+            continue
+        if cur is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            res[cur]["spill_stores"] = int(spill.group(1))
+            res[cur]["spill_loads"] = int(spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            res[cur]["registers"] = int(used.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            res[cur]["static_smem"] = int(smem.group(1)) if smem else 0
+    return res
+
+
+def sass_counts(library: str, nvcc: str):
+    """Per kernel of the built library, how many tensor-core (HMMA, HGMMA),
+    asynchronous-copy (LDGSTS) and ldmatrix (LDSM) instructions its SASS
+    holds, by ``cuobjdump -sass`` from nvcc's toolkit; None without one."""
+    tool = pathlib.Path(nvcc).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\w+)", line)
+        if fn:
+            cur = fn.group(1)
+            counts[cur] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if cur is not None and op and op.group(1) in SASS_OPS:
+            counts[cur][op.group(1)] += 1
+    names = _short_names(counts)
+    return {names[k]: v for k, v in counts.items()}
+
+
+def flash_dynamic_smem(d: int, dtype: str) -> int:
+    """Dynamic shared memory of one block of the flash kernel at head width
+    d: ``f32_smem_bytes`` / ``bf16_smem_bytes`` of ``flash_attention.cu``
+    (float32: K, V rows padded to d + 1, Q, a 64 x 65 score tile; bf16: Q
+    and a two-stage K/V ring of 64-row sub-tiles, 32-row at d = 256)."""
+    if dtype == "f32":
+        return (2 * 64 * (d + 1) + 64 * d + 64 * 65) * 4
+    kv_rows = 32 if d == 256 else 64
+    return (64 * d + 2 * 2 * kv_rows * d) * 2
+
+
 def require(cond, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
@@ -206,6 +332,11 @@ def main() -> int:
               "missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # torch.compile's caches (the flex_attention yardstick) stay in the
+    # checkout's build/
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     card = card_line()
     print(card, flush=True)
     smoke = Smoke(torch)
@@ -222,6 +353,7 @@ def main() -> int:
     smoke.flash_battery()
     smoke.flash_full()
     smoke.serve()
+    smoke.serve_gemma()
     smoke.model_twin()
     smoke.report(card)
     return 0
@@ -367,13 +499,30 @@ class Smoke:
         self._build.library()
         secs = time.perf_counter() - t0
         print(f"build: {secs:.3f} s (nvcc sm_90a + ctypes load)", flush=True)
-        log = self._build.build_log()
-        if log:
-            # nvcc -Xptxas -v: registers, spills and shared memory per kernel
-            (self._build.BUILD_DIR / "ptxas.log").write_text(log)
-            for line in log.splitlines():
-                if "Compiling entry function" in line or "Used" in line:
-                    print("  " + line.split("info    :")[-1].strip())
+        # nvcc -Xptxas -v: registers, spills and shared memory per kernel
+        resources = ptxas_resources(self._build.build_log())
+        require(resources, "build: no -Xptxas -v report beside the "
+                "library; delete build/kernels and run again")
+        lib = self._build.library()
+        sass = sass_counts(lib._name, self._build._nvcc())
+        for name, res in resources.items():
+            flash = re.match(r"flash_attention_fwd_(f32|bf16)_kernel<(\d+)>",
+                             name)
+            if flash:
+                dtype = flash.group(1)
+                res["dynamic_smem"] = flash_dynamic_smem(int(flash.group(2)),
+                                                         dtype)
+                if sass is not None:
+                    res["sass"] = sass.get(name, dict.fromkeys(SASS_OPS, 0))
+                    # the bf16 kernel runs on the tensor cores, fed by cp.async
+                    require(dtype == "f32" or (res["sass"]["HMMA"]
+                                           + res["sass"]["HGMMA"] > 0
+                                           and res["sass"]["LDGSTS"] > 0),
+                            f"{name}: no tensor-core or cp.async instruction "
+                            f"in its SASS: {res['sass']}")
+            print(f"  {name}: " + json.dumps(res))
+        if sass is None:
+            print("  (no cuobjdump beside nvcc: SASS not counted)")
         self.phase_ms["build"] = secs * 1e3
 
     def full_size(self, n: int, alpha: float):
@@ -759,11 +908,11 @@ class Smoke:
         return tuple(x.to(self.dev, dtype) for x in (q, k, v))
 
     def flash_check(self, what, q, k, v, seg, block, window=None,
-                    softcap=None, num_global_blocks=0, tol=None):
+                    softcap=None, num_global_blocks=0, tols=None):
         """Kernel against the plain replay of the same schedule and, on the
-        same inputs, the dense oracle, within ``tol`` (atol, rtol; by default
-        FLASH_TOL of q's dtype); returns (the kernel's output, its max
-        |kernel - plain|)."""
+        same inputs, the dense oracle, within every (atol, rtol) of ``tols``
+        (by default FLASH_TOL of q's dtype); returns (the kernel's output,
+        its max |kernel - plain|)."""
         torch = self.torch
         sq, skv, d = q.shape[2], k.shape[2], q.shape[3]
         qseg = None if seg is None else seg[:, skv - sq:].contiguous()
@@ -782,7 +931,7 @@ class Smoke:
                                        softcap=softcap, q_segments=qseg,
                                        kv_segments=seg)
         torch.cuda.synchronize()
-        atol, rtol = tol or FLASH_TOL[str(q.dtype).split(".")[-1]]
+        tols = tols or (FLASH_TOL[str(q.dtype).split(".")[-1]],)
         require(got.shape == q.shape and got.dtype == q.dtype,
                 f"flash {what}: output {got.shape}/{got.dtype}")
         require(bool(torch.isfinite(got).all()), f"flash {what}: not finite")
@@ -790,9 +939,11 @@ class Smoke:
         for name, ref_out in (("plain", want), ("dense oracle", dense)):
             diff = (got.float() - ref_out.float()).abs()
             errs.append(float(diff.max()))
-            require(bool((diff <= atol + rtol * ref_out.float().abs()).all()),
-                    f"flash {what}: kernel != {name} (max |diff| {errs[-1]}, "
-                    f"tolerance {atol} + {rtol:.4g} |ref|)")
+            for atol, rtol in tols:
+                require(bool((diff <= atol + rtol * ref_out.float().abs())
+                             .all()),
+                        f"flash {what}: kernel != {name} (max |diff| "
+                        f"{errs[-1]}, tolerance {atol:.4g} + {rtol:.4g} |ref|)")
         self.err["flash_attention"] = max(self.err["flash_attention"], errs[0])
         return got, errs[0]
 
@@ -801,8 +952,11 @@ class Smoke:
         gen = torch.Generator().manual_seed(SEED + 8)
         worst = {}
         for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
             for B, H, Hkv, Sq, Skv, D, blk, feats in FLASH_CASES:
-                q, k, v = self.flash_inputs(B, H, Hkv, Sq, Skv, D, dtype, gen)
+                q, k, v = self.flash_inputs(
+                    B, H, Hkv, Sq, Skv, D, dtype, gen,
+                    q_gain=FLASH_FULL_Q_GAIN if bf16 else None)
                 seg = None
                 if feats.get("segments"):
                     seg = torch.sort(torch.randint(0, 3, (B, Skv),
@@ -811,92 +965,158 @@ class Smoke:
                 key = str(dtype)[6:]
                 what = (f"{key} B={B} H={H}/{Hkv} Sq={Sq} Skv={Skv} D={D} "
                         f"block={blk} {feats}")
+                tols = (FLASH_TOL[key],) + ((flash_full_tol(v),) if bf16
+                                            else ())
                 _, err = self.flash_check(
                     what, q, k, v, seg, blk, window=feats.get("window"),
                     softcap=feats.get("softcap"),
-                    num_global_blocks=feats.get("num_global_blocks", 0))
+                    num_global_blocks=feats.get("num_global_blocks", 0),
+                    tols=tols)
                 worst[key] = max(worst.get(key, 0.0), err)
         print(f"flash battery: {len(FLASH_CASES)} cases x 2 dtypes, kernel "
-              f"== plain == dense oracle; max |kernel - plain| {worst}",
-              flush=True)
+              f"== plain == dense oracle (bf16: scores of std "
+              f"{FLASH_FULL_Q_GAIN}, also within flash_full_tol); max "
+              f"|kernel - plain| {worst}", flush=True)
 
-    def flash_full(self):
-        """Full-width prefill shapes: parity, then device time, plain time,
-        the library call and the bound."""
-        from repro_torch.configs import get_config
-
+    def flash_row(self, tag, B, H, Hkv, S, D, blk, seed, window=None,
+                  softcap=None):
+        """One full-width shape (bf16, scores of std FLASH_FULL_Q_GAIN):
+        kernel == plain and dense oracle within ``flash_full_tol``, then
+        the kernel's device time, the plain time and the bound over the
+        live (q, k) pairs.  Returns (row, (q, k, v), |kernel - plain|,
+        the kernel's output)."""
         torch = self.torch
-        F = torch.nn.functional
-        cfg = get_config(SERVE["arch"])
-        cfg_b, cfg_s = SERVE["slots"], SERVE["prompt_len"]
-        H, Hkv, D, blk = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-                          cfg.attn_block_q)
-        gen = torch.Generator().manual_seed(SEED + 9)
-        q, k, v = self.flash_inputs(cfg_b, H, Hkv, cfg_s, cfg_s, D,
-                                    torch.bfloat16, gen,
+        gen = torch.Generator().manual_seed(seed)
+        q, k, v = self.flash_inputs(B, H, Hkv, S, S, D, torch.bfloat16, gen,
                                     q_gain=FLASH_FULL_Q_GAIN)
-        tag = f"B={cfg_b} H={H}/{Hkv} S={cfg_s} D={D} bf16 block {blk}"
+        tol = flash_full_tol(v)
         got, err = self.flash_check(f"full width {tag}", q, k, v, None, blk,
-                                    tol=FLASH_FULL_TOL)
-        idx, cnt, _ = self.ops.build_block_structure(cfg_s, cfg_s,
-                                                     block_q=blk, block_k=blk)
+                                    window=window, softcap=softcap,
+                                    tols=(tol,))
+        idx, cnt, _ = self.ops.build_block_structure(S, S, block_q=blk,
+                                                     block_k=blk,
+                                                     window=window)
         args = (q, k, v, torch.from_numpy(idx), torch.from_numpy(cnt))
-        kw = dict(scale=D ** -0.5, causal=True, block_q=blk, block_k=blk)
-        lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                 enable_gqa=True)
-        lib_err = float((lib_out.float() - got.float()).abs().max())
-        require(lib_err <= 5e-2, f"flash full width: kernel vs "
-                f"scaled_dot_product_attention max |diff| {lib_err}")
-        pairs = live_pairs(idx, cnt, blk, cfg_s, cfg_s)
-        require(pairs == cfg_s * (cfg_s + 1) // 2,
-                f"flash full width: {pairs} live pairs, causal S(S+1)/2 is "
-                f"{cfg_s * (cfg_s + 1) // 2}")
-        ops = 4 * D * pairs * cfg_b * H
-        nbytes = 2 * (2 * q.numel() + 2 * cfg_b * Hkv * cfg_s * D) \
+        kw = dict(scale=D ** -0.5, causal=True, window=window,
+                  softcap=softcap, block_q=blk, block_k=blk, q_offset=0)
+        pairs = live_pairs(idx, cnt, blk, S, S, window)
+        w = S if window is None else min(window, S)
+        want = w * (w + 1) // 2 + (S - w) * w      # sum_i min(i + 1, w)
+        require(pairs == want, f"flash {tag}: {pairs} live pairs, the token "
+                f"mask leaves {want}")
+        ops = 4 * D * pairs * B * H
+        nbytes = 2 * (2 * q.numel() + 2 * B * Hkv * S * D) \
             + 4 * (idx.size + cnt.size)
         ops_ms = ops / BF16_OPS_PER_S * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        self.flash_f32_ms = ops / FP32_OPS_PER_S * 1e3
-        self.rows["flash_attention"] = {
+        row = {
             "name": "flash_attention", "route": "cuda",
             "source": SOURCES["flash_attention"],
             "replaces": REPLACES["flash_attention"],
             "launches": None, "max_abs_err": None,
             "ms": self.time_ms(lambda: self.flash(*args, **kw), 20,
-                               "flash_attention_fwd_kernel"),
+                               "flash_attention_fwd"),
             "plain_ms": self.time_ms(
-                lambda: self.ref.ref_flash_attention(
-                    *args, window=None, softcap=None, q_offset=0, **kw), 3),
+                lambda: self.ref.ref_flash_attention(*args, **kw), 3),
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": self.time_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True), 20),
+            "library_ms": None,
         }
         print(f"flash at full width ({tag}, scores of std "
-              f"{FLASH_FULL_Q_GAIN}): kernel == plain within "
-              f"{FLASH_FULL_TOL[0]} + 2^-7 |ref|, max |kernel - plain| "
-              f"{err:.4g}, max |kernel - sdpa| {lib_err:.4g}; "
-              f"{pairs} live (q, k) pairs per (b, h), {ops} flop "
+              f"{FLASH_FULL_Q_GAIN}): kernel == plain == dense oracle within "
+              f"{tol[0]:.4g} + {tol[1]:.4g} |ref|, max |kernel - plain| "
+              f"{err:.4g}; {pairs} live (q, k) pairs per (b, h), {ops} flop "
               f"({ops_ms:.4f} ms at bf16 tensor-core rate, "
-              f"{self.flash_f32_ms:.4f} ms at the float32 rate), {nbytes} "
-              f"bytes ({bytes_ms:.4f} ms); source "
-              f"{self.timing_source.get('flash_attention_fwd_kernel')}",
-              flush=True)
+              f"{ops / FP32_OPS_PER_S * 1e3:.4f} ms at the float32 rate), "
+              f"{nbytes} bytes ({bytes_ms:.4f} ms); kernel {row['ms']:.4f} "
+              f"ms ({ops / row['ms'] / 1e9:.1f} TFLOP/s), plain "
+              f"{row['plain_ms']:.3f} ms; source "
+              f"{self.timing_source.get('flash_attention_fwd')}", flush=True)
+        return row, (q, k, v), err, got
 
-    def serve(self):
-        """smollm-360m at full width through ServeEngine (the main path of
-        the model slice)."""
+    def flash_full(self):
+        """The flash kernel at smollm-360m's and gemma2-2b's prefill shapes:
+        parity, device time, plain time, bound, and the library yardstick
+        where one PyTorch call computes the same function."""
+        from repro_torch.configs import get_config
+
+        torch = self.torch
+        F = torch.nn.functional
+        cfg = get_config(SERVE["arch"])
+        B, S = SERVE["slots"], SERVE["prompt_len"]
+        D = cfg.head_dim
+        row, (q, k, v), err, got = self.flash_row(
+            f"{cfg.name}: B={B} H={cfg.num_heads}/{cfg.num_kv_heads} S={S} "
+            f"D={D} bf16 block {cfg.attn_block_q}", B, cfg.num_heads,
+            cfg.num_kv_heads, S, D, cfg.attn_block_q, SEED + 9)
+        lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                 enable_gqa=True)
+        lib_err = float((lib_out.float() - got.float()).abs().max())
+        require(lib_err <= 5e-2, f"flash full width: kernel vs "
+                f"scaled_dot_product_attention max |diff| {lib_err}")
+        row["library_ms"] = self.time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True), 20)
+        self.rows["flash_attention"] = row
+        print(f"  sdpa (is_causal, enable_gqa; the same function): "
+              f"{row['library_ms']:.4f} ms, max |kernel - sdpa| "
+              f"{lib_err:.4g}", flush=True)
+        del q, k, v, got, lib_out
+        # softcapped attention is one flex_attention call (a tanh score_mod
+        # and a causal or sliding-window block mask), compiled by inductor
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+
+        gcfg = get_config(SERVE_GEMMA["arch"])
+        B, S, D = SERVE_GEMMA["slots"], SERVE_GEMMA["prompt_len"], \
+            gcfg.head_dim
+        H, Hkv, blk = gcfg.num_heads, gcfg.num_kv_heads, gcfg.attn_block_q
+        cap = gcfg.attn_softcap
+        flex = torch.compile(flex_attention, dynamic=False)
+
+        def softcap(score, b, h, q_idx, kv_idx):
+            return cap * torch.tanh(score / cap)
+
+        self.gemma_rows = {}
+        for layer, window, seed in (("global", None, SEED + 15),
+                                    ("local", gcfg.window, SEED + 16)):
+            row, (q, k, v), err, got = self.flash_row(
+                f"{gcfg.name} {layer} layer: B={B} H={H}/{Hkv} S={S} D={D} "
+                f"bf16 block {blk} window {window} softcap {cap}", B, H, Hkv,
+                S, D, blk, seed, window=window, softcap=cap)
+            mask = create_block_mask(_live_mask(window), None, None, S, S,
+                                     device=self.dev)
+
+            def library(q=q, k=k, v=v, mask=mask):
+                return flex(q, k, v, score_mod=softcap, block_mask=mask,
+                            scale=D ** -0.5, enable_gqa=True)
+
+            lib_err = float((library().float() - got.float()).abs().max())
+            require(lib_err <= 5e-2, f"flash {gcfg.name} {layer}: kernel vs "
+                    f"flex_attention max |diff| {lib_err}")
+            row["library_ms"] = self.time_ms(library, 20)
+            self.gemma_rows[layer] = dict(row, layer=layer, max_abs_err=err)
+            print(f"  flex_attention (compiled; tanh softcap score_mod, "
+                  f"{layer} block mask, enable_gqa; the same function): "
+                  f"{row['library_ms']:.4f} ms, max |kernel - flex| "
+                  f"{lib_err:.4g}", flush=True)
+            del q, k, v, got, mask, library
+
+    def serve_path(self, spec: dict, seed: int):
+        """One ``ServeEngine`` run of ``spec`` at full width and depth;
+        every wrapper's launch count zeroed just before and read just
+        after, the flash kernel's must be layers x waves.  Returns (model,
+        params, the unwrapped (prefill, decode_step), numbers, launches)."""
         import numpy as np
         from repro_torch.configs import get_config
         from repro_torch.models import Model
         from repro_torch.serve.engine import Request, ServeEngine
 
         torch = self.torch
-        cfg = get_config(SERVE["arch"])
+        cfg = get_config(spec["arch"])
         model = Model(cfg, device=DEVICE)
-        params = self.timed("serve init weights", lambda: model.init(
-            torch.Generator(DEVICE).manual_seed(SEED + 10)))
+        params = self.timed(f"{cfg.name} init weights", lambda: model.init(
+            torch.Generator(DEVICE).manual_seed(seed)))
         prefill_ms, decode_ms, finite = [], [], []
         vocab = cfg.vocab_size
 
@@ -913,12 +1133,12 @@ class Smoke:
         plain_steps = (model.prefill, model.decode_step)
         model.prefill = timed_call(model.prefill, prefill_ms)
         model.decode_step = timed_call(model.decode_step, decode_ms)
-        eng = ServeEngine(model, params, num_slots=SERVE["slots"],
-                          max_len=SERVE["max_len"], device=DEVICE)
-        rng = np.random.default_rng(SEED + 11)
-        for rid in range(SERVE["requests"]):
+        eng = ServeEngine(model, params, num_slots=spec["slots"],
+                          max_len=spec["max_len"], device=DEVICE)
+        rng = np.random.default_rng(seed + 1)
+        for rid in range(spec["requests"]):
             eng.submit(Request(rid, rng.integers(
-                1, vocab, SERVE["prompt_len"]).tolist(), SERVE["max_new"]))
+                1, vocab, spec["prompt_len"]).tolist(), spec["max_new"]))
         for w in self.wrappers:
             w.launches = 0
         torch.cuda.synchronize()
@@ -926,38 +1146,80 @@ class Smoke:
         results = eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        self.serve_launches = {w.__name__: w.launches for w in self.wrappers}
-        waves = -(-SERVE["requests"] // SERVE["slots"])
+        launches = {w.__name__: w.launches for w in self.wrappers}
+        waves = -(-spec["requests"] // spec["slots"])
         want = cfg.num_layers * waves
         require(self.flash.launches == want,
-                f"serve: flash kernel launched {self.flash.launches} times, "
-                f"expected {cfg.num_layers} layers x {waves} waves = {want}")
-        require(sorted(results) == list(range(SERVE["requests"])),
-                f"serve: results for {sorted(results)}")
+                f"serve {cfg.name}: flash kernel launched "
+                f"{self.flash.launches} times, expected {cfg.num_layers} "
+                f"layers x {waves} waves = {want}")
+        require(sorted(results) == list(range(spec["requests"])),
+                f"serve {cfg.name}: results for {sorted(results)}")
         for rid, res in results.items():
-            require(len(res.tokens) == SERVE["max_new"]
+            require(len(res.tokens) == spec["max_new"]
                     and all(0 <= t < vocab for t in res.tokens),
-                    f"serve: request {rid} returned {res.tokens}")
-        require(all(finite), "serve: non-finite logits")
-        self.rows["flash_attention"]["launches"] = self.flash.launches
+                    f"serve {cfg.name}: request {rid} returned {res.tokens}")
+        require(all(finite), f"serve {cfg.name}: non-finite logits")
         tokens = sum(len(r.tokens) for r in results.values())
         steps = decode_ms[1:] if len(decode_ms) > 1 else decode_ms
-        self.serve_numbers = {
+        numbers = {
             "prefill_ms_per_wave": prefill_ms,
             "decode_ms_per_step_mean": sum(steps) / len(steps),
             "decode_steps": len(decode_ms),
             "tokens_per_s": tokens / wall, "wall_s": wall,
             "new_tokens": tokens,
         }
-        self.phase_ms["serve (engine run)"] = wall * 1e3
+        self.phase_ms[f"serve {cfg.name} (engine run)"] = wall * 1e3
         print(f"serve: {cfg.name} full width ({cfg.param_count()} params, "
-              f"{cfg.num_layers} layers), {SERVE['requests']} requests x "
-              f"{SERVE['prompt_len']}-token prompts, {waves} waves of "
-              f"{SERVE['slots']}: {tokens} tokens, all < vocab, logits "
+              f"{cfg.num_layers} layers), {spec['requests']} requests x "
+              f"{spec['prompt_len']}-token prompts, {waves} waves of "
+              f"{spec['slots']}: {tokens} tokens, all < vocab, logits "
               f"finite; flash launches {self.flash.launches}; "
-              + json.dumps(self.serve_numbers), flush=True)
+              + json.dumps(numbers), flush=True)
         print(f"  first tokens: {results[0].tokens[:8]}", flush=True)
-        self.serve_profile(model, params, *plain_steps)
+        return model, params, plain_steps, numbers, launches
+
+    def serve(self):
+        """smollm-360m at full width through ServeEngine (the model slice's
+        main path), then one profiled wave."""
+        model, params, steps, self.serve_numbers, self.serve_launches = \
+            self.serve_path(SERVE, SEED + 10)
+        self.rows["flash_attention"]["launches"] = self.flash.launches
+        self.serve_profile(model, params, *steps)
+
+    def serve_gemma(self):
+        """gemma2-2b at full width through ServeEngine: head width 256,
+        local and global layers, softcap 50.  The wrapper's launches are
+        also counted per layer kind (by the window it is called with) at
+        the call site in ``kernels.ops``."""
+        from repro_torch.configs import get_config
+
+        ops, wrapper = self.ops, self.flash
+        by_window = {}
+
+        def counted(*args, window=None, **kw):
+            before = wrapper.launches
+            out = wrapper(*args, window=window, **kw)
+            by_window[window] = by_window.get(window, 0) \
+                + wrapper.launches - before
+            return out
+
+        self.torch.cuda.empty_cache()
+        ops.flash_attention_kernel = counted
+        try:
+            _, _, _, self.gemma_numbers, self.gemma_launches = \
+                self.serve_path(SERVE_GEMMA, SEED + 17)
+        finally:
+            ops.flash_attention_kernel = wrapper
+        window = get_config(SERVE_GEMMA["arch"]).window
+        for layer, key in (("global", None), ("local", window)):
+            self.gemma_rows[layer]["launches"] = by_window.get(key, 0)
+        require(sorted(by_window, key=str) == sorted((None, window), key=str)
+                and all(by_window.values())
+                and sum(by_window.values()) == wrapper.launches,
+                f"serve {SERVE_GEMMA['arch']}: flash launches by window "
+                f"{by_window}, {wrapper.launches} in all")
+        self.torch.cuda.empty_cache()
 
     def serve_profile(self, model, params, prefill, decode_step):
         """Where a wave's time goes, after the counted run: one more prefill
@@ -1099,12 +1361,27 @@ class Smoke:
               + json.dumps(self.ddim_launches))
         print("launches on the serving path: "
               + json.dumps(self.serve_launches))
+        print(f"flash at {SERVE_GEMMA['arch']} shapes: "
+              + json.dumps(list(self.gemma_rows.values())))
+        print(f"launches on the {SERVE_GEMMA['arch']} serving path: "
+              + json.dumps(self.gemma_launches))
         print("timings_ms: " + json.dumps(
             {k: round(v, 3) for k, v in self.phase_ms.items()}))
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
+
+
+def _live_mask(window):
+    """flex_attention mask_mod: causal, and inside ``window`` if given (the
+    kernel's token mask, k_pos > q_pos - window)."""
+    def mask(b, h, q_idx, kv_idx):
+        live = q_idx >= kv_idx
+        if window is not None:
+            live = live & (q_idx - kv_idx < window)
+        return live
+    return mask
 
 
 def _to_device(tree, dev):

@@ -113,7 +113,12 @@ def library() -> ctypes.CDLL:
                 f"kernel sources not found in a checkout ({missing or CSRC}); "
                 "run the port from the repository with PYTHONPATH=src")
         target = BUILD_DIR / f"kernels_{_digest()}.so"
-        log = _compile(target) if not target.exists() else ""
+        log_file = target.with_suffix(".ptxas.log")
+        if target.exists():
+            log = log_file.read_text() if log_file.exists() else ""
+        else:
+            log = _compile(target)
+            log_file.write_text(log)
         lib = ctypes.CDLL(str(target))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
@@ -125,8 +130,9 @@ def library() -> ctypes.CDLL:
 
 
 def build_log() -> str:
-    """nvcc's output of this process's build (``-Xptxas -v`` resource
-    usage per kernel); empty when the library was already built."""
+    """nvcc's output for the loaded library (``-Xptxas -v`` resource usage
+    per kernel), kept beside it as ``kernels_<hash>.ptxas.log``; empty when
+    a library built elsewhere has no log."""
     return _state["log"]
 
 

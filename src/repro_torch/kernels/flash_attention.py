@@ -1,4 +1,4 @@
-"""Wrapper of the hand-written CUDA kernel for block-sparse flash attention.
+"""Wrapper of the hand-written CUDA kernels for block-sparse flash attention.
 
 :func:`flash_attention_kernel` launches ``flash_attention_fwd``
 (``csrc/flash_attention.cu``), the port of the Pallas TPU kernel
@@ -8,7 +8,9 @@ the forward pass over a per-query-block KV schedule (``kv_index`` /
 with GQA, causal and sliding-window masks, logit softcap, packed-document
 segments and ``q_offset``; online softmax with a float32 accumulator.
 ``block_q`` / ``block_k`` are the schedule's units, not the kernel's tile.
-Like the other wrappers it:
+bfloat16 inputs run on the tensor cores (``mma.sync`` bf16 -> f32, P
+rounded to bf16 before P·V); float32 inputs run a scalar float32 kernel.
+Both take head widths 64, 128 and 256.  Like the other wrappers it:
 
 * takes the plain version (:func:`repro_torch.kernels.ref.ref_flash_attention`)
   only when its tensors lie on the CPU;
@@ -18,8 +20,8 @@ Like the other wrappers it:
   and adds one to its ``launches`` count;
 * raises :class:`ValidationError` for any other device, mixed devices, a
   wrong dtype or shape, a non-contiguous tensor, a schedule that is not on
-  the CPU or has an entry out of range, or (on the card) a head width other
-  than 64 or 128.
+  the CPU or has an entry out of range, or (on the card) a head width
+  outside ``HEAD_DIMS_ON_CARD``.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from repro_torch.core.errors import ValidationError
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_lib
 
-HEAD_DIMS_ON_CARD = (64, 128)
+HEAD_DIMS_ON_CARD = (64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

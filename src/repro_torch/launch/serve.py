@@ -3,6 +3,8 @@ one card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --prompt-len 2048 --max-len 2560
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
+        --prompt-len 8192 --max-len 8704
 
 Prompts longer than ``attn_block_q`` (512 at full width) and a multiple of
 it take the blockwise attention path, the flash kernel's call site; shorter

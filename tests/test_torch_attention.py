@@ -8,7 +8,7 @@ interpret mode and with the JAX model's ``blockwise_attention`` (float32,
 within 2e-5, the bound of ``tests/test_kernels_attention.py``); the port's
 ``ref_attention`` must agree with the JAX dense oracle.  The feature grid is
 the one ``chip_smoke.py`` runs on the card: GQA, MQA, windows, softcap,
-segments, ``q_offset > 0``, global blocks, D = 64 and 128.
+segments, ``q_offset > 0``, global blocks, D = 64, 128 and 256.
 """
 import itertools
 
@@ -61,6 +61,10 @@ CASES = {
                {"window": 64, "num_global_blocks": 1}),
     "block32_all": (1, 4, 2, 128, 128, 16, 32,
                     {"window": 40, "softcap": 30.0, "segments": True}),
+    # gemma2-2b's head width
+    "d256": (1, 4, 2, 128, 128, 256, 64, {}),
+    "d256_all": (2, 4, 2, 128, 128, 256, 32,
+                 {"window": 40, "softcap": 50.0, "segments": True}),
 }
 
 
@@ -125,7 +129,7 @@ def test_plain_flash_equals_pallas_interpret(name):
 
 @pytest.mark.parametrize("name", ["mha", "gqa2", "gqa4_d128", "mqa5",
                                   "window100", "softcap", "segments",
-                                  "block32_all"])
+                                  "block32_all", "d256", "d256_all"])
 def test_blockwise_attention_equals_jax(name):
     (q, k, v), seg, kw = _case(name)
     d = q.shape[-1]

@@ -178,13 +178,15 @@ def test_kernels_match_plain_versions_on_the_card():
         want = tref.ref_bitmatrix(*(x.contiguous() for x in rows))
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     # block-sparse flash attention, f32 and bf16: GQA, window, softcap,
-    # segments, q_offset, a ragged 32-block schedule, D = 64 and 128
+    # segments, q_offset, a ragged 32-block schedule, D = 64, 128 and 256
     gen = torch.Generator().manual_seed(5)
     for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         for h, hkv, sq, skv, d, blk, window, softcap, segs in (
                 (8, 2, 256, 256, 128, 64, None, None, False),
                 (5, 1, 128, 256, 64, 64, 100, 30.0, False),
-                (4, 2, 96, 96, 64, 32, 40, None, True)):
+                (4, 2, 96, 96, 64, 32, 40, None, True),
+                (4, 2, 128, 192, 256, 64, None, 50.0, False),
+                (4, 2, 96, 96, 256, 32, 40, 50.0, True)):
             q = torch.randn((2, h, sq, d), generator=gen).cuda().to(dt)
             k = torch.randn((2, hkv, skv, d), generator=gen).cuda().to(dt)
             v = torch.randn((2, hkv, skv, d), generator=gen).cuda().to(dt)
@@ -206,10 +208,10 @@ def test_kernels_match_plain_versions_on_the_card():
             assert got.dtype == dt
             torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                        atol=tol)
-    q = torch.zeros((1, 2, 64, 256), device="cuda")
+    q = torch.zeros((1, 2, 64, 96), device="cuda")
     idx, cnt, _ = tops.build_block_structure(64, 64, block_q=32, block_k=32)
     idx, cnt = torch.from_numpy(idx), torch.from_numpy(cnt)
-    with pytest.raises(ValidationError):                    # D = 256
+    with pytest.raises(ValidationError):                    # D = 96
         flash_attention_kernel(q, q, q, idx, cnt, block_q=32, block_k=32)
     q64 = torch.zeros((1, 2, 64, 64), device="cuda")
     with pytest.raises(ValidationError):            # schedule on the card

@@ -2,7 +2,8 @@
 
 Reduced smollm-360m and gemma2-2b (``reduce_config``: float32, blocks of
 32; gemma2 puts ``attn_local``, the window, the attention softcap and the
-logit softcap on the path).  The JAX ``Model.init`` parameters are carried
+logit softcap on the path), and a 2-layer reduced gemma2-2b that keeps its
+head width of 256.  The JAX ``Model.init`` parameters are carried
 over with ``model_params_from_arrays``; token batches are made with numpy
 from a seed.  A 64-token prompt takes the blockwise attention path (the
 flash kernel's call site; its plain version on the CPU), a 16-token prompt
@@ -10,6 +11,8 @@ the dense one.  ``forward`` logits, ``prefill`` logits and caches, and four
 teacher-forced ``decode_step``s (fed the JAX run's tokens) must agree with
 the JAX model within 2e-4, the bound of ``tests/test_models_smoke.py``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,12 +40,27 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 DECODE_STEPS = 4
 
 
-@pytest.fixture(scope="module", params=ARCH_IDS)
+# reduced gemma2-2b that keeps its head width, 256, in 2 layers (one local,
+# one global): the width the card's flash kernel takes since it gained D = 256
+GEMMA_D256 = "gemma2-2b@head_dim=256"
+
+
+def _reduced(arch):
+    """(JAX config, port config), both reduced the same way."""
+    if arch == GEMMA_D256:
+        keep = dict(head_dim=256, num_layers=2)
+        return (dataclasses.replace(
+                    jax_reduce_config(jax_get_config("gemma2-2b")), **keep),
+                dataclasses.replace(reduce_config(get_config("gemma2-2b")),
+                                    **keep))
+    return jax_reduce_config(jax_get_config(arch)), \
+        reduce_config(get_config(arch))
+
+
+@pytest.fixture(scope="module", params=ARCH_IDS + (GEMMA_D256,))
 def pair(request):
     """(port cfg, port model, port params, jax model, jax params)."""
-    arch = request.param
-    jcfg = jax_reduce_config(jax_get_config(arch))
-    cfg = reduce_config(get_config(arch))
+    jcfg, cfg = _reduced(request.param)
     jm = JaxModel(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     params = model_params_from_arrays(jax.tree.map(np.asarray, jp), cfg,
@@ -224,8 +242,6 @@ def test_init_params_distributions():
 
 
 def test_unported_paths_raise():
-    import dataclasses
-
     cfg = reduce_config(get_config("smollm-360m"))
     for bad in (dataclasses.replace(cfg, pattern=(LayerSpec("mamba", "none"),)),
                 dataclasses.replace(cfg, pattern=(LayerSpec("attn", "moe"),)),
