@@ -4,8 +4,8 @@
 local(4096-window)/global alternating, attn softcap 50, final-logit softcap
 30.  [arXiv:2408.00118; hf]
 
-The port serves it at full width on the card: the flash kernel takes
-head_dim 64, 128 and 256.  A prompt longer than ``attn_block_q`` (512) and
+The port serves it at full width on the card: the flash kernel is built
+for head_dim 64, 128 and 256 (narrower widths are zero-padded).  A prompt longer than ``attn_block_q`` (512) and
 a multiple of it takes the kernel; at 8192 tokens the local layers' window
 drops KV blocks while the global layers stay causal over all of them.
 """

@@ -13,8 +13,9 @@ exists in device memory.  Like the sweep wrappers it:
   stream, raises :class:`KernelError` if the launch returned a CUDA error,
   and adds one to its ``launches`` count;
 * raises :class:`ValidationError` for any other device, a wrong dtype or
-  shape, a non-contiguous tensor, or d > 4 on the card (the kernel is
-  specialised for d = 1..4).
+  shape, a non-contiguous tensor, or d > ``MAX_DIMS_ON_CARD`` on the card
+  (the kernel is specialised for d = 1..4; for d >= 5 it takes d at run
+  time and stages the block's bounds in shared memory).
 
 :func:`bitmatrix_kernel` and :func:`sbm_bitmatrix_kernel` mirror the JAX
 package's ``bitmatrix_pallas`` and ``sbm_bitmatrix_kernel``.  Unlike the
@@ -34,7 +35,9 @@ from repro_torch.core.intervals import Extents
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_lib
 
-MAX_DIMS_ON_CARD = 4
+# the d >= 5 kernel stages 2 * d * 32 float32 bounds per block in shared
+# memory, at most 232,448 bytes a block on an H100
+MAX_DIMS_ON_CARD = 232_448 // (2 * 32 * 4)
 
 
 def bitmatch(s_lo: torch.Tensor, s_hi: torch.Tensor, u_lo: torch.Tensor,

@@ -29,8 +29,13 @@
 //   * a warp gathers 32 consecutive words of a row, one per lane, and
 //     stores them with one coalesced 128-byte store; one warp owns a whole
 //     row, so the row's popcount needs no atomics.
-// d is a template parameter (1..4), so the compare loops unroll.  Built
-// without --use_fast_math: comparisons must not flush denormals.
+// d is a template parameter (1..4), so the compare loops unroll.  For
+// d >= 5 bitmatch_kernel_rt takes d at run time: the same warp layout,
+// ballots and stores, with the block's rows' (d, 32) bounds staged in
+// dynamic shared memory (every lane of a warp reads one address, a
+// broadcast) instead of registers, and the compare loop running over k
+// at run time.  Built without --use_fast_math: comparisons must not flush
+// denormals.
 //
 // The C entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
@@ -112,6 +117,81 @@ bitmatch_kernel(const float* __restrict__ s_lo, const float* __restrict__ s_hi,
   }
 }
 
+// d >= 5: the block's rows' bounds in dynamic shared memory, laid out
+// [lo | hi][k][kRowsPerBlock], 2 * d * kRowsPerBlock floats.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+bitmatch_kernel_rt(const float* __restrict__ s_lo,
+                   const float* __restrict__ s_hi,
+                   const float* __restrict__ u_lo,
+                   const float* __restrict__ u_hi,
+                   unsigned* __restrict__ words, int* __restrict__ row_counts,
+                   int d, int n, int m, int num_words) {
+  extern __shared__ float bounds[];
+  float* lo = bounds;
+  float* hi = bounds + d * kRowsPerBlock;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long block_row0 = (long long)blockIdx.x * kRowsPerBlock;
+  // rows past n are [+inf, -inf] and never match
+  for (int e = threadIdx.x; e < d * kRowsPerBlock; e += blockDim.x) {
+    const int k = e / kRowsPerBlock;
+    const long long row = block_row0 + e % kRowsPerBlock;
+    lo[e] = row < n ? s_lo[(long long)k * n + row] : __int_as_float(0x7f800000);
+    hi[e] = row < n ? s_hi[(long long)k * n + row] : __int_as_float(0xff800000);
+  }
+  __syncthreads();
+  const int r0 = warp * kRowsPerWarp;     // the warp's rows in the block
+  const long long row0 = block_row0 + r0;
+
+  int count[kRowsPerWarp];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) count[r] = 0;
+
+  for (int w0 = 0; w0 < num_words; w0 += 32) {
+    const int nw = min(32, num_words - w0);  // the same in every lane
+    unsigned mine[kRowsPerWarp];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) mine[r] = 0u;
+    for (int ww = 0; ww < nw; ++ww) {
+      const long long j = (long long)(w0 + ww) * 32 + lane;
+      const bool live = j < m;
+      bool hit[kRowsPerWarp];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) hit[r] = live;
+      for (int k = 0; k < d; ++k) {
+        const float ul = live ? u_lo[(long long)k * m + j] : 0.0f;
+        const float uh = live ? u_hi[(long long)k * m + j] : 0.0f;
+        const float* lk = lo + k * kRowsPerBlock + r0;
+        const float* hk = hi + k * kRowsPerBlock + r0;
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r)
+          hit[r] = hit[r] & (lk[r] <= uh) & (ul <= hk[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const unsigned word = __ballot_sync(0xffffffffu, hit[r]);
+        if (lane == ww) mine[r] = word;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const long long row = row0 + r;
+      if (row < n && lane < nw)
+        words[row * num_words + w0 + lane] = mine[r];
+      count[r] += __popc(mine[r]);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    int c = count[r];
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) c += __shfl_down_sync(0xffffffffu, c, s);
+    const long long row = row0 + r;
+    if (lane == 0 && row < n) row_counts[row] = c;
+  }
+}
+
 template <int D>
 void launch(const float* s_lo, const float* s_hi, const float* u_lo,
             const float* u_hi, unsigned* words, int* row_counts, int n, int m,
@@ -135,7 +215,17 @@ int bitmatch_words(const float* s_lo, const float* s_hi, const float* u_lo,
     case 2: launch<2>(s_lo, s_hi, u_lo, u_hi, words, row_counts, n, m, num_words, s); break;
     case 3: launch<3>(s_lo, s_hi, u_lo, u_hi, words, row_counts, n, m, num_words, s); break;
     case 4: launch<4>(s_lo, s_hi, u_lo, u_hi, words, row_counts, n, m, num_words, s); break;
-    default: return (int)cudaErrorInvalidValue;
+    default: {
+      if (d < 1) return (int)cudaErrorInvalidValue;
+      const size_t smem = (size_t)2 * d * kRowsPerBlock * sizeof(float);
+      const cudaError_t err = cudaFuncSetAttribute(
+          bitmatch_kernel_rt, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      const unsigned blocks = (unsigned)((n + kRowsPerBlock - 1) / kRowsPerBlock);
+      bitmatch_kernel_rt<<<blocks, kWarpsPerBlock * 32, smem, s>>>(
+          s_lo, s_hi, u_lo, u_hi, words, row_counts, d, n, m, num_words);
+    }
   }
   return (int)cudaGetLastError();
 }

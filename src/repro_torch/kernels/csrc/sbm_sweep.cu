@@ -11,6 +11,7 @@
 //   sbm_emission        pass B   replaces _emission_kernel
 //   sbm_delta_bitmasks           replaces _delta_bitmask_kernel
 //   sbm_emit_pairs      pass C   replaces _emission_pairs_kernel
+//   (sbm_emit_pairs_placement says where pass C keeps its masks)
 //
 // Each C entry point launches on the caller's stream, does not
 // synchronise, allocates nothing, and returns cudaGetLastError().
@@ -22,35 +23,49 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ int warp_inclusive_scan(int v) {
+struct Add {
+  template <typename T>
+  __device__ T operator()(T a, T b) const { return a + b; }
+};
+struct Xor {
+  __device__ unsigned operator()(unsigned a, unsigned b) const { return a ^ b; }
+};
+
+template <typename T, typename Op = Add>
+__device__ __forceinline__ T warp_inclusive_scan(T v, Op op = Op()) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, v, d);
-    if (lane >= d) v += y;
+    const T y = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v = op(v, y);
   }
   return v;
 }
 
-// Exclusive prefix of `v` over the block (blockDim.x a multiple of 32);
-// `*total` receives the block total.  `scratch` holds 33 ints of shared
-// memory.  Every thread of the block must call it; it ends with a barrier,
-// so `scratch` may be reused right after.
-__device__ int block_exclusive_scan(int v, int* total, int* scratch) {
+// Exclusive prefix of `v` over the block under `op` (+ or ^, identity 0;
+// blockDim.x a multiple of 32); `*total` receives the block total.
+// `scratch` holds 33 T of shared memory.  Every thread of the block must
+// call it; it ends with a barrier, so `scratch` may be reused right after.
+template <typename T, typename Op = Add>
+__device__ T block_exclusive_scan(T v, T* total, T* scratch, Op op = Op()) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int inc = warp_inclusive_scan(v);
+  const T inc = warp_inclusive_scan(v, op);
+  T excl = __shfl_up_sync(0xffffffffu, inc, 1);
+  if (lane == 0) excl = 0;
   if (lane == 31) scratch[warp] = inc;
   __syncthreads();
   if (warp == 0) {
-    const int w = lane < nwarps ? scratch[lane] : 0;
-    const int winc = warp_inclusive_scan(w);
-    if (lane < nwarps) scratch[lane] = winc - w;
+    const T w = lane < nwarps ? scratch[lane] : T(0);
+    const T winc = warp_inclusive_scan(w, op);
+    T wexcl = __shfl_up_sync(0xffffffffu, winc, 1);
+    if (lane == 0) wexcl = 0;
+    if (lane < nwarps) scratch[lane] = wexcl;
     if (lane == nwarps - 1) scratch[32] = winc;
   }
   __syncthreads();
-  const int out = scratch[warp] + inc - v;
+  const T out = op(scratch[warp], excl);
   *total = scratch[32];
   __syncthreads();
   return out;
@@ -178,96 +193,410 @@ __global__ void delta_bitmask_kernel(const int* __restrict__ owner,
   }
 }
 
-// Pass C — pair emission.  The block copies the active sets entering its
-// segment into its own rows of `sub_mask`/`upd_mask` (global scratch) and
-// replays the segment in order.  At each upper endpoint the block's
-// threads walk the counterpart mask together: each thread takes a
-// contiguous run of words, a block scan of the runs' popcounts gives each
-// set bit its slot ptr + rank, and the bits are written in ascending id
-// order — the same slots as the Pallas kernel, so the (num_blocks, cap)
-// arrays are equal element for element.  Thread 0 then opens or closes
-// the endpoint's own bit.  The block keeps each mask's popcount and skips
-// the walk of an empty counterpart set.  Bound: the walk reads
-// ceil(count/32) words per upper endpoint whatever the active-set size.
-__global__ void emit_pairs_kernel(const int* __restrict__ owner,
-                                  const int* __restrict__ is_upper,
-                                  const int* __restrict__ is_sub,
-                                  const int* __restrict__ valid,
-                                  const unsigned* __restrict__ sub0,
-                                  const unsigned* __restrict__ upd0,
-                                  unsigned* sub_mask, unsigned* upd_mask,
-                                  int* __restrict__ out_i,
-                                  int* __restrict__ out_j, int block_size,
-                                  int ws, int wu, long long cap) {
+// Pass C — pair emission.  Replaces _emission_pairs_kernel.
+//
+// The Pallas kernel replays each segment in order: an endpoint opens or
+// closes its own extent, an upper endpoint emits the counterpart set as it
+// stands.  On this card such a chain is bound by the latency of its steps
+// (each a dependent shared-memory access and a dozen instructions of one
+// warp), not by bytes: a segment's outputs are a few KB.  So
+// the design takes what it can off the chain and shortens the rest:
+//
+//   1. Everything that has a closed form is computed by all threads in
+//      parallel before any replay.  At an upper endpoint the counterpart
+//      set's popcount is the popcount entering the segment plus the
+//      counterpart lowers before it in the segment minus the counterpart
+//      uppers before it (each extent's lower precedes its upper in the
+//      sorted stream): block scans of those ±1 indicators give every
+//      emission count (the same count as pass B's emission_kernel), a scan
+//      of the counts every upper's slot base, and their sum the segment's
+//      total.  The XOR of the set's member ids has the same form (XOR in
+//      at a lower, XOR out at an upper), so where the count is 1 the XOR
+//      scan is the one member and that pair is written right there.
+//   2. Only emissions of two or more pairs need the set itself, and the
+//      two sets are independent: the subscription set changes only at
+//      subscription endpoints and is read only at update uppers, and the
+//      other way round.  So warp 0 replays the subscription set and warp 1
+//      the update set, in parallel, each from a list built in step 1 that
+//      holds, in stream order, a toggle for each endpoint of its own type
+//      and an emission for each counterpart upper with a count >= 2.
+//   3. A run of toggles between two emissions commutes (a lower's bit is
+//      clear, an upper's set: each toggle flips one bit), so the warp
+//      applies up to 32 of them at once with shared-memory atomics.
+//      Each set keeps its mask words and two levels of summary: bit b of
+//      summary word s is set iff mask word 32 s + b is nonzero, bit b of
+//      top word t iff summary word 32 t + b is (one warp load covers the
+//      top level up to n = 2^20); after the flips each lane rewrites the
+//      summary bit of its word, then the top bit.  An emission walks the
+//      summaries down to the nonzero mask words, lists them, reads them
+//      32 at a time (one a lane) and gives each set bit its slot: the base
+//      plus its rank in ascending id order from a warp prefix of popcounts
+//      (six independent ballots).  That is the Pallas kernel's order, so
+//      the (num_blocks, cap) arrays are equal element for element.  Steps
+//      are ordered by __syncwarp.
+//
+// The masks live in shared memory when both fit beside the lists and
+// summaries (kSharedMasks; at n = m = 1e5, 2 x 12.5 KB); otherwise in the
+// block's rows of the global scratch sub_mask / upd_mask (at n = m = 1e6,
+// 2 x 125 KB), read past L1 (the atomics land in L2), with the summaries
+// still in shared memory so only nonzero words are read.  The C entry
+// point chooses.  Slots are int32, as in the Pallas kernel: the entry
+// point takes cap < 2^31.
+//
+// The closed forms and the XOR toggles hold only where the Pallas
+// kernel's set and clear are flips: a sorted stream (each extent's lower
+// before its upper) and entering sets that agree with it.  The kernel
+// checks that as it goes, at no cost to the chain beyond a match and a
+// compare per toggle run: a toggle that finds its bit the wrong way, or a
+// negative count, sets *broken, and the wrapper raises.
+
+// static shared memory of emit_pairs_kernel, kept out of the dynamic budget
+constexpr int kPassCStaticSmem = 1024;
+// a replay warp's list of the nonzero mask words under one top word
+constexpr int kStage = 32 * 32;
+
+__host__ __device__ inline int words_over(int bits) { return (bits + 31) / 32; }
+
+// Dynamic shared memory of pass C: two lists of block_size entries (id,
+// count, slot base; int each), the two replay warps' stages, the two
+// summary levels of both sets, and the masks when kSharedMasks.
+__host__ __device__ inline size_t pass_c_smem(int block_size, int ws, int wu,
+                                              bool shared_masks) {
+  const size_t words = 6 * (size_t)block_size + 2 * kStage + words_over(ws) +
+                       words_over(words_over(ws)) + words_over(wu) +
+                       words_over(words_over(wu)) +
+                       (shared_masks ? (size_t)ws + wu : 0);
+  return words * 4;
+}
+
+// One live active set: its mask words and the two summary levels.
+struct ActiveSet {
+  unsigned* mask;
+  unsigned* sum;   // bit b of word s: mask word 32 s + b is nonzero
+  unsigned* top;   // bit b of word t: sum word 32 t + b is nonzero
+  int nsum, ntop;
+};
+
+template <bool kShared>
+__device__ __forceinline__ unsigned load_word(const unsigned* p) {
+  return kShared ? *p : __ldcg(p);
+}
+
+// The XOR of the ids 32 w + b of the set bits b of word x of index w.
+__device__ __forceinline__ unsigned word_xor(unsigned x, int w) {
+  unsigned bits = 0u;
+  const unsigned sel[5] = {0xAAAAAAAAu, 0xCCCCCCCCu, 0xF0F0F0F0u, 0xFF00FF00u,
+                           0xFFFF0000u};
+#pragma unroll
+  for (int j = 0; j < 5; ++j) bits |= (unsigned)(__popc(x & sel[j]) & 1) << j;
+  return (__popc(x) & 1 ? (unsigned)w << 5 : 0u) ^ bits;
+}
+
+// Exclusive prefix over the warp and warp total of v in [0, 63]: six
+// independent ballots instead of five dependent shuffles.
+__device__ __forceinline__ int warp_prefix_small(int v, int* total) {
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  int excl = 0, tot = 0;
+#pragma unroll
+  for (int b = 0; b < 6; ++b) {
+    const unsigned bits = __ballot_sync(0xffffffffu, (v >> b) & 1);
+    excl += __popc(bits & below) << b;
+    tot += __popc(bits) << b;
+  }
+  *total = tot;
+  return excl;
+}
+
+// Warp-cooperative: the members of `a` at slots base, base + 1, ... in
+// ascending id order, `count` in all; slots >= cap are dropped.  (i, j)
+// is (member, o) for the subscription set, (o, member) for the update set.
+// Per nonzero top word, the nonzero mask words under its 32 summary words
+// are listed in `stage` (the warp's kStage ints) in ascending order, then
+// read 32 at a time, one a lane: a dense set costs a round per 32 words,
+// not per summary word.
+template <bool kShared>
+__device__ __forceinline__ void emit_set(const ActiveSet& a, bool subs, int o,
+                                         int base, int count, int cap,
+                                         int* oi, int* oj, int* stage) {
+  const int lane = threadIdx.x & 31;
+  int dest0 = base;  // the next free slot, the same in every lane
+  const int stop = (int)min((long long)base + count, (long long)cap);
+  for (int t0 = 0; t0 < a.ntop && dest0 < stop; t0 += 32) {
+    const unsigned tw = t0 + lane < a.ntop ? a.top[t0 + lane] : 0u;
+    unsigned tops = __ballot_sync(0xffffffffu, tw != 0u);
+    while (tops != 0u && dest0 < stop) {
+      const int tl = __ffs(tops) - 1;
+      tops &= tops - 1u;
+      const unsigned tbits = __shfl_sync(0xffffffffu, tw, tl);
+      const int si = (t0 + tl) * 32 + lane;
+      const unsigned sw = (tbits >> lane) & 1u ? a.sum[si] : 0u;
+      int nwords;
+      int at = warp_prefix_small(__popc(sw), &nwords);
+      for (unsigned y = sw; y != 0u; y &= y - 1u)
+        stage[at++] = si * 32 + (__ffs(y) - 1);
+      __syncwarp();
+      for (int r = 0; r < nwords && dest0 < stop; r += 32) {
+        const int w = r + lane < nwords ? stage[r + lane] : -1;
+        const unsigned x = w >= 0 ? load_word<kShared>(a.mask + w) : 0u;
+        int total;
+        int dest = dest0 + warp_prefix_small(__popc(x), &total);
+        for (unsigned y = x; y != 0u && dest < cap; y &= y - 1u, ++dest) {
+          const int id = w * 32 + (__ffs(y) - 1);
+          oi[dest] = subs ? id : o;
+          oj[dest] = subs ? o : id;
+        }
+        dest0 += total;
+      }
+      __syncwarp();   // the next top word rewrites the stage
+    }
+  }
+}
+
+// Warp-cooperative: flip the bits of ids[0 .. run) (run <= 32; lane l
+// takes ids[l], an upper where kinds[l] < 0) and bring both summary
+// levels up to date.  Returns, per lane, whether its toggle broke the
+// contract that makes a flip a set or a clear: a lower must find its bit
+// clear, an upper set.  The bit before a lane's toggle is the word's bit
+// after the run, undone by the parity of the run's toggles of that id and
+// redone by those of the lanes before it (the run is in stream order).
+template <bool kShared>
+__device__ __forceinline__ bool toggle_run(const ActiveSet& a, const int* ids,
+                                           const int* kinds, int run) {
+  const int lane = threadIdx.x & 31;
+  const bool mine = lane < run;
+  const int o = mine ? ids[lane] : 0;
+  const bool up = mine && kinds[lane] < 0;
+  const int w = o >> 5, s = o >> 10;
+  const unsigned peers = __match_any_sync(0xffffffffu, mine ? o : -1 - lane);
+  if (mine) atomicXor(a.mask + w, 1u << (o & 31));
+  if (!kShared) __threadfence_block();
+  __syncwarp();
+  bool broken = false;
+  if (mine) {
+    const unsigned x = load_word<kShared>(a.mask + w);
+    const unsigned below = (1u << lane) - 1u;
+    const unsigned was =
+        ((x >> (o & 31)) ^ __popc(peers) ^ __popc(peers & below)) & 1u;
+    broken = was != (up ? 1u : 0u);
+    const unsigned bit = 1u << (w & 31);
+    if (x != 0u) atomicOr(a.sum + s, bit);
+    else atomicAnd(a.sum + s, ~bit);
+  }
+  __syncwarp();
+  if (mine) {
+    const unsigned bit = 1u << (s & 31);
+    if (a.sum[s] != 0u) atomicOr(a.top + (s >> 5), bit);
+    else atomicAnd(a.top + (s >> 5), ~bit);
+  }
+  __syncwarp();
+  return broken;
+}
+
+// Both summary levels of `a` from its mask words (all warps; a barrier
+// must separate build_sum from build_top).
+__device__ __forceinline__ void build_sum(const ActiveSet& a, int nw) {
+  const int lane = threadIdx.x & 31;
+  for (int s = threadIdx.x >> 5; s < a.nsum; s += blockDim.x >> 5) {
+    const int w = s * 32 + lane;
+    const unsigned b = __ballot_sync(0xffffffffu, w < nw && a.mask[w] != 0u);
+    if (lane == 0) a.sum[s] = b;
+  }
+}
+
+__device__ __forceinline__ void build_top(const ActiveSet& a) {
+  const int lane = threadIdx.x & 31;
+  for (int t = threadIdx.x >> 5; t < a.ntop; t += blockDim.x >> 5) {
+    const int s = t * 32 + lane;
+    const unsigned b = __ballot_sync(0xffffffffu, s < a.nsum && a.sum[s] != 0u);
+    if (lane == 0) a.top[t] = b;
+  }
+}
+
+template <bool kSharedMasks>
+__global__ void __launch_bounds__(kThreads)
+emit_pairs_kernel(const int* __restrict__ owner,
+                  const int* __restrict__ is_upper,
+                  const int* __restrict__ is_sub,
+                  const int* __restrict__ valid,
+                  const unsigned* __restrict__ sub0,
+                  const unsigned* __restrict__ upd0, unsigned* sub_scratch,
+                  unsigned* upd_scratch, int* __restrict__ out_i,
+                  int* __restrict__ out_j, int* __restrict__ broken,
+                  int block_size, int ws, int wu, int cap) {
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int scratch[33];
-  __shared__ int active[2];  // popcounts of [sub_mask, upd_mask]
+  __shared__ unsigned scratch_x[33];
+  __shared__ long long scratch_ll[33];
+  __shared__ int list_len[2];
+  __shared__ int fill_from;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const size_t p = blockIdx.x;
-  unsigned* smask = sub_mask + p * ws;
-  unsigned* umask = upd_mask + p * wu;
+  // list L (0: the subscription set's, 1: the update set's) at
+  // [L * block_size, L * block_size + list_len[L])
+  int* e_id = reinterpret_cast<int*>(smem);
+  int* e_count = e_id + 2 * block_size;   // toggles: 0 lower, -1 upper
+  int* e_base = e_count + 2 * block_size;
+  ActiveSet sset, uset;
+  sset.nsum = words_over(ws);
+  sset.ntop = words_over(sset.nsum);
+  uset.nsum = words_over(wu);
+  uset.ntop = words_over(uset.nsum);
+  int* stage = e_base + 2 * block_size;   // kStage ints per replay warp
+  sset.sum = reinterpret_cast<unsigned*>(stage + 2 * kStage);
+  sset.top = sset.sum + sset.nsum;
+  uset.sum = sset.top + sset.ntop;
+  uset.top = uset.sum + uset.nsum;
+  if (kSharedMasks) {
+    sset.mask = uset.top + uset.ntop;
+    uset.mask = sset.mask + ws;
+  } else {
+    sset.mask = sub_scratch + p * ws;
+    uset.mask = upd_scratch + p * wu;
+  }
   int* oi = out_i + p * cap;
   int* oj = out_j + p * cap;
-  for (long long s = threadIdx.x; s < cap; s += blockDim.x) {
-    oi[s] = -1;
-    oj[s] = -1;
-  }
+
+  // the live masks; popcount and id XOR of the sets entering the segment
   int cs = 0, cu = 0;
-  for (int w = threadIdx.x; w < ws; w += blockDim.x) {
+  unsigned xs = 0u, xu = 0u;
+  for (int w = tid; w < ws; w += blockDim.x) {
     const unsigned x = sub0[p * ws + w];
-    smask[w] = x;
+    sset.mask[w] = x;
     cs += __popc(x);
+    xs ^= word_xor(x, w);
   }
-  for (int w = threadIdx.x; w < wu; w += blockDim.x) {
+  for (int w = tid; w < wu; w += blockDim.x) {
     const unsigned x = upd0[p * wu + w];
-    umask[w] = x;
+    uset.mask[w] = x;
     cu += __popc(x);
+    xu ^= word_xor(x, w);
+  }
+  int cs0, cu0;
+  unsigned xs0, xu0;
+  block_exclusive_scan(cs, &cs0, scratch);   // its barriers publish the masks
+  block_exclusive_scan(cu, &cu0, scratch);
+  block_exclusive_scan(xs, &xs0, scratch_x, Xor());
+  block_exclusive_scan(xu, &xu0, scratch_x, Xor());
+  build_sum(sset, ws);
+  build_sum(uset, wu);
+
+  // step 1: each thread a contiguous chunk of the segment's records
+  const long long seg0 = (long long)p * block_size;
+  const int chunk = (block_size + blockDim.x - 1) / blockDim.x;
+  const int lo = min(tid * chunk, block_size);
+  const int hi = min(lo + chunk, block_size);
+  int ds = 0, du = 0;
+  xs = xu = 0u;
+  for (int i = lo; i < hi; ++i) {
+    const long long g = seg0 + i;
+    if (!valid[g]) continue;
+    const int d = is_upper[g] ? -1 : 1;
+    if (is_sub[g]) { ds += d; xs ^= owner[g]; }
+    else           { du += d; xu ^= owner[g]; }
   }
   int tot;
-  block_exclusive_scan(cs, &tot, scratch);
-  if (threadIdx.x == 0) active[0] = tot;
-  block_exclusive_scan(cu, &tot, scratch);
-  if (threadIdx.x == 0) active[1] = tot;
+  unsigned xtot;
+  const int as0 = block_exclusive_scan(ds, &tot, scratch) + cs0;
+  const int au0 = block_exclusive_scan(du, &tot, scratch) + cu0;
+  const unsigned xs1 = block_exclusive_scan(xs, &xtot, scratch_x, Xor()) ^ xs0;
+  const unsigned xu1 = block_exclusive_scan(xu, &xtot, scratch_x, Xor()) ^ xu0;
+  build_top(sset);   // the scans' barriers published the summaries
+  build_top(uset);
+  // entries per list and the sum of counts of the chunk
+  int n0 = 0, n1 = 0;
+  long long mine = 0;
+  int as = as0, au = au0;
+  for (int i = lo; i < hi; ++i) {
+    const long long g = seg0 + i;
+    if (!valid[g]) continue;
+    const bool sb = is_sub[g] != 0, up = is_upper[g] != 0;
+    const int c = up ? (sb ? au : as) : 0;
+    if (sb) { as += up ? -1 : 1; ++n0; n1 += c >= 2; }
+    else    { au += up ? -1 : 1; ++n1; n0 += c >= 2; }
+    mine += c;
+  }
+  int len0, len1;
+  long long seg_total;
+  int at0 = block_exclusive_scan(n0, &len0, scratch);
+  int at1 = block_exclusive_scan(n1, &len1, scratch) + block_size;
+  long long slot = block_exclusive_scan(mine, &seg_total, scratch_ll);
+  // the entries, and the pairs of the uppers whose count is 1; a negative
+  // count breaks the contract (an upper before its lower, or entering
+  // sets that disagree with the records)
+  bool bad = false;
+  as = as0;
+  au = au0;
+  xs = xs1;
+  xu = xu1;
+  for (int i = lo; i < hi; ++i) {
+    const long long g = seg0 + i;
+    if (!valid[g]) continue;
+    const bool sb = is_sub[g] != 0, up = is_upper[g] != 0;
+    const int o = owner[g];
+    const int c = up ? (sb ? au : as) : 0;
+    const int own = sb ? at0++ : at1++;
+    e_id[own] = o;
+    e_count[own] = up ? -1 : 0;
+    bad |= c < 0;
+    if (c >= 2) {
+      const int other = sb ? at1++ : at0++;
+      e_id[other] = o;
+      e_count[other] = c;
+      e_base[other] = (int)max(min(slot, (long long)cap), 0LL);
+    } else if (c == 1 && slot >= 0 && slot < cap) {
+      const int member = (int)(sb ? xu : xs);
+      oi[slot] = sb ? o : member;
+      oj[slot] = sb ? member : o;
+    }
+    if (sb) { as += up ? -1 : 1; xs ^= o; }
+    else    { au += up ? -1 : 1; xu ^= o; }
+    slot += c;
+  }
+  if (bad) *broken = 1;
+  if (tid == 0) {
+    list_len[0] = len0;
+    list_len[1] = len1;
+    fill_from = (int)min(seg_total, (long long)cap);
+  }
   __syncthreads();
 
-  long long ptr = 0;
-  const long long base = (long long)p * block_size;
-  for (int t = 0; t < block_size; ++t) {
-    const long long g = base + t;
-    if (!valid[g]) continue;  // the same record for every thread
-    const int o = owner[g];
-    const bool up = is_upper[g] != 0;
-    const bool sb = is_sub[g] != 0;
-    if (up && active[sb ? 1 : 0] > 0) {
-      const unsigned* mask = sb ? umask : smask;
-      const int nw = sb ? wu : ws;
-      const int chunk = (nw + blockDim.x - 1) / blockDim.x;
-      const int w0 = min((int)threadIdx.x * chunk, nw);
-      const int w1 = min(w0 + chunk, nw);
-      int mine = 0;
-      for (int w = w0; w < w1; ++w) mine += __popc(mask[w]);
-      int total;
-      long long dest = ptr + block_exclusive_scan(mine, &total, scratch);
-      for (int w = w0; w < w1 && dest < cap; ++w) {
-        unsigned x = mask[w];
-        while (x != 0u && dest < cap) {
-          const int c = w * 32 + (__ffs(x) - 1);
-          x &= x - 1u;
-          oi[dest] = sb ? o : c;
-          oj[dest] = sb ? c : o;
-          ++dest;
-        }
-      }
-      ptr += total;
+  // steps 2-3: warp 0 replays the subscription set, warp 1 the update
+  // set; the other warps fill the slots no pair lands in
+  if (warp >= 2) {
+    for (int s = fill_from + tid - 64; s < cap; s += blockDim.x - 64) {
+      oi[s] = -1;
+      oj[s] = -1;
     }
-    if (threadIdx.x == 0) {
-      unsigned* own = sb ? smask : umask;
-      const unsigned bit = 1u << (o & 31);
-      const unsigned old = own[o >> 5];
-      const unsigned now = up ? (old & ~bit) : (old | bit);
-      own[o >> 5] = now;
-      if (now != old) active[sb ? 0 : 1] += up ? -1 : 1;
-    }
-    __syncthreads();
+    return;
   }
+  const bool subs = warp == 0;
+  const ActiveSet a = subs ? sset : uset;
+  const int n = list_len[warp];
+  const int* id_l = e_id + warp * block_size;
+  const int* count_l = e_count + warp * block_size;
+  const int* base_l = e_base + warp * block_size;
+  bool flipped_wrong = false;
+  for (int k = 0; k < n;) {
+    // the run of toggles starting at k, up to 32
+    const bool in = k + lane < n;
+    const unsigned stops =
+        __ballot_sync(0xffffffffu, !in || count_l[k + lane] > 0);
+    const int run = stops != 0u ? __ffs(stops) - 1 : 32;
+    if (run > 0) {
+      flipped_wrong |= toggle_run<kSharedMasks>(a, id_l + k, count_l + k, run);
+      k += run;
+    } else {
+      const int b = base_l[k];
+      if (b < cap)
+        emit_set<kSharedMasks>(a, subs, id_l[k], b, count_l[k], cap, oi, oj,
+                               stage + warp * kStage);
+      __syncwarp();
+      ++k;
+    }
+  }
+  if (flipped_wrong) *broken = 1;
 }
 
 }  // namespace
@@ -306,18 +635,39 @@ int sbm_delta_bitmasks(const int* owner, const int* is_upper,
   return (int)cudaGetLastError();
 }
 
+// 1 when pass C keeps its masks in shared memory, 0 when in the global
+// scratch rows, -1 when not even the lists and summaries fit.
+int sbm_emit_pairs_placement(int block_size, int ws, int wu) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return -1;
+  const size_t room = (size_t)optin - kPassCStaticSmem;
+  if (pass_c_smem(block_size, ws, wu, true) <= room) return 1;
+  if (pass_c_smem(block_size, ws, wu, false) <= room) return 0;
+  return -1;
+}
+
 int sbm_emit_pairs(const int* owner, const int* is_upper, const int* is_sub,
                    const int* valid, const unsigned* sub0,
                    const unsigned* upd0, unsigned* sub_mask,
-                   unsigned* upd_mask, int* out_i, int* out_j,
+                   unsigned* upd_mask, int* out_i, int* out_j, int* broken,
                    long long total, int block_size, int ws, int wu,
                    long long cap, void* stream) {
   const long long blocks = total / block_size;
-  if (blocks > 0)
-    emit_pairs_kernel<<<(unsigned)blocks, kThreads, 0,
-                        (cudaStream_t)stream>>>(
-        owner, is_upper, is_sub, valid, sub0, upd0, sub_mask, upd_mask,
-        out_i, out_j, block_size, ws, wu, cap);
+  if (blocks <= 0) return (int)cudaGetLastError();
+  if (cap < 1 || cap > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int place = sbm_emit_pairs_placement(block_size, ws, wu);
+  if (place < 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = pass_c_smem(block_size, ws, wu, place == 1);
+  auto kernel = place == 1 ? emit_pairs_kernel<true> : emit_pairs_kernel<false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      owner, is_upper, is_sub, valid, sub0, upd0, sub_mask, upd_mask, out_i,
+      out_j, broken, block_size, ws, wu, (int)cap);
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,10 @@ segments and ``q_offset``; online softmax with a float32 accumulator.
 ``block_q`` / ``block_k`` are the schedule's units, not the kernel's tile.
 bfloat16 inputs run on the tensor cores (``mma.sync`` bf16 -> f32, P
 rounded to bf16 before P·V); float32 inputs run a scalar float32 kernel.
-Both take head widths 64, 128 and 256.  Like the other wrappers it:
+Both are built for head widths 64, 128 and 256; any other width up to 256
+is zero-padded to the next of those on the way in and cut back on the way
+out (:func:`_pad_head_dim`), which is exact: a zero column adds 0 to every
+q·k score and its output column is dropped.  Like the other wrappers it:
 
 * takes the plain version (:func:`repro_torch.kernels.ref.ref_flash_attention`)
   only when its tensors lie on the CPU;
@@ -21,7 +24,7 @@ Both take head widths 64, 128 and 256.  Like the other wrappers it:
 * raises :class:`ValidationError` for any other device, mixed devices, a
   wrong dtype or shape, a non-contiguous tensor, a schedule that is not on
   the CPU or has an entry out of range, or (on the card) a head width
-  outside ``HEAD_DIMS_ON_CARD``.
+  above ``HEAD_DIMS_ON_CARD[-1]``.
 """
 from __future__ import annotations
 
@@ -35,6 +38,22 @@ from repro_torch.kernels import ref as ref_lib
 
 HEAD_DIMS_ON_CARD = (64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d: int):
+    """(q, k, v, d_pad): the three zero-padded along D to the smallest
+    built width d_pad >= d (unchanged when d is one).  The caller fixes the
+    softmax scale from d before padding and keeps ``out[..., :d]``."""
+    fits = [w for w in HEAD_DIMS_ON_CARD if w >= d]
+    if not fits:
+        raise ValidationError(f"the flash kernel takes head_dim up to "
+                              f"{HEAD_DIMS_ON_CARD[-1]}, got {d}")
+    d_pad = fits[0]
+    if d_pad == d:
+        return q, k, v, d
+    pad = (0, d_pad - d)
+    return (torch.nn.functional.pad(q, pad), torch.nn.functional.pad(k, pad),
+            torch.nn.functional.pad(v, pad), d_pad)
 
 
 def _check(q, k, v, kv_index, kv_count, q_segments, kv_segments,
@@ -111,18 +130,16 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if scale is None:
-        scale = 1.0 / (d ** 0.5)
+        scale = 1.0 / (d ** 0.5)        # from the true width, before padding
     if not on_card:
         return ref_lib.ref_flash_attention(
             q, k, v, kv_index, kv_count, q_segments, kv_segments, scale=scale,
             causal=causal, window=window, softcap=softcap, block_q=block_q,
             block_k=block_k, q_offset=q_offset)
-    if d not in HEAD_DIMS_ON_CARD:
-        raise ValidationError(f"the flash kernel takes head_dim in "
-                              f"{HEAD_DIMS_ON_CARD}, got {d}")
+    q, k, v, d_pad = _pad_head_dim(q, k, v, d)
     out = torch.empty_like(q)
     if out.numel() == 0:
-        return out
+        return out[..., :d]
     use_segments = q_segments is not None
     lib = _build.library()
     # pageable → device, stream-ordered: the host does not wait for the card
@@ -133,14 +150,14 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv_count.data_ptr(),
         q_segments.data_ptr() if use_segments else None,
         kv_segments.data_ptr() if use_segments else None,
-        out.data_ptr(), b, h, hkv, sq, skv, d, kv_index.shape[1], block_q,
-        block_k, q_offset, float(scale), int(causal),
+        out.data_ptr(), b, h, hkv, sq, skv, d_pad, kv_index.shape[1],
+        block_q, block_k, q_offset, float(scale), int(causal),
         -1 if window is None else int(window),
         0.0 if softcap is None else float(softcap),
         _DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
     _build.check(rc, "flash_attention_fwd")
     flash_attention_kernel.launches += 1
-    return out
+    return out if d_pad == d else out[..., :d].contiguous()
 
 
 flash_attention_kernel.launches = 0

@@ -104,8 +104,11 @@ def sbm_enumerate_kernel(subs: Extents, upds: Extents, *, max_pairs: int,
                 _empty_count(dev))
     ep = _pad_stream(encode_endpoints(subs, upds), block_size)
     deltas = torch.stack(_indicator_deltas(ep))
-    _, seg_totals, k_total = sweep_kernels.sweep_count(deltas,
-                                                       block_size=block_size)
+    # pass B's per-endpoint counts stay here: pass C derives the same counts
+    # inside each block from its records and entering popcounts, in the
+    # same scans that give it the single-pair members (csrc/sbm_sweep.cu)
+    emit, seg_totals, k_total = sweep_kernels.sweep_count(
+        deltas, block_size=block_size)
     cap = max(int(seg_totals.max()), 1)
 
     up = ep.is_upper.to(torch.int32)

@@ -10,7 +10,12 @@ kernel of the JAX package's ``repro/kernels/sbm_sweep.py``:
 * :func:`delta_bitmasks` — ``delta_bitmask_kernel``, replaces
   ``_delta_bitmask_kernel``;
 * :func:`emit_pairs` — ``emit_pairs_kernel`` (pass C), replaces
-  ``_emission_pairs_kernel``.
+  ``_emission_pairs_kernel``: not the Pallas kernel's serial replay of each
+  segment, but counts, slot bases and every single-pair emission in
+  closed form across the block, then one warp per extent type replaying
+  only its own set for the emissions of two or more pairs.  The closed
+  forms need records within a contract that ``ops`` meets (see
+  :func:`emit_pairs`); the kernel checks it and the wrapper raises.
 
 What bounds each on an H100, and its measured time, is in ``PERF.md`` and
 in the kernel source's comments.  Each wrapper:
@@ -24,13 +29,14 @@ in the kernel source's comments.  Each wrapper:
   shape or a non-contiguous tensor.
 
 Outputs and scratch are allocated here with ``torch.empty``; the kernels
-allocate nothing and never synchronise.
+allocate nothing and never synchronise.  Only :func:`emit_pairs` waits for
+its kernel, to read its contract word.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.errors import ValidationError
+from repro_torch.core.errors import KernelError, ValidationError
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_lib
 
@@ -138,6 +144,18 @@ def delta_bitmasks(owner: torch.Tensor, is_upper: torch.Tensor,
     return add, rem
 
 
+def emit_pairs_placement(block_size: int, ws: int, wu: int) -> str:
+    """Where the pass-C kernel keeps its live masks on the current card
+    for these sizes: ``"shared"`` (shared memory) or ``"global"`` (the
+    block's rows of the global scratch); builds the library."""
+    place = _build.library().sbm_emit_pairs_placement(block_size, ws, wu)
+    if place < 0:
+        raise ValidationError(f"pass C: the lists of block_size="
+                              f"{block_size} do not fit a block's shared "
+                              "memory")
+    return "shared" if place else "global"
+
+
 def emit_pairs(owner: torch.Tensor, is_upper: torch.Tensor,
                is_sub: torch.Tensor, valid: torch.Tensor,
                sub_active0: torch.Tensor, upd_active0: torch.Tensor, *,
@@ -145,6 +163,13 @@ def emit_pairs(owner: torch.Tensor, is_upper: torch.Tensor,
     """Pass C: per-segment pair emission from the active sets entering
     each segment (``sub_active0``/``upd_active0``: (num_blocks, W) int32
     words).  ``owner`` must be clipped to >= 0, padding marked valid=0.
+    On the card the records must be a sorted endpoint stream (each
+    extent's lower before its upper) and the entering sets the exact ones
+    (the exclusive monoid scan of the delta bitmasks), as ``ops`` builds
+    them: the kernel derives every endpoint's slot base from them.  It
+    checks that every lower finds its bit clear and every upper finds it
+    set; where one does not, this raises :class:`KernelError` (one host
+    sync per call).  The plain replay on the CPU takes any records.
 
     Returns (out_i, out_j): (num_blocks, cap) int32, each segment's pairs
     at slots [0, segment emission total), −1 elsewhere.
@@ -161,20 +186,29 @@ def emit_pairs(owner: torch.Tensor, is_upper: torch.Tensor,
         return ref_lib.ref_emit_pairs(owner, is_upper, is_sub, valid,
                                       sub_active0, upd_active0,
                                       block_size=block_size, cap=cap)
+    if cap >= 2 ** 31:
+        raise ValidationError(f"pass C's slots are int32, as the Pallas "
+                              f"kernel's: cap={cap} must be < 2**31")
     dev = owner.device
     ws, wu = sub_active0.shape[1], upd_active0.shape[1]
     sub_mask = torch.empty_like(sub_active0)     # live active sets (scratch)
     upd_mask = torch.empty_like(upd_active0)
     out_i = torch.empty((nb, cap), dtype=torch.int32, device=dev)
     out_j = torch.empty_like(out_i)
+    broken = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _build.library()
     rc = lib.sbm_emit_pairs(_ptr(owner), _ptr(is_upper), _ptr(is_sub),
                             _ptr(valid), _ptr(sub_active0), _ptr(upd_active0),
                             _ptr(sub_mask), _ptr(upd_mask), _ptr(out_i),
-                            _ptr(out_j), total, block_size, ws, wu, cap,
-                            _build.stream_handle(dev))
+                            _ptr(out_j), _ptr(broken), total, block_size, ws,
+                            wu, cap, _build.stream_handle(dev))
     _build.check(rc, "sbm_emit_pairs")
     emit_pairs.launches += 1
+    if int(broken.item()):
+        raise KernelError("sbm_emit_pairs: the records are not a sorted "
+                          "endpoint stream with the exact entering sets (a "
+                          "lower found its bit set or an upper found it "
+                          "clear)")
     return out_i, out_j
 
 

@@ -22,7 +22,8 @@ from repro.kernels import ops as jops
 from repro.kernels.ref import ref_attention as jax_ref_attention
 from repro.models.attention import blockwise_attention as jax_blockwise
 from repro_torch.core.errors import ValidationError
-from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.flash_attention import (_pad_head_dim,
+                                                 flash_attention_kernel)
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models.attention import blockwise_attention
@@ -185,6 +186,35 @@ def test_schedule_decides_the_answer():
     part = tref.ref_flash_attention(q, k, v, idx, cut, **args)
     assert torch.equal(part[:, :, :192], full[:, :, :192])
     assert not torch.allclose(part[:, :, 192:], full[:, :, 192:])
+
+
+@pytest.mark.parametrize("d", [16, 96])
+def test_padded_head_dim_equals_unpadded_and_pallas(d):
+    """What the wrapper launches on the card at a width it has no instance
+    for: q, k, v zero-padded to the next built width, the scale fixed from
+    the true width, the output cut back.  Replayed by the plain version
+    here, it equals the unpadded replay and the Pallas kernel (interpret
+    mode) at the true width."""
+    B, H, Hkv, S, blk = 2, 4, 2, 128, 32
+    q, k, v = _qkv(d, B, H, Hkv, S, S, d)
+    seg = _segments(d + 1, B, S)
+    feats = dict(causal=True, window=40, softcap=30.0)
+    want = jops.flash_attention(_j(q), _j(k), _j(v), q_segments=_j(seg),
+                                kv_segments=_j(seg), block_q=blk, block_k=blk,
+                                interpret=True, **feats)
+    idx, cnt, _ = tops.build_block_structure(S, S, block_q=blk, block_k=blk,
+                                             window=40)
+    sched = (torch.from_numpy(idx), torch.from_numpy(cnt), _t(seg), _t(seg))
+    kw = dict(scale=d ** -0.5, block_q=blk, block_k=blk, q_offset=0, **feats)
+    pq, pk, pv, d_pad = _pad_head_dim(_t(q), _t(k), _t(v), d)
+    assert d_pad == (64 if d <= 64 else 128) and pq.shape[-1] == d_pad
+    assert torch.equal(pq[..., :d], _t(q)) and not pq[..., d:].any()
+    got = tref.ref_flash_attention(pq, pk, pv, *sched, **kw)[..., :d]
+    plain = tref.ref_flash_attention(_t(q), _t(k), _t(v), *sched, **kw)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    with pytest.raises(ValidationError):          # no instance above 256
+        _pad_head_dim(*(torch.zeros((1, 1, 8, 320)),) * 3, 320)
 
 
 def test_bf16_plain_flash_close_to_f32():

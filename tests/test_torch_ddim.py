@@ -58,7 +58,9 @@ def _u32(words: torch.Tensor) -> np.ndarray:
     return words.numpy().view(np.uint32)
 
 
-SHAPES = [(1, 33, 40), (2, 64, 70), (2, 37, 130), (3, 96, 257), (2, 20, 1)]
+# d = 5 and 8 take the kernel's run-time-d form on the card
+SHAPES = [(1, 33, 40), (2, 64, 70), (2, 37, 130), (3, 96, 257), (2, 20, 1),
+          (5, 40, 70), (8, 33, 45)]
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +90,13 @@ def test_bitmatrix_words_counts_and_k_match_reference(d, n, m):
                                  u_lo.contiguous(), u_hi.contiguous(),
                                  row_block=7)
     assert torch.equal(blocked[0], words) and torch.equal(blocked[1], counts)
+    # and the pairs, in the reference's row-major order
+    max_pairs = max(int(k), 1)
+    r_pairs, r_count = rddim.bitmatrix_enumerate(rs, ru, max_pairs=max_pairs)
+    for fn in (tddim.bitmatrix_enumerate, tbitmatch.sbm_bitmatrix_kernel):
+        pairs, count = fn(ts, tu, max_pairs=max_pairs)
+        np.testing.assert_array_equal(pairs.numpy(), np.asarray(r_pairs))
+        assert int(count) == int(r_count) == int(k)
 
 
 def test_unbounded_subscription_matches_the_xla_form():

@@ -17,7 +17,7 @@ import torch
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.convert import extents_from_arrays, model_params_from_arrays
 from repro_torch.core import intervals
-from repro_torch.core.errors import ValidationError
+from repro_torch.core.errors import KernelError, ValidationError
 from repro_torch.core.incremental import IncrementalIndex
 from repro_torch.core.service import DDMService
 from repro_torch.data import ddm_workload
@@ -164,11 +164,23 @@ def test_kernels_match_plain_versions_on_the_card():
         cap = max(int(seg.max()), 1)
         c_args = (ep.owner.clamp(min=0), up, ep.is_sub.to(torch.int32),
                   real.to(torch.int32), *masks)
-        got = tkernels.emit_pairs(*c_args, block_size=bs, cap=cap)
-        want = tref.ref_emit_pairs(*c_args, block_size=bs, cap=cap)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
-    # the bit-matrix AND, d = 1..4, ragged rows and words
-    for d, n, m in ((1, 33, 40), (2, 37, 130), (3, 300, 257), (4, 65, 1000)):
+        for c in (cap, max(cap // 2, 1)):        # and a cap that cuts
+            got = tkernels.emit_pairs(*c_args, block_size=bs, cap=c)
+            want = tref.ref_emit_pairs(*c_args, block_size=bs, cap=c)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        # outside its contract (segment 0's first subscription lower finds
+        # its bit set) pass C raises on the card
+        first = int(torch.nonzero(ep.is_sub[:bs] & real[:bs])[0])
+        o = int(ep.owner[first])
+        bad = masks[0].clone()
+        bad[0, o // 32] ^= int(np.uint32(1 << (o % 32)).view(np.int32))
+        with pytest.raises(KernelError):
+            tkernels.emit_pairs(*c_args[:4], bad, masks[1], block_size=bs,
+                                cap=cap)
+    # the bit-matrix AND, d = 1..4 and the run-time d of 5 and 8, ragged
+    # rows and words
+    for d, n, m in ((1, 33, 40), (2, 37, 130), (3, 300, 257), (4, 65, 1000),
+                    (5, 70, 300), (8, 40, 65)):
         g = torch.Generator().manual_seed(d)
         subs, upds = intervals.make_uniform_workload(n, m, 50.0, d=d,
                                                      generator=g)
@@ -208,11 +220,24 @@ def test_kernels_match_plain_versions_on_the_card():
             assert got.dtype == dt
             torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                        atol=tol)
-    q = torch.zeros((1, 2, 64, 96), device="cuda")
+    # D = 96 runs zero-padded to the D = 128 instance, one launch
     idx, cnt, _ = tops.build_block_structure(64, 64, block_q=32, block_k=32)
     idx, cnt = torch.from_numpy(idx), torch.from_numpy(cnt)
-    with pytest.raises(ValidationError):                    # D = 96
-        flash_attention_kernel(q, q, q, idx, cnt, block_q=32, block_k=32)
+    q, k, v = (torch.randn((1, 2, 64, 96), generator=gen).cuda()
+               for _ in range(3))
+    kw = dict(scale=96 ** -0.5, causal=True, window=None, softcap=None,
+              block_q=32, block_k=32, q_offset=0)
+    before = flash_attention_kernel.launches
+    got = flash_attention_kernel(q, k, v, idx, cnt, **kw)
+    assert flash_attention_kernel.launches == before + 1
+    assert got.shape == q.shape and got.is_contiguous()
+    torch.testing.assert_close(got, tref.ref_flash_attention(q, k, v, idx, cnt,
+                                                             **kw),
+                               rtol=2e-5, atol=2e-5)
+    q512 = torch.zeros((1, 2, 64, 512), device="cuda")
+    with pytest.raises(ValidationError):                    # D = 512
+        flash_attention_kernel(q512, q512, q512, idx, cnt, block_q=32,
+                               block_k=32)
     q64 = torch.zeros((1, 2, 64, 64), device="cuda")
     with pytest.raises(ValidationError):            # schedule on the card
         flash_attention_kernel(q64, q64, q64, idx.cuda(), cnt.cuda(),

@@ -238,6 +238,105 @@ def _pass_c_inputs(rs, ru, block_size):
     return args, cap
 
 
+def _signed_zero_ties(seed, n, m):
+    """A small integer grid around 0 with random -0.0 bounds: ties between
+    lowers and uppers, zero-length extents and both zeros."""
+    rng = np.random.default_rng(seed)
+    lo = rng.integers(-3, 4, n + m).astype(np.float32)
+    hi = lo + rng.integers(0, 3, n + m).astype(np.float32)
+    for x in (lo, hi):
+        x[(x == 0) & (rng.random(n + m) < 0.5)] = np.float32(-0.0)
+    return _both(lo[:n], hi[:n], lo[n:], hi[n:])
+
+
+def _emit_counts_closed_form(up, is_sub, real, sub_active0, upd_active0,
+                             block_size):
+    """Pass C's per-endpoint counts as its kernel derives them: at an upper
+    endpoint, the counterpart popcount entering the segment plus the
+    counterpart lowers before it in the segment minus the counterpart
+    uppers before it; 0 elsewhere."""
+    nb = up.shape[0] // block_size
+    up, sb, va = (x.reshape(nb, block_size) for x in (up != 0, is_sub, real))
+    step = torch.where(up, -1, 1).to(torch.int32)
+    active = []
+    for side, words in ((sb, sub_active0), (~sb, upd_active0)):
+        d = torch.where(va & side, step, 0)
+        before = torch.cumsum(d, dim=1, dtype=torch.int32) - d
+        entering = tprefix.popcount32(words).sum(dim=1, dtype=torch.int32)
+        active.append(before + entering[:, None])
+    emit = torch.where(va & up, torch.where(sb, active[1], active[0]), 0)
+    return emit.to(torch.int32).reshape(-1)
+
+
+@pytest.mark.parametrize("block_size", [16, 64])
+@pytest.mark.parametrize("name", sorted(WORKLOADS) + ["signed_zero_ties"])
+def test_pass_c_slot_counts_equal_pass_b_emit(name, block_size):
+    """The identity the pass-C kernel derives its slot bases from: at an
+    upper endpoint, the counterpart popcount entering the segment plus the
+    counterpart lowers before it in the segment minus the uppers before it
+    equals pass B's emission count, segment by segment.  It holds because
+    the streams the engine builds meet the contract the kernel checks on
+    the card: every lower finds its bit clear, every upper finds it set."""
+    make = WORKLOADS.get(name, lambda: _signed_zero_ties(4, 70, 60))
+    _, (ts, tu) = make()
+    n, m = ts.size, tu.size
+    ep = tsweep._pad_stream(tsweep.encode_endpoints(ts, tu), block_size)
+    deltas = torch.stack(tsweep._indicator_deltas(ep))
+    sums = tref.ref_block_sums(deltas, block_size=block_size)
+    offsets = torch.cumsum(sums, dim=0, dtype=torch.int32) - sums
+    emit, seg = tref.ref_emission(deltas, offsets, block_size=block_size)
+    up = ep.is_upper.to(torch.int32)
+    real = ep.owner >= 0
+    active0 = []
+    for side, count in ((ep.is_sub, n), (~ep.is_sub, m)):
+        add, rem = tref.ref_delta_bitmasks(
+            ep.owner, up, (side & real).to(torch.int32),
+            num_words=-(-count // 32), block_size=block_size)
+        active0.append(tprefix.delta_scan_exclusive(add, rem))
+    got = _emit_counts_closed_form(up, ep.is_sub, real, *active0,
+                                   block_size)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, emit)
+    assert torch.equal(got.reshape(-1, block_size).sum(dim=1,
+                                                       dtype=torch.int64), seg)
+    # where the count is 1, the XOR of the counterpart's ids entering the
+    # segment and of its endpoints before this one is the one member: the
+    # pair the replay writes at the endpoint's slot base
+    cap = max(int(seg.max()), 1)
+    out_i, out_j = tref.ref_emit_pairs(ep.owner.clamp(min=0), up,
+                                       ep.is_sub.to(torch.int32),
+                                       real.to(torch.int32), *active0,
+                                       block_size=block_size, cap=cap)
+    owner = ep.owner.numpy().reshape(-1, block_size)
+    is_sub = ep.is_sub.numpy().reshape(-1, block_size)
+    live = real.numpy().reshape(-1, block_size)
+    counts = got.numpy().reshape(-1, block_size)
+    upper = ep.is_upper.numpy().reshape(-1, block_size)
+    singles = 0
+    for p in range(owner.shape[0]):
+        acc = {True: 0, False: 0}
+        live_sets = {}
+        for side, words in ((True, active0[0][p]), (False, active0[1][p])):
+            live_sets[side] = tref._members(words.numpy().view(np.uint32))
+            for member in live_sets[side]:
+                acc[side] ^= member
+        slot = 0
+        for t in range(block_size):
+            if not live[p, t]:
+                continue
+            side = bool(is_sub[p, t])
+            o = int(owner[p, t])
+            if upper[p, t] and counts[p, t] == 1:
+                pair = (int(out_i[p, slot]), int(out_j[p, slot]))
+                assert pair == ((o, acc[False]) if side else (acc[True], o))
+                singles += 1
+            assert (o in live_sets[side]) == bool(upper[p, t])  # the contract
+            live_sets[side] ^= {o}
+            acc[side] ^= o
+            slot += int(counts[p, t])
+    assert singles > 0 or name == "signed_zero_ties"   # dense ties: none
+
+
 @pytest.mark.parametrize("name", sorted(WORKLOADS))
 def test_pass_c_arrays_match_pallas_interpret(name):
     (rs, ru), (ts, tu) = WORKLOADS[name]()
