@@ -30,13 +30,19 @@ Phases (any failure exits non-zero and prints no result line):
 4. Each sweep kernel at the main path's shapes: held against its plain
    version again, then timed (device time per launch) beside the plain
    version and the least time the card could take (bytes over the
-   published HBM rate); pass C with its masks in shared memory.  Pass C
-   must raise ``KernelError`` on records outside its contract (an
-   entering set that says a lower's extent is already open).
+   published HBM rate); pass C with its masks in shared memory, no block
+   taking its general path.  On records outside the contract of its fast
+   path (an entering set that says a lower's extent is already open, a
+   lower seen twice, stray bits in every entering set, and those with a
+   cap that cuts) pass C must equal its plain replay element for element,
+   with a nonzero count of blocks that took the general path.
 5. The bit-matrix AND kernel against its plain version and the numpy brute
    force: the shapes of ``tests/test_kernels_bitmatch.py`` and d = 5 and 8
    (the kernel's run-time-d form), an unbounded
-   ``[-inf, +inf]²`` subscription against m = 5, and empty sides.
+   ``[-inf, +inf]²`` subscription against m = 5, empty sides, and edge
+   shapes that straddle the kernel's tiles (m = 1, 31, 33, 1025; n not a
+   multiple of its 512-row tile; d = 1, 4, 5; integer-grid ties with -0.0
+   and infinite bounds).
 6. The bit-matrix at full size on tall-thin workloads (wide dim 0):
    (a) n = m = 32768, d = 2, α = 10 and (b) n = m = 1e5, d = 3, α = 100.
    Words, row counts and K equal the plain version's (run over row
@@ -62,8 +68,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``tests/test_kernels_attention.py`` (GQA 2:1 and 4:1, MQA with 5 heads),
    windows of 64, 100 and 128, softcap 30 and 50, segments, q_offset > 0, a
    global block, 32-blocks, 512-blocks (eight q tiles per block, with and
-   without a window), D = 64, 128 and 256, and D = 16 and 96, which the
-   wrapper zero-pads to the next built width.
+   without a window), D = 64, 128 and 256, D = 16 and 96, which the
+   wrapper zero-pads to the next built width, and D = 320 and 512, which
+   run the run-time-width kernel.
 10. Flash at full width: smollm-360m's prefill shapes (B = 4, H = 15,
     Hkv = 5, S = 2048, D = 64, bfloat16, causal 512-blocks) with a peaked
     softmax (scores of std 4): kernel == plain and dense oracle within the
@@ -78,7 +85,9 @@ Phases (any failure exits non-zero and prints no result line):
     sliding-window block mask), the yardstick.  Then row 6c: phi-3-vision's
     widths (B = 4, H = Hkv = 32, S = 2048, D = 96 zero-padded to 128,
     causal 512-blocks) through ``ops.flash_attention`` (one launch,
-    counted), beside SDPA.
+    counted), beside SDPA.  Then row 6d: the run-time-width kernel at
+    B = 1, H = Hkv = 8, S = 4096, D = 512, causal 512-blocks, bf16, through
+    ``ops.flash_attention`` (one launch, counted), beside SDPA.
 11. The serving path: smollm-360m at full width and depth (32 layers,
     bfloat16 compute, float32 weights from a seeded generator) behind
     ``ServeEngine`` with 4 slots answers 8 requests of 2048-token prompts,
@@ -138,6 +147,10 @@ CHURN = (("sub", 1), ("upd", 100), ("sub", 1000), ("upd", 10_000))
 # d = 5 and 8 run the kernel's run-time-d form
 BITMATCH_SHAPES = ((1, 33, 40), (2, 64, 70), (2, 37, 130), (3, 96, 257),
                    (5, 64, 100), (8, 96, 257))
+# (d, n, m): m straddles the kernel's words and 128-update stages, n its
+# 512-row tiles; integer-grid ties, -0.0 and infinite bounds
+BITMATCH_EDGES = ((1, 1030, 1), (4, 1030, 31), (5, 515, 33), (1, 7, 1025),
+                  (4, 513, 1025), (5, 1030, 1025))
 BITMATCH_FULL = (("a", 32_768, 2, 10.0), ("b", 100_000, 3, 100.0))
 DDIM_N = 100_000               # the d-dim service's regions per side
 # the serving traffic: prompts a multiple of attn_block_q (512), so prefill
@@ -177,8 +190,8 @@ FLASH_CASES = (
     (2, 4, 2, 128, 128, 256, 32, {"window": 40, "softcap": 50.0,
                                   "segments": True}),
     (1, 4, 2, 512, 1536, 256, 512, {"window": 700, "softcap": 50.0}),
-    # widths with no instance, zero-padded by the wrapper: 16 -> 64 and
-    # 96 -> 128 (phi-3-vision), with every feature, causal, and 512-blocks
+    # widths with no instance, zero-padded by the wrapper in bf16: 16 -> 64
+    # and 96 -> 128 (phi-3-vision), with every feature, causal, and 512-blocks
     # with a window and q_offset
     (1, 4, 2, 128, 128, 16, 32, {"window": 40, "softcap": 30.0,
                                  "segments": True}),
@@ -186,11 +199,22 @@ FLASH_CASES = (
     (2, 6, 2, 96, 192, 96, 32, {"window": 40, "softcap": 30.0,
                                 "segments": True}),
     (1, 3, 1, 512, 1536, 96, 512, {"window": 300}),
+    # widths above 256, the run-time-width kernel (which runs every
+    # float32 case of this battery): every feature at
+    # 32-blocks, causal 64-blocks, 512-blocks with a window, softcap and
+    # q_offset
+    (1, 2, 2, 128, 128, 320, 32, {"window": 40, "softcap": 30.0,
+                                  "segments": True}),
+    (1, 4, 2, 256, 256, 512, 64, {}),
+    (1, 2, 1, 512, 1536, 512, 512, {"window": 700, "softcap": 50.0}),
 )
 # row 6c: phi-3-vision's attention widths (src/repro/configs/
 # phi3_vision_4b.py: 32 heads of 96, kv 32) at smollm-360m's prefill batch,
 # length and block
 PHI3_FLASH = dict(B=4, H=32, Hkv=32, S=2048, D=96, block=512)
+# row 6d: a head width above 256 (no config of the repo has one), served by
+# the run-time-width kernel
+WIDE_FLASH = dict(B=1, H=8, Hkv=8, S=4096, D=512, block=512)
 # (atol, rtol) as |kernel - ref| <= atol + rtol * |ref|;
 # tests/test_kernels_attention.py's bounds
 FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
@@ -327,13 +351,10 @@ def sass_counts(library: str, nvcc: str):
     return {names[k]: v for k, v in counts.items()}
 
 
-def flash_dynamic_smem(d: int, dtype: str) -> int:
-    """Dynamic shared memory of one block of the flash kernel at head width
-    d: ``f32_smem_bytes`` / ``bf16_smem_bytes`` of ``flash_attention.cu``
-    (float32: K, V rows padded to d + 1, Q, a 64 x 65 score tile; bf16: Q
-    and a two-stage K/V ring of 64-row sub-tiles, 32-row at d = 256)."""
-    if dtype == "f32":
-        return (2 * 64 * (d + 1) + 64 * d + 64 * 65) * 4
+def flash_dynamic_smem(d: int) -> int:
+    """Dynamic shared memory of one block of the bf16 flash instance at
+    head width d: ``bf16_smem_bytes`` of ``flash_attention.cu`` (Q and a
+    two-stage K/V ring of 64-row sub-tiles, 32-row at d = 256)."""
     kv_rows = 32 if d == 256 else 64
     return (64 * d + 2 * 2 * kv_rows * d) * 2
 
@@ -395,10 +416,12 @@ class Smoke:
         from repro_torch.kernels import bitmatch as B
         from repro_torch.kernels import sbm_sweep as K
         from repro_torch.kernels.flash_attention import KERNEL_WRAPPERS as F
+        from repro_torch.kernels.flash_attention import flash_route
 
         self.torch = torch
         self.K, self.B, self.ref, self.ops, self._build = K, B, ref, ops, _build
         self.flash = F[0]
+        self.flash_route = flash_route
         self.wrappers = K.KERNEL_WRAPPERS + B.KERNEL_WRAPPERS + F
         self.round_up_pow2 = runtime.round_up_pow2
         self.dev = torch.device(DEVICE)
@@ -540,18 +563,14 @@ class Smoke:
         lib = self._build.library()
         sass = sass_counts(lib._name, self._build._nvcc())
         for name, res in resources.items():
-            flash = re.match(r"flash_attention_fwd_(f32|bf16)_kernel<(\d+)>",
-                             name)
+            flash = re.match(r"flash_attention_fwd_bf16_kernel<(\d+)>", name)
             if flash:
-                dtype = flash.group(1)
-                res["dynamic_smem"] = flash_dynamic_smem(int(flash.group(2)),
-                                                         dtype)
+                res["dynamic_smem"] = flash_dynamic_smem(int(flash.group(1)))
                 if sass is not None:
                     res["sass"] = sass.get(name, dict.fromkeys(SASS_OPS, 0))
                     # the bf16 kernel runs on the tensor cores, fed by cp.async
-                    require(dtype == "f32" or (res["sass"]["HMMA"]
-                                           + res["sass"]["HGMMA"] > 0
-                                           and res["sass"]["LDGSTS"] > 0),
+                    require(res["sass"]["HMMA"] + res["sass"]["HGMMA"] > 0
+                            and res["sass"]["LDGSTS"] > 0,
                             f"{name}: no tensor-core or cp.async instruction "
                             f"in its SASS: {res['sass']}")
             print(f"  {name}: " + json.dumps(res))
@@ -614,6 +633,8 @@ class Smoke:
             replay_ms = self.check_pass_c(x, tag, "global")
             line = (f"kernel == replay ({replay_ms:.0f} ms), masks in global "
                     f"memory, ")
+            self.check_pass_c_any_records(x, tag, "global",
+                                          with_stray=False)
         ms = self.time_ms(lambda: K.emit_pairs(*x["c_args"], block_size=bs,
                                                cap=x["cap"]),
                           3, "emit_pairs_kernel")
@@ -783,6 +804,8 @@ class Smoke:
         self.check_counting(x["deltas4"], tag, self.ops.ENUMERATE_BLOCK)
         self.check_bitmasks(x, tag)
         plain_c_ms = self.check_pass_c(x, tag, "shared")
+        require(int(K.emit_pairs.general_blocks) == 0, "pass C at the main "
+                "path's shapes: a block took the general path")
         bsc, bse = self.ops.COUNT_BLOCK, self.ops.ENUMERATE_BLOCK
         d = x["deltas"]
         total, total4 = d.shape[1], x["ep4"].owner.shape[0]
@@ -831,45 +854,95 @@ class Smoke:
                 "library_ms": (self.time_ms(library[name], reps)
                                if name in library else None),
             }
-        # pass C's wrapper by the host clock: allocation, placement query,
-        # launch and the sync that reads the kernel's contract word
+        # pass C's wrapper by the host clock: allocation, placement query
+        # and launch (nothing waits for the card), then one sync
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(20):
             K.emit_pairs(*c_args, block_size=bse, cap=cap)
         call_ms = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
         self.phase_ms["emit_pairs wrapper call (host clock)"] = call_ms
         print(f"kernel timing at {tag}: total={total} (count, block {bsc}), "
               f"{total4} (enumerate, block {bse}), cap={cap}, "
               f"sources {self.timing_source}; pass C's wrapper call "
               f"{call_ms:.4f} ms by the host clock (its kernel "
               f"{self.rows['emit_pairs']['ms']:.4f} ms)", flush=True)
-        self.check_pass_c_contract(x)
+        self.check_pass_c_any_records(x, "main-path shapes", "shared",
+                                      with_stray=True)
 
-    def check_pass_c_contract(self, x):
-        """Pass C on records outside its contract must raise: segment 0's
-        entering subscription set gets the bit of its first subscription
-        endpoint, a lower, which then finds its bit already set."""
-        from repro_torch.core.errors import KernelError
+    def check_pass_c_any_records(self, x, tag, placement, with_stray):
+        """Pass C on records outside the contract of its fast path must
+        equal its plain replay element for element, with its masks in
+        ``placement`` memory, and its count of blocks that took the general
+        path must be > 0: segment 0's entering subscription set gets the
+        bit of its first subscription endpoint, a lower, which then finds
+        it set; that lower again in place of the record after it; a lower
+        of segment 0 whose upper lies in segment 0 dropped, so the upper
+        finds its bit clear; with ``with_stray``, 16 stray bits in every
+        entering set, and those with a cap that cuts."""
+        import numpy as np
 
-        torch = self.torch
+        torch, K, ref = self.torch, self.K, self.ref
         owner, up, is_sub, valid, sub0, upd0 = x["c_args"]
-        bs = self.ops.ENUMERATE_BLOCK
+        bs, cap = self.ops.ENUMERATE_BLOCK, x["cap"]
+        place = K.emit_pairs_placement(bs, x["ws"], x["wu"])
+        require(place == placement, f"pass C off-contract, {tag}: masks in "
+                f"{place} memory, expected {placement}")
         first = int(torch.nonzero((is_sub[:bs] != 0) & (valid[:bs] != 0))[0])
-        require(int(up[first]) == 0, "pass C contract: segment 0's first "
+        require(int(up[first]) == 0, "pass C: segment 0's first "
                 "subscription endpoint is not a lower")
         o = int(owner[first])
         bad = sub0.clone()
-        bit = 1 << (o % 32)              # as the int32 the word is held in
-        bad[0, o // 32] ^= bit - (1 << 32) if bit >= 1 << 31 else bit
-        try:
-            self.K.emit_pairs(owner, up, is_sub, valid, bad, upd0,
-                              block_size=bs, cap=x["cap"])
-        except KernelError as exc:
-            print(f"pass C outside its contract raises KernelError: {exc}",
-                  flush=True)
-            return
-        raise SmokeFailure("pass C: records outside the contract (a lower "
-                           "whose bit is set) did not raise")
+        bad[0, o // 32] ^= int(np.uint32(1 << (o % 32)).view(np.int32))
+        twice = [t.clone() for t in (owner, up, is_sub, valid)]
+        for t, val in zip(twice, (o, 0, 1, 1)):
+            t[first + 1] = val
+        # the first subscription lower of segment 0 whose upper follows in
+        # segment 0, made padding
+        rec = [t[:bs].cpu().numpy() for t in (owner, up, is_sub, valid)]
+        live = (rec[2] != 0) & (rec[3] != 0)
+        closed = set(rec[0][live & (rec[1] != 0)].tolist())
+        lows = np.flatnonzero(live & (rec[1] == 0)
+                              & np.isin(rec[0], list(closed)))
+        require(lows.size > 0, "pass C: no subscription opens and closes in "
+                "segment 0")
+        dropped = valid.clone()
+        dropped[int(lows[0])] = 0
+        rng = np.random.default_rng(SEED + 19)
+
+        def stray(words, per_row=16):
+            # a few stray members per entering set: the plain replay sorts
+            # each set at every emission, so dense ones would take hours
+            nb, w = words.shape
+            ids = rng.integers(0, 32 * w, (nb, per_row))
+            bits = np.zeros((nb, w), np.uint32)
+            np.bitwise_or.at(bits, (np.arange(nb)[:, None], ids // 32),
+                             np.uint32(1) << (ids % 32).astype(np.uint32))
+            return words | torch.from_numpy(bits.view(np.int32)).to(self.dev)
+
+        records = (owner, up, is_sub, valid)
+        streams = {"entering bit set": ((*records, bad, upd0), cap),
+                   "lower twice": ((*twice, sub0, upd0), cap),
+                   "upper bit clear": ((owner, up, is_sub, dropped, sub0,
+                                        upd0), cap)}
+        if with_stray:
+            streams["stray bits"] = ((*records, stray(sub0), stray(upd0)),
+                                     cap)
+            streams["stray bits, cap / 3"] = (streams["stray bits"][0],
+                                              max(cap // 3, 1))
+        general = {}
+        for what, (args, c) in streams.items():
+            got = K.emit_pairs(*args, block_size=bs, cap=c)
+            want = ref.ref_emit_pairs(*args, block_size=bs, cap=c)
+            torch.cuda.synchronize()
+            self.same("emit_pairs", got, want, f"pass C {tag}, {what}")
+            general[what] = int(K.emit_pairs.general_blocks)
+            require(general[what] > 0, f"pass C {tag}, {what}: no block took "
+                    "the general path")
+        print(f"pass C at {tag} on records outside its fast path's contract "
+              f"== replay ({place} masks); blocks that took the general path "
+              f"(of {owner.shape[0] // bs}): {general}", flush=True)
 
     # -- the d-dim slice: bit-matrix AND and the d > 1 service ------------
     def bitmatch_battery(self):
@@ -892,6 +965,17 @@ class Smoke:
         cases.append(("unbounded [-inf, inf]^2 vs m=5",
                       [np.full((2, 1), -inf, np.float32),
                        np.full((2, 1), inf, np.float32), u, u + 1], 5))
+        for d, n, m in BITMATCH_EDGES:
+            arrs = []
+            for size in (n, m):
+                lo = rng.integers(-4, 5, (d, size)).astype(np.float32)
+                hi = lo + rng.integers(0, 4, (d, size)).astype(np.float32)
+                lo[(lo == 0) & (rng.random(lo.shape) < 0.5)] = np.float32(-0.0)
+                lo[rng.random(lo.shape) < 0.1] = -inf
+                hi[rng.random(hi.shape) < 0.1] = inf
+                arrs += [lo, hi]
+            cases.append((f"edge d={d} n={n} m={m} (ties, -0.0, inf)", arrs,
+                          None))
         none, some = np.zeros((2, 0), np.float32), np.ones((2, 3), np.float32)
         cases.append(("empty subs", [none, none, some, some + 1], 0))
         cases.append(("empty upds", [some, some + 1, none, none], 0))
@@ -1028,22 +1112,24 @@ class Smoke:
               f"({ops_ms:.4f} ms at {FP32_OPS_PER_S:.3g}/s), source "
               f"{self.timing_source.get('bitmatch_kernel')}", flush=True)
         # the run-time-d kernel (d >= 5) on the same cell: its dimensions
-        # repeated up to d = 5 select the same pairs, so the words must be
-        # the plain d = 2 words
-        d5 = 5
-        wide = [x.repeat(-(-d5 // d), 1)[:d5].contiguous() for x in args]
-        self.same("bitmatch", self.B.bitmatch(*wide),
-                  self.ref.ref_bitmatrix(*args), "bitmatch d=5 at cell (a)")
-        ms5 = self.time_ms(lambda: self.B.bitmatch(*wide), 20,
-                           "bitmatch_kernel_rt")
-        ops5_ms = 2 * d5 * n * m / FP32_OPS_PER_S * 1e3
-        bytes5_ms = (nbytes + 8 * (d5 - d) * (n + m)) / HBM_BYTES_PER_S * 1e3
-        self.phase_ms["bitmatch d=5 (run-time d) at cell (a) device"] = ms5
-        print(f"bitmatch d={d5} (run-time d) at cell (a)'s n, m: == plain; "
-              f"{ms5:.4f} ms, bound {max(ops5_ms, bytes5_ms):.4f} ms "
-              f"({'operations' if ops5_ms >= bytes5_ms else 'bytes'}), "
-              f"source {self.timing_source.get('bitmatch_kernel_rt')}",
-              flush=True)
+        # repeated up to d = 5 and 8 select the same pairs, so the words
+        # must be the plain d = 2 words
+        for dr in (5, 8):
+            wide = [x.repeat(-(-dr // d), 1)[:dr].contiguous() for x in args]
+            self.same("bitmatch", self.B.bitmatch(*wide),
+                      self.ref.ref_bitmatrix(*args),
+                      f"bitmatch d={dr} at cell (a)")
+            ms_r = self.time_ms(lambda: self.B.bitmatch(*wide), 20,
+                                "bitmatch_kernel_rt")
+            ops_r = 2 * dr * n * m / FP32_OPS_PER_S * 1e3
+            bytes_r = (nbytes + 8 * (dr - d) * (n + m)) / HBM_BYTES_PER_S * 1e3
+            self.phase_ms[f"bitmatch d={dr} (run-time d) at cell (a) "
+                          f"device"] = ms_r
+            print(f"bitmatch d={dr} (run-time d) at cell (a)'s n, m: == "
+                  f"plain; {ms_r:.4f} ms, bound {max(ops_r, bytes_r):.4f} ms "
+                  f"({'operations' if ops_r >= bytes_r else 'bytes'}), "
+                  f"source {self.timing_source.get('bitmatch_kernel_rt')}",
+                  flush=True)
 
     # -- the model stack's serving path: block-sparse flash attention -----
     def flash_inputs(self, B, H, Hkv, Sq, Skv, D, dtype, gen, q_gain=None):
@@ -1222,7 +1308,10 @@ class Smoke:
               f"{row['library_ms']:.4f} ms, max |kernel - sdpa| "
               f"{lib_err:.4g}", flush=True)
         del q, k, v, got, lib_out
-        self.flash_padded()
+        self.flash_via_ops("flash_attention_d96", PHI3_FLASH,
+                           "phi-3-vision widths", SEED + 18, "padded", True)
+        self.flash_via_ops("flash_attention_d512", WIDE_FLASH,
+                           "run-time width", SEED + 20, "runtime", False)
         # softcapped attention is one flex_attention call (a tanh score_mod
         # and a causal or sliding-window block mask), compiled by inductor
         from torch.nn.attention.flex_attention import (create_block_mask,
@@ -1263,20 +1352,24 @@ class Smoke:
                   f"{lib_err:.4g}", flush=True)
             del q, k, v, got, mask, library
 
-    def flash_padded(self):
-        """Row 6c: the kernel at a width it has no instance for (D = 96,
-        zero-padded to 128 by the wrapper), through the public
-        ``ops.flash_attention`` (one launch, counted), beside SDPA; timed
-        over the whole wrapper call, as SDPA is over its own."""
+    def flash_via_ops(self, key: str, c: dict, label: str, seed: int,
+                      route: str, whole_call: bool):
+        """A flash row at widths no config's path runs (``c``): kernel ==
+        plain (``flash_row``), the wrapper's ``route`` for the width, one
+        counted launch through the public ``ops.flash_attention``, SDPA on
+        the same tensors beside it.  Rows 6c (D = 96, zero-padded to 128,
+        timed over the whole wrapper call as SDPA is over its own) and 6d
+        (D = 512, the run-time-width kernel)."""
         torch = self.torch
         F = torch.nn.functional
-        c = PHI3_FLASH
         B, H, Hkv, S, D, blk = (c[k] for k in ("B", "H", "Hkv", "S", "D",
                                                "block"))
+        got_route = self.flash_route(D, torch.bfloat16)[0]
+        require(got_route == route,
+                f"flash D={D}: routed {got_route}, not {route}")
         row, (q, k, v), err, got = self.flash_row(
-            f"phi-3-vision widths: B={B} H={H}/{Hkv} S={S} D={D} (padded to "
-            f"128) bf16 block {blk}", B, H, Hkv, S, D, blk, SEED + 18,
-            whole_call=True)
+            f"{label}: B={B} H={H}/{Hkv} S={S} D={D} ({route}) bf16 block "
+            f"{blk}", B, H, Hkv, S, D, blk, seed, whole_call=whole_call)
         self.flash.launches = 0
         out = self.ops.flash_attention(q, k, v, causal=True, block_q=blk,
                                        block_k=blk)
@@ -1289,12 +1382,12 @@ class Smoke:
         lib_err = float((lib_out.float() - got.float()).abs().max())
         require(lib_err <= 5e-2, f"flash D={D}: kernel vs "
                 f"scaled_dot_product_attention max |diff| {lib_err}")
-        row.update(name=f"flash_attention (D={D}, zero-padded)",
+        row.update(name=f"flash_attention (D={D}, {route})",
                    launches=self.flash.launches, max_abs_err=err,
                    library_ms=self.time_ms(
                        lambda: F.scaled_dot_product_attention(
                            q, k, v, is_causal=True), 20))
-        self.rows["flash_attention_d96"] = row
+        self.rows[key] = row
         print(f"  sdpa (is_causal; the same function): "
               f"{row['library_ms']:.4f} ms, max |kernel - sdpa| "
               f"{lib_err:.4g}; ops.flash_attention launches 1", flush=True)

@@ -13,9 +13,13 @@ exists in device memory.  Like the sweep wrappers it:
   stream, raises :class:`KernelError` if the launch returned a CUDA error,
   and adds one to its ``launches`` count;
 * raises :class:`ValidationError` for any other device, a wrong dtype or
-  shape, a non-contiguous tensor, or d > ``MAX_DIMS_ON_CARD`` on the card
-  (the kernel is specialised for d = 1..4; for d >= 5 it takes d at run
-  time and stages the block's bounds in shared memory).
+  shape, a non-contiguous tensor, or d = 0 on the card.
+
+The kernel is specialised for d = 1..4 (every bound of a lane's rows in
+registers); for d >= 5 it takes d at run time and works the dimensions in
+chunks of four, so its shared memory does not grow with d and any d runs.
+Each lane owns subscription rows and builds their words bit by bit from
+update bounds staged in shared memory (``csrc/bitmatch.cu``'s header).
 
 :func:`bitmatrix_kernel` and :func:`sbm_bitmatrix_kernel` mirror the JAX
 package's ``bitmatrix_pallas`` and ``sbm_bitmatrix_kernel``.  Unlike the
@@ -35,10 +39,6 @@ from repro_torch.core.intervals import Extents
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_lib
 
-# the d >= 5 kernel stages 2 * d * 32 float32 bounds per block in shared
-# memory, at most 232,448 bytes a block on an H100
-MAX_DIMS_ON_CARD = 232_448 // (2 * 32 * 4)
-
 
 def bitmatch(s_lo: torch.Tensor, s_hi: torch.Tensor, u_lo: torch.Tensor,
              u_hi: torch.Tensor):
@@ -54,9 +54,8 @@ def bitmatch(s_lo: torch.Tensor, s_hi: torch.Tensor, u_lo: torch.Tensor,
     m = u_lo.shape[1]
     if not _build.on_card(s_lo, s_hi, u_lo, u_hi, dtype=torch.float32):
         return ref_lib.ref_bitmatrix(s_lo, s_hi, u_lo, u_hi)
-    if not 1 <= d <= MAX_DIMS_ON_CARD:
-        raise ValidationError(f"the bit-matrix kernel takes d = 1.."
-                              f"{MAX_DIMS_ON_CARD}, got d = {d}")
+    if d < 1:
+        raise ValidationError("the bit-matrix kernel needs d >= 1")
     num_words = max(-(-m // 32), 1)
     dev = s_lo.device
     if n == 0 or m == 0:

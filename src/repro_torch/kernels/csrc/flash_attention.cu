@@ -16,29 +16,24 @@
 // an online softmax whose running max m, sum l and accumulator are float32,
 // masked probabilities forced to 0 (a fully masked tile ahead of a live one
 // must not leave exp(0) = 1 behind), and out = acc / (l > 0 ? l : 1) in
-// q's dtype (round to nearest even).  Head width D is 64, 128 or 256.
+// q's dtype (round to nearest even).  Head width D is 64, 128 or 256 for
+// the bfloat16 specialisations below, any D from 1 to kRtMaxD = 593 for the
+// run-time-width kernel.
 //
 // block_q / block_k are the schedule's units (512 at full width, 32 in the
 // reduced configs), not a kernel's tile: a 512-row q block and a 512 x 512
-// score tile do not fit one SM.  Each block of threads takes one 64-row q
-// tile of one (batch, head), reads its q block's row of kv_index /
+// score tile do not fit one SM.  Each block of threads takes one q tile (64
+// rows bf16, 32 run-time width) of one (batch, head), reads its q block's row of kv_index /
 // kv_count itself (this replaces the Pallas scalar prefetch), and walks
 // each scheduled KV block in K/V sub-tiles; rows past a block are zero and
 // masked, so 32-blocks run too.  A sub-tile whose every pair is masked by
 // causality or the window is skipped: its update is the identity (alpha =
 // 1, p = 0), so skipping it changes no bit of the result.
 //
-// Two specialisations:
+// Two kernels:
 //
-// * float32 (flash_attention_fwd_f32_kernel, the test path): scalar FMA on
-//   the CUDA cores.  256 threads as a 16 x 16 grid; thread (ty, tx) owns
-//   score rows ty + 16i and columns tx + 16j (i, j < 4); the 16 threads of
-//   a row share a half-warp, so row max and sum are shuffles; Q, K, V in
-//   shared memory as float32, rows padded to D + 1 floats (16 threads
-//   reading 16 K rows at one column hit 16 banks).  Shared memory
-//   (2 * 64 * (D + 1) + 64 * D + 64 * 65) * 4 bytes: 213,760 at D = 256.
-//
-// * bfloat16 (flash_attention_fwd_bf16_kernel, the serving path): tensor
+// * bfloat16 at D = 64, 128, 256 (flash_attention_fwd_bf16_kernel, the
+//   serving path; the wrapper zero-pads other bf16 widths up to 256): tensor
 //   cores.  One warpgroup of 128 threads per 64-row q tile; warp w owns q
 //   rows 16w .. 16w + 15.
 //     - S = Q K^T and O += P V are mma.sync.m16n8k16 bf16 -> f32 with the
@@ -72,6 +67,23 @@
 //   Shared memory (64 * D + 2 stages * 2 * rows * D) * 2 bytes: 40,960 at
 //   D = 64, 81,920 at 128, 98,304 at 256.
 //
+// * float32 at every D, and bfloat16 above 256
+//   (flash_attention_fwd_rt_kernel<T>, T float or bf16; the float32 path is
+//   the test path, and no config of the repo has D > 256): D at run time,
+//   scalar float32 FMA on the CUDA cores over 32-row q tiles and 32-row K/V
+//   sub-tiles, inputs widened to float32 in shared memory, p kept float32
+//   for P V (as the Pallas kernel does).  256 threads as a 16 x 16 grid;
+//   the 16 threads of a row share a half-warp, so row max and sum are
+//   shuffles; each thread owns two q rows' scores in two key columns and a
+//   slice of their output columns (c = tx mod 16, at most kRtCols = 38 a
+//   row) in registers, so no accumulator row has to fit one thread.  Q and
+//   K rows at the odd stride D | 1 (16 threads reading 16 rows at one
+//   column hit 16 banks).  Shared memory
+//   (2 * 32 * (D | 1) + 32 * D + 32 * 33) * 4 bytes: 201,088 at D = 512;
+//   D = 593 is the largest that fits 232,448 (the wrapper's
+//   RT_MAX_HEAD_DIM copies kRtMaxD).  Written to be right, not fast: a
+//   shared-memory load per FMA.
+//
 // Bound at smollm-360m's prefill shapes (B = 4, H = 15, Hkv = 5, S = 2048,
 // D = 64, 512-blocks; live causal (q, k) pairs S(S+1)/2 = 2,098,176 per
 // (b, h)): 4 * D * pairs * B * H = 32.2 GFLOP, 0.033 ms at the bf16
@@ -82,7 +94,7 @@
 // a warp's softmax does not overlap its own products; wgmma with TMA and
 // ping-pong warpgroups are later work.
 //
-// Built without --use_fast_math: the float32 kernel's expf and both
+// Built without --use_fast_math: the run-time-width kernel's expf and both
 // kernels' tanhf are the accurate library functions.  The C entry point
 // launches on the caller's stream, does not synchronise, allocates nothing,
 // and returns cudaGetLastError().
@@ -109,186 +121,6 @@ struct Params {
   int window;         // < 0: no window
   float softcap;      // <= 0: no softcap
 };
-
-// ---------------------------------------------------------------------------
-// float32: scalar FMA on the CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kTile = 64;        // q rows and k rows per tile
-constexpr int kThreads = 256;    // a 16 x 16 grid
-
-template <int D>
-constexpr int f32_smem_bytes() {
-  return (2 * kTile * (D + 1) + kTile * D + kTile * (kTile + 1)) *
-         (int)sizeof(float);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_fwd_f32_kernel(const Params p) {
-  constexpr int kCols = D / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;                       // kTile x (D + 1)
-  float* sK = sQ + kTile * (D + 1);       // kTile x (D + 1)
-  float* sV = sK + kTile * (D + 1);       // kTile x D
-  float* sP = sV + kTile * D;             // kTile x (kTile + 1)
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int tiles = (p.block_q + kTile - 1) / kTile;
-  const int qblk = blockIdx.x / tiles;
-  const int q_lo = qblk * p.block_q + (blockIdx.x % tiles) * kTile;
-  const int q_hi = min(q_lo + kTile, (qblk + 1) * p.block_q);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.H / p.Hkv);
-
-  const float* q = (const float*)p.q + ((long long)b * p.H + h) * p.Sq * D;
-  const float* k = (const float*)p.k + ((long long)b * p.Hkv + hk) * p.Skv * D;
-  const float* v = (const float*)p.v + ((long long)b * p.Hkv + hk) * p.Skv * D;
-
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    sQ[r * (D + 1) + c] =
-        q_lo + r < q_hi ? q[(long long)(q_lo + r) * D + c] : 0.0f;
-  }
-
-  int qpos[4], qseg[4];
-  float m[4], l[4], acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q_lo + ty + 16 * i;
-    qpos[i] = p.q_offset + row;
-    qseg[i] = (p.q_seg != nullptr && row < q_hi)
-                  ? p.q_seg[(long long)b * p.Sq + row] : 0;
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
-  }
-
-  const int count = p.kv_count[qblk];
-  const int* index = p.kv_index + (long long)qblk * p.max_nk;
-  const int tile_qmin = p.q_offset + q_lo, tile_qmax = p.q_offset + q_hi - 1;
-  const int subs = (p.block_k + kTile - 1) / kTile;
-  for (int t = 0; t < count; ++t) {
-    const int kb = index[t];
-    const int kb_end = (kb + 1) * p.block_k;
-    for (int sub = 0; sub < subs; ++sub) {
-      const int k_lo = kb * p.block_k + sub * kTile;
-      const int k_hi = min(k_lo + kTile, kb_end);
-      if (p.causal && k_lo > tile_qmax) continue;
-      if (p.window >= 0 && k_hi - 1 <= tile_qmin - p.window) continue;
-      __syncthreads();  // the previous sub-tile's reads of sK, sV, sP are done
-      for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-        const int r = e / D, c = e % D;
-        const bool live = k_lo + r < k_hi;
-        const long long off = (long long)(k_lo + r) * D + c;
-        sK[r * (D + 1) + c] = live ? k[off] : 0.0f;
-        sV[r * D + c] = live ? v[off] : 0.0f;
-      }
-      __syncthreads();
-
-      float s[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        float a[4], bk[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = sQ[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bk[j] = sK[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-      }
-
-      int kpos[4], kseg[4];
-      bool kin[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kpos[j] = k_lo + tx + 16 * j;
-        kin[j] = kpos[j] < k_hi;
-        kseg[j] = (p.kv_seg != nullptr && kin[j])
-                      ? p.kv_seg[(long long)b * p.Skv + kpos[j]] : 0;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        bool live[4];
-        float tmax = kNegInf;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float x = s[i][j] * p.scale;
-          if (p.softcap > 0.0f) x = p.softcap * tanhf(x / p.softcap);
-          bool ok = kin[j];
-          if (p.causal) ok = ok && kpos[j] <= qpos[i];
-          if (p.window >= 0) ok = ok && kpos[j] > qpos[i] - p.window;
-          if (p.q_seg != nullptr) ok = ok && qseg[i] == kseg[j];
-          s[i][j] = ok ? x : kNegInf;
-          live[j] = ok;
-          tmax = fmaxf(tmax, s[i][j]);
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-        const float m_new = fmaxf(m[i], tmax);
-        const float alpha = expf(m[i] - m_new);
-        float rsum = 0.0f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float pr = live[j] ? expf(s[i][j] - m_new) : 0.0f;
-          sP[(ty + 16 * i) * (kTile + 1) + tx + 16 * j] = pr;
-          rsum += pr;
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-        l[i] = l[i] * alpha + rsum;
-        m[i] = m_new;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
-      }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int kk = 0; kk < kTile; ++kk) {
-        float pr[4], vv[kCols];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) pr[i] = sP[(ty + 16 * i) * (kTile + 1) + kk];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) vv[c] = sV[kk * D + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(pr[i], vv[c], acc[i][c]);
-      }
-    }
-  }
-
-  float* out = (float*)p.out + ((long long)b * p.H + h) * p.Sq * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q_lo + ty + 16 * i;
-    if (row >= q_hi) continue;
-    const float safe = l[i] > 0.0f ? l[i] : 1.0f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      out[(long long)row * D + tx + 16 * c] = acc[i][c] / safe;
-  }
-}
-
-template <int D>
-cudaError_t launch_f32(const Params& p, int B, int nq, cudaStream_t stream) {
-  auto kernel = flash_attention_fwd_f32_kernel<D>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f32_smem_bytes<D>());
-  if (err != cudaSuccess) return err;
-  const dim3 grid(nq * ((p.block_q + kTile - 1) / kTile), p.H, B);
-  kernel<<<grid, kThreads, f32_smem_bytes<D>(), stream>>>(p);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16: mma.sync tensor cores, cp.async ring, swizzled shared memory
@@ -656,15 +488,219 @@ cudaError_t launch_bf16(const Params& p, int B, int nq, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// float32 at any width, bf16 above 256: the width at run time, float32
+// arithmetic
+// ---------------------------------------------------------------------------
+
+constexpr int kRtRows = 32;       // q rows per tile and k rows per sub-tile
+constexpr int kRtThreads = 256;   // a 16 x 16 grid
+// the largest D whose tiles fit a block's 232,448 bytes (rt_smem_bytes)
+constexpr int kRtMaxD = 593;
+constexpr int kRtCols = (kRtMaxD + 15) / 16;  // output columns a thread owns
+
+// Q and K rows at an odd stride: 16 threads reading 16 rows at one column
+// hit 16 banks
+__host__ __device__ inline int rt_ld(int D) { return D | 1; }
+
+__host__ __device__ inline size_t rt_smem_bytes(int D) {
+  return (size_t)(2 * kRtRows * rt_ld(D) + kRtRows * D +
+                  kRtRows * (kRtRows + 1)) * sizeof(float);
+}
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void narrow(float* dst, float x) { *dst = x; }
+__device__ __forceinline__ void narrow(__nv_bfloat16* dst, float x) {
+  *dst = __float2bfloat16_rn(x);
+}
+
+// Scalar float32 flash attention with D a run-time value: 32-row q tiles and 32-row K/V sub-tiles, widened to float32 in shared
+// memory.  Thread (ty, tx) owns scores (ty + 16 i, tx + 16 j), i, j < 2, and
+// output columns tx + 16 c of rows ty and ty + 16: a slice of D in
+// registers (at most kRtCols per row), so no thread holds a whole row.  p
+// stays float32 for P V, as in the Pallas kernel.
+template <typename T>
+__global__ void __launch_bounds__(kRtThreads)
+flash_attention_fwd_rt_kernel(const Params p, int D) {
+  extern __shared__ float smem[];
+  const int ld = rt_ld(D);
+  float* sQ = smem;                        // kRtRows x ld
+  float* sK = sQ + kRtRows * ld;           // kRtRows x ld
+  float* sV = sK + kRtRows * ld;           // kRtRows x D
+  float* sP = sV + kRtRows * D;            // kRtRows x (kRtRows + 1)
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int tiles = (p.block_q + kRtRows - 1) / kRtRows;
+  const int qblk = blockIdx.x / tiles;
+  const int q_lo = qblk * p.block_q + (blockIdx.x % tiles) * kRtRows;
+  const int q_hi = min(q_lo + kRtRows, (qblk + 1) * p.block_q);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.H / p.Hkv);
+  const long long qkv_d = D;
+
+  const T* q = (const T*)p.q + ((long long)b * p.H + h) * p.Sq * qkv_d;
+  const T* k = (const T*)p.k + ((long long)b * p.Hkv + hk) * p.Skv * qkv_d;
+  const T* v = (const T*)p.v + ((long long)b * p.Hkv + hk) * p.Skv * qkv_d;
+
+  for (int e = threadIdx.x; e < kRtRows * D; e += kRtThreads) {
+    const int r = e / D, c = e % D;
+    sQ[r * ld + c] =
+        q_lo + r < q_hi ? widen(q[(long long)(q_lo + r) * qkv_d + c]) : 0.0f;
+  }
+
+  const int ncols = (D - tx + 15) / 16;   // this thread's output columns
+  int qpos[2], qseg[2];
+  float m[2], l[2], acc[2][kRtCols];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q_lo + ty + 16 * i;
+    qpos[i] = p.q_offset + row;
+    qseg[i] = (p.q_seg != nullptr && row < q_hi)
+                  ? p.q_seg[(long long)b * p.Sq + row] : 0;
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kRtCols; ++c) acc[i][c] = 0.0f;
+  }
+
+  const int count = p.kv_count[qblk];
+  const int* index = p.kv_index + (long long)qblk * p.max_nk;
+  const int tile_qmin = p.q_offset + q_lo, tile_qmax = p.q_offset + q_hi - 1;
+  const int subs = (p.block_k + kRtRows - 1) / kRtRows;
+  for (int t = 0; t < count; ++t) {
+    const int kb = index[t];
+    const int kb_end = (kb + 1) * p.block_k;
+    for (int sub = 0; sub < subs; ++sub) {
+      const int k_lo = kb * p.block_k + sub * kRtRows;
+      const int k_hi = min(k_lo + kRtRows, kb_end);
+      if (p.causal && k_lo > tile_qmax) continue;
+      if (p.window >= 0 && k_hi - 1 <= tile_qmin - p.window) continue;
+      __syncthreads();  // the previous sub-tile's reads of sK, sV, sP are done
+      for (int e = threadIdx.x; e < kRtRows * D; e += kRtThreads) {
+        const int r = e / D, c = e % D;
+        const bool live = k_lo + r < k_hi;
+        const long long off = (long long)(k_lo + r) * qkv_d + c;
+        sK[r * ld + c] = live ? widen(k[off]) : 0.0f;
+        sV[r * D + c] = live ? widen(v[off]) : 0.0f;
+      }
+      __syncthreads();
+
+      float s[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        const float a0 = sQ[ty * ld + d], a1 = sQ[(ty + 16) * ld + d];
+        const float b0 = sK[tx * ld + d], b1 = sK[(tx + 16) * ld + d];
+        s[0][0] = fmaf(a0, b0, s[0][0]);
+        s[0][1] = fmaf(a0, b1, s[0][1]);
+        s[1][0] = fmaf(a1, b0, s[1][0]);
+        s[1][1] = fmaf(a1, b1, s[1][1]);
+      }
+
+      int kpos[2], kseg[2];
+      bool kin[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        kpos[j] = k_lo + tx + 16 * j;
+        kin[j] = kpos[j] < k_hi;
+        kseg[j] = (p.kv_seg != nullptr && kin[j])
+                      ? p.kv_seg[(long long)b * p.Skv + kpos[j]] : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        bool live[2];
+        float tmax = kNegInf;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float x = s[i][j] * p.scale;
+          if (p.softcap > 0.0f) x = p.softcap * tanhf(x / p.softcap);
+          bool ok = kin[j];
+          if (p.causal) ok = ok && kpos[j] <= qpos[i];
+          if (p.window >= 0) ok = ok && kpos[j] > qpos[i] - p.window;
+          if (p.q_seg != nullptr) ok = ok && qseg[i] == kseg[j];
+          s[i][j] = ok ? x : kNegInf;
+          live[j] = ok;
+          tmax = fmaxf(tmax, s[i][j]);
+        }
+        // the 16 threads of a row are one half-warp
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+        const float m_new = fmaxf(m[i], tmax);
+        const float alpha = expf(m[i] - m_new);
+        float rsum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float pr = live[j] ? expf(s[i][j] - m_new) : 0.0f;
+          sP[(ty + 16 * i) * (kRtRows + 1) + tx + 16 * j] = pr;
+          rsum += pr;
+        }
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
+        l[i] = l[i] * alpha + rsum;
+        m[i] = m_new;
+#pragma unroll
+        for (int c = 0; c < kRtCols; ++c) acc[i][c] *= alpha;
+      }
+      __syncthreads();
+
+#pragma unroll 2
+      for (int kk = 0; kk < kRtRows; ++kk) {
+        const float p0 = sP[ty * (kRtRows + 1) + kk];
+        const float p1 = sP[(ty + 16) * (kRtRows + 1) + kk];
+        const float* vrow = sV + kk * D + tx;
+#pragma unroll
+        for (int c = 0; c < kRtCols; ++c) {
+          if (c < ncols) {
+            const float vv = vrow[16 * c];
+            acc[0][c] = fmaf(p0, vv, acc[0][c]);
+            acc[1][c] = fmaf(p1, vv, acc[1][c]);
+          }
+        }
+      }
+    }
+  }
+
+  T* out = (T*)p.out + ((long long)b * p.H + h) * p.Sq * qkv_d;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q_lo + ty + 16 * i;
+    if (row >= q_hi) continue;
+    const float safe = l[i] > 0.0f ? l[i] : 1.0f;
+#pragma unroll
+    for (int c = 0; c < kRtCols; ++c)
+      if (c < ncols)
+        narrow(out + (long long)row * qkv_d + tx + 16 * c, acc[i][c] / safe);
+  }
+}
+
+template <typename T>
+cudaError_t launch_rt(const Params& p, int B, int nq, int D,
+                      cudaStream_t stream) {
+  if (D < 1 || D > kRtMaxD) return cudaErrorInvalidValue;
+  auto kernel = flash_attention_fwd_rt_kernel<T>;
+  const size_t smem = rt_smem_bytes(D);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nq * ((p.block_q + kRtRows - 1) / kRtRows), p.H, B);
+  kernel<<<grid, kRtThreads, smem, stream>>>(p, D);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // q (B, H, Sq, D), k / v (B, Hkv, Skv, D) of one dtype (0 float32,
-// 1 bfloat16), contiguous, D in {64, 128, 256}; kv_index (Sq / block_q,
-// max_nk) and kv_count (Sq / block_q) int32; q_seg (B, Sq) / kv_seg
-// (B, Skv) int32 or both null; out like q.  window < 0: none; softcap <= 0:
-// none.
+// 1 bfloat16), contiguous; D in 1 .. kRtMaxD for float32, in {64, 128,
+// 256} or 257 .. kRtMaxD for bfloat16;
+// kv_index (Sq / block_q, max_nk) and kv_count (Sq / block_q) int32; q_seg
+// (B, Sq) / kv_seg (B, Skv) int32 or both null; out like q.  window < 0:
+// none; softcap <= 0: none.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const int* kv_index, const int* kv_count,
                         const int* q_seg, const int* kv_seg, void* out, int B,
@@ -683,9 +719,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    if (D == 64) err = launch_f32<64>(p, B, nq, s);
-    if (D == 128) err = launch_f32<128>(p, B, nq, s);
-    if (D == 256) err = launch_f32<256>(p, B, nq, s);
+    err = launch_rt<float>(p, B, nq, D, s);
+  } else if (dtype == 1 && D > 256) {
+    err = launch_rt<__nv_bfloat16>(p, B, nq, D, s);
   } else if (dtype == 1) {
     if (D == 64) err = launch_bf16<64>(p, B, nq, s);
     if (D == 128) err = launch_bf16<128>(p, B, nq, s);

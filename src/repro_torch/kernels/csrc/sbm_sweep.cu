@@ -245,10 +245,23 @@ __global__ void delta_bitmask_kernel(const int* __restrict__ owner,
 //
 // The closed forms and the XOR toggles hold only where the Pallas
 // kernel's set and clear are flips: a sorted stream (each extent's lower
-// before its upper) and entering sets that agree with it.  The kernel
-// checks that as it goes, at no cost to the chain beyond a match and a
-// compare per toggle run: a toggle that finds its bit the wrong way, or a
-// negative count, sets *broken, and the wrapper raises.
+// before its upper) and entering sets that agree with it, as ops builds
+// them.  The kernel checks that as it goes, at no cost to the chain beyond
+// a match and a compare per toggle run: a toggle that finds its bit the
+// wrong way, or a negative count.  Where every toggle is a flip the
+// replayed sets are the Pallas kernel's at every step, so the check is
+// exact.  A block that fails it then takes the general path (4): the
+// Pallas semantics for any records.
+//
+//   4. The block restores its live masks and summaries from the entering
+//      sets, refills its (1, cap) row of out_i / out_j with -1 (no other
+//      block writes there), and warp 0 replays the segment in stream
+//      order: at an upper it emits the counterpart set in ascending id
+//      order at the running slot (emit_set; slots >= cap dropped) and
+//      advances it by the set's popcount, kept as a running count; then
+//      the endpoint sets (lower) or clears (upper) its own bit.  One warp,
+//      one record at a time: only exact, not fast.  *general counts the
+//      blocks that took it; nothing waits for it.
 
 // static shared memory of emit_pairs_kernel, kept out of the dynamic budget
 constexpr int kPassCStaticSmem = 1024;
@@ -392,6 +405,30 @@ __device__ __forceinline__ bool toggle_run(const ActiveSet& a, const int* ids,
   return broken;
 }
 
+// Warp-cooperative, lane 0 writes: set (a lower) or clear (an upper) bit
+// o of `a` and bring both summary levels up to date.  Returns, in every
+// lane, the change of the set's popcount (-1, 0 or +1).
+template <bool kShared>
+__device__ __forceinline__ int set_or_clear(const ActiveSet& a, int o,
+                                            bool up) {
+  int change = 0;
+  if ((threadIdx.x & 31) == 0) {
+    const int w = o >> 5, s = o >> 10;
+    const unsigned bit = 1u << (o & 31);
+    const unsigned was = up ? atomicAnd(a.mask + w, ~bit)
+                            : atomicOr(a.mask + w, bit);
+    const unsigned now = up ? was & ~bit : was | bit;
+    change = (int)__popc(now) - (int)__popc(was);
+    if (now != 0u) atomicOr(a.sum + s, 1u << (w & 31));
+    else atomicAnd(a.sum + s, ~(1u << (w & 31)));
+    if (a.sum[s] != 0u) atomicOr(a.top + (s >> 5), 1u << (s & 31));
+    else atomicAnd(a.top + (s >> 5), ~(1u << (s & 31)));
+    if (!kShared) __threadfence_block();
+  }
+  __syncwarp();
+  return __shfl_sync(0xffffffffu, change, 0);
+}
+
 // Both summary levels of `a` from its mask words (all warps; a barrier
 // must separate build_sum from build_top).
 __device__ __forceinline__ void build_sum(const ActiveSet& a, int nw) {
@@ -421,7 +458,7 @@ emit_pairs_kernel(const int* __restrict__ owner,
                   const unsigned* __restrict__ sub0,
                   const unsigned* __restrict__ upd0, unsigned* sub_scratch,
                   unsigned* upd_scratch, int* __restrict__ out_i,
-                  int* __restrict__ out_j, int* __restrict__ broken,
+                  int* __restrict__ out_j, int* __restrict__ general,
                   int block_size, int ws, int wu, int cap) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int scratch[33];
@@ -429,6 +466,7 @@ emit_pairs_kernel(const int* __restrict__ owner,
   __shared__ long long scratch_ll[33];
   __shared__ int list_len[2];
   __shared__ int fill_from;
+  __shared__ int off_contract;   // a toggle or a count broke the contract
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -475,6 +513,7 @@ emit_pairs_kernel(const int* __restrict__ owner,
   }
   int cs0, cu0;
   unsigned xs0, xu0;
+  if (tid == 0) off_contract = 0;
   block_exclusive_scan(cs, &cs0, scratch);   // its barriers publish the masks
   block_exclusive_scan(cu, &cu0, scratch);
   block_exclusive_scan(xs, &xs0, scratch_x, Xor());
@@ -554,11 +593,11 @@ emit_pairs_kernel(const int* __restrict__ owner,
     else    { au += up ? -1 : 1; xu ^= o; }
     slot += c;
   }
-  if (bad) *broken = 1;
+  if (bad) off_contract = 1;
   if (tid == 0) {
     list_len[0] = len0;
     list_len[1] = len1;
-    fill_from = (int)min(seg_total, (long long)cap);
+    fill_from = (int)max(min(seg_total, (long long)cap), 0LL);
   }
   __syncthreads();
 
@@ -569,34 +608,74 @@ emit_pairs_kernel(const int* __restrict__ owner,
       oi[s] = -1;
       oj[s] = -1;
     }
-    return;
-  }
-  const bool subs = warp == 0;
-  const ActiveSet a = subs ? sset : uset;
-  const int n = list_len[warp];
-  const int* id_l = e_id + warp * block_size;
-  const int* count_l = e_count + warp * block_size;
-  const int* base_l = e_base + warp * block_size;
-  bool flipped_wrong = false;
-  for (int k = 0; k < n;) {
-    // the run of toggles starting at k, up to 32
-    const bool in = k + lane < n;
-    const unsigned stops =
-        __ballot_sync(0xffffffffu, !in || count_l[k + lane] > 0);
-    const int run = stops != 0u ? __ffs(stops) - 1 : 32;
-    if (run > 0) {
-      flipped_wrong |= toggle_run<kSharedMasks>(a, id_l + k, count_l + k, run);
-      k += run;
-    } else {
-      const int b = base_l[k];
-      if (b < cap)
-        emit_set<kSharedMasks>(a, subs, id_l[k], b, count_l[k], cap, oi, oj,
-                               stage + warp * kStage);
-      __syncwarp();
-      ++k;
+  } else {
+    const bool subs = warp == 0;
+    const ActiveSet a = subs ? sset : uset;
+    const int n = list_len[warp];
+    const int* id_l = e_id + warp * block_size;
+    const int* count_l = e_count + warp * block_size;
+    const int* base_l = e_base + warp * block_size;
+    bool flipped_wrong = false;
+    for (int k = 0; k < n;) {
+      // the run of toggles starting at k, up to 32
+      const bool in = k + lane < n;
+      const unsigned stops =
+          __ballot_sync(0xffffffffu, !in || count_l[k + lane] > 0);
+      const int run = stops != 0u ? __ffs(stops) - 1 : 32;
+      if (run > 0) {
+        flipped_wrong |=
+            toggle_run<kSharedMasks>(a, id_l + k, count_l + k, run);
+        k += run;
+      } else {
+        const int b = base_l[k];
+        if (b < cap)
+          emit_set<kSharedMasks>(a, subs, id_l[k], b, count_l[k], cap, oi, oj,
+                                 stage + warp * kStage);
+        __syncwarp();
+        ++k;
+      }
     }
+    if (flipped_wrong) off_contract = 1;
   }
-  if (flipped_wrong) *broken = 1;
+  __syncthreads();
+  if (!off_contract) return;   // the same in every thread of the block
+
+  // step 4, the general path: the Pallas kernel's replay
+  if (tid == 0) atomicAdd(general, 1);
+  for (int s = tid; s < cap; s += blockDim.x) {
+    oi[s] = -1;
+    oj[s] = -1;
+  }
+  for (int w = tid; w < ws; w += blockDim.x) sset.mask[w] = sub0[p * ws + w];
+  for (int w = tid; w < wu; w += blockDim.x) uset.mask[w] = upd0[p * wu + w];
+  if (!kSharedMasks) __threadfence_block();
+  __syncthreads();
+  build_sum(sset, ws);
+  build_sum(uset, wu);
+  __syncthreads();
+  build_top(sset);
+  build_top(uset);
+  __syncthreads();
+  if (warp != 0) return;
+  int live_s = cs0, live_u = cu0;   // the sets' popcounts
+  long long ptr = 0;
+  for (int i = 0; i < block_size; ++i) {
+    const long long g = seg0 + i;
+    if (!valid[g]) continue;
+    const bool sb = is_sub[g] != 0, up = is_upper[g] != 0;
+    const int o = owner[g];
+    if (up) {
+      const int c = sb ? live_u : live_s;
+      if (ptr < cap)
+        emit_set<kSharedMasks>(sb ? uset : sset, !sb, o, (int)ptr, c, cap, oi,
+                               oj, stage);
+      __syncwarp();
+      ptr += c;
+    }
+    const int change = set_or_clear<kSharedMasks>(sb ? sset : uset, o, up);
+    if (sb) live_s += change;
+    else    live_u += change;
+  }
 }
 
 }  // namespace
@@ -649,10 +728,12 @@ int sbm_emit_pairs_placement(int block_size, int ws, int wu) {
   return -1;
 }
 
+// *general: incremented by each block that took the general path (the
+// caller zeroes it; nothing here reads it back).
 int sbm_emit_pairs(const int* owner, const int* is_upper, const int* is_sub,
                    const int* valid, const unsigned* sub0,
                    const unsigned* upd0, unsigned* sub_mask,
-                   unsigned* upd_mask, int* out_i, int* out_j, int* broken,
+                   unsigned* upd_mask, int* out_i, int* out_j, int* general,
                    long long total, int block_size, int ws, int wu,
                    long long cap, void* stream) {
   const long long blocks = total / block_size;
@@ -667,7 +748,7 @@ int sbm_emit_pairs(const int* owner, const int* is_upper, const int* is_sub,
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
       owner, is_upper, is_sub, valid, sub0, upd0, sub_mask, upd_mask, out_i,
-      out_j, broken, block_size, ws, wu, (int)cap);
+      out_j, general, block_size, ws, wu, (int)cap);
   return (int)cudaGetLastError();
 }
 

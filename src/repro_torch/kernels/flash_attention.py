@@ -8,12 +8,22 @@ the forward pass over a per-query-block KV schedule (``kv_index`` /
 with GQA, causal and sliding-window masks, logit softcap, packed-document
 segments and ``q_offset``; online softmax with a float32 accumulator.
 ``block_q`` / ``block_k`` are the schedule's units, not the kernel's tile.
-bfloat16 inputs run on the tensor cores (``mma.sync`` bf16 -> f32, P
-rounded to bf16 before P·V); float32 inputs run a scalar float32 kernel.
-Both are built for head widths 64, 128 and 256; any other width up to 256
-is zero-padded to the next of those on the way in and cut back on the way
-out (:func:`_pad_head_dim`), which is exact: a zero column adds 0 to every
-q·k score and its output column is dropped.  Like the other wrappers it:
+The dtype and head width decide the kernel (:func:`flash_route`), one
+launch in every case:
+
+* bfloat16, D = 64, 128 or 256: a built instance on the tensor cores
+  (``mma.sync`` bf16 -> f32, P rounded to bf16 before P·V).
+* bfloat16, any other D up to 256: zero-padded to the next instance on the
+  way in and cut back on the way out (:func:`_pad_head_dim`), which is
+  exact: a zero column adds 0 to every q·k score and its output column is
+  dropped.
+* float32 at any D up to ``RT_MAX_HEAD_DIM``, and bfloat16 from 257 to it:
+  ``flash_attention_fwd_rt_kernel``, which takes the width at run time
+  (scalar float32 arithmetic, p kept float32).  Its tiles must fit a
+  block's shared memory; above that width the wrapper raises
+  :class:`ValidationError`.
+
+Like the other wrappers it:
 
 * takes the plain version (:func:`repro_torch.kernels.ref.ref_flash_attention`)
   only when its tensors lie on the CPU;
@@ -24,7 +34,7 @@ q·k score and its output column is dropped.  Like the other wrappers it:
 * raises :class:`ValidationError` for any other device, mixed devices, a
   wrong dtype or shape, a non-contiguous tensor, a schedule that is not on
   the CPU or has an entry out of range, or (on the card) a head width
-  above ``HEAD_DIMS_ON_CARD[-1]``.
+  above ``RT_MAX_HEAD_DIM``.
 """
 from __future__ import annotations
 
@@ -36,24 +46,39 @@ from repro_torch.core.errors import ValidationError
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_lib
 
-HEAD_DIMS_ON_CARD = (64, 128, 256)
+HEAD_DIMS_ON_CARD = (64, 128, 256)     # the bf16 tensor-core instances
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: ``kRtMaxD`` of ``csrc/flash_attention.cu``: the widest head whose
+#: run-time-width tiles fit a block's 232,448 bytes of shared memory
+RT_MAX_HEAD_DIM = 593
 
 
-def _pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d: int):
-    """(q, k, v, d_pad): the three zero-padded along D to the smallest
-    built width d_pad >= d (unchanged when d is one).  The caller fixes the
-    softmax scale from d before padding and keeps ``out[..., :d]``."""
-    fits = [w for w in HEAD_DIMS_ON_CARD if w >= d]
-    if not fits:
-        raise ValidationError(f"the flash kernel takes head_dim up to "
-                              f"{HEAD_DIMS_ON_CARD[-1]}, got {d}")
-    d_pad = fits[0]
-    if d_pad == d:
-        return q, k, v, d
-    pad = (0, d_pad - d)
+def flash_route(d: int, dtype: torch.dtype) -> tuple:
+    """(route, width): the kernel that serves head width ``d`` of ``dtype``
+    on the card and the width it runs at.  ``"instance"`` (bf16 at 64, 128,
+    256), ``"padded"`` (bf16 at any other width up to 256, zero-padded to
+    the next instance) or ``"runtime"`` (float32 at any width, bf16 from
+    257; up to ``RT_MAX_HEAD_DIM``, above which it raises
+    :class:`ValidationError`)."""
+    if d > RT_MAX_HEAD_DIM:
+        raise ValidationError(
+            f"the flash kernel takes head_dim up to {RT_MAX_HEAD_DIM} (the "
+            f"run-time-width kernel's tiles must fit a block's shared "
+            f"memory), got {d}")
+    if dtype == torch.bfloat16 and d <= HEAD_DIMS_ON_CARD[-1]:
+        width = min(w for w in HEAD_DIMS_ON_CARD if w >= d)
+        return ("instance" if width == d else "padded"), width
+    return "runtime", d
+
+
+def _pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  d_pad: int):
+    """q, k, v zero-padded along D to ``d_pad``.  The caller fixes the
+    softmax scale from the true width before padding and keeps
+    ``out[..., :d]``."""
+    pad = (0, d_pad - q.shape[-1])
     return (torch.nn.functional.pad(q, pad), torch.nn.functional.pad(k, pad),
-            torch.nn.functional.pad(v, pad), d_pad)
+            torch.nn.functional.pad(v, pad))
 
 
 def _check(q, k, v, kv_index, kv_count, q_segments, kv_segments,
@@ -136,7 +161,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q, k, v, kv_index, kv_count, q_segments, kv_segments, scale=scale,
             causal=causal, window=window, softcap=softcap, block_q=block_q,
             block_k=block_k, q_offset=q_offset)
-    q, k, v, d_pad = _pad_head_dim(q, k, v, d)
+    route, d_pad = flash_route(d, q.dtype)
+    if route == "padded":
+        q, k, v = _pad_head_dim(q, k, v, d_pad)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out[..., :d]

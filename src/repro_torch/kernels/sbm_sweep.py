@@ -14,8 +14,10 @@ kernel of the JAX package's ``repro/kernels/sbm_sweep.py``:
   segment, but counts, slot bases and every single-pair emission in
   closed form across the block, then one warp per extent type replaying
   only its own set for the emissions of two or more pairs.  The closed
-  forms need records within a contract that ``ops`` meets (see
-  :func:`emit_pairs`); the kernel checks it and the wrapper raises.
+  forms hold on the streams ``ops`` builds; a block whose records break
+  them (the kernel checks every toggle) replays its segment again with the
+  Pallas kernel's set/clear semantics, so any records give the Pallas
+  kernel's arrays (see :func:`emit_pairs`).
 
 What bounds each on an H100, and its measured time, is in ``PERF.md`` and
 in the kernel source's comments.  Each wrapper:
@@ -29,14 +31,14 @@ in the kernel source's comments.  Each wrapper:
   shape or a non-contiguous tensor.
 
 Outputs and scratch are allocated here with ``torch.empty``; the kernels
-allocate nothing and never synchronise.  Only :func:`emit_pairs` waits for
-its kernel, to read its contract word.
+allocate nothing and never synchronise, and no wrapper waits for its
+kernel.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.errors import KernelError, ValidationError
+from repro_torch.core.errors import ValidationError
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_lib
 
@@ -162,14 +164,17 @@ def emit_pairs(owner: torch.Tensor, is_upper: torch.Tensor,
                block_size: int, cap: int):
     """Pass C: per-segment pair emission from the active sets entering
     each segment (``sub_active0``/``upd_active0``: (num_blocks, W) int32
-    words).  ``owner`` must be clipped to >= 0, padding marked valid=0.
-    On the card the records must be a sorted endpoint stream (each
-    extent's lower before its upper) and the entering sets the exact ones
-    (the exclusive monoid scan of the delta bitmasks), as ``ops`` builds
-    them: the kernel derives every endpoint's slot base from them.  It
-    checks that every lower finds its bit clear and every upper finds it
-    set; where one does not, this raises :class:`KernelError` (one host
-    sync per call).  The plain replay on the CPU takes any records.
+    words).  ``owner`` must be clipped to >= 0 and lie below 32·W of its
+    side, padding marked valid=0.  Any records are taken, as by the Pallas
+    kernel: at an upper endpoint the counterpart set is emitted, then a
+    lower sets and an upper clears its own bit.  On the card the fast path
+    derives every slot base in closed form, which holds where every lower
+    finds its bit clear and every upper finds it set (a sorted stream with
+    the exact entering sets, as ``ops`` builds them); a block where one
+    does not replays its segment exactly instead.  The launch does not
+    wait: ``emit_pairs.general_blocks`` is then a (1,) int32 tensor on the
+    card that counts the blocks of the last launch that took the replay
+    (read it after a sync).
 
     Returns (out_i, out_j): (num_blocks, cap) int32, each segment's pairs
     at slots [0, segment emission total), −1 elsewhere.
@@ -195,20 +200,16 @@ def emit_pairs(owner: torch.Tensor, is_upper: torch.Tensor,
     upd_mask = torch.empty_like(upd_active0)
     out_i = torch.empty((nb, cap), dtype=torch.int32, device=dev)
     out_j = torch.empty_like(out_i)
-    broken = torch.zeros(1, dtype=torch.int32, device=dev)
+    general = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _build.library()
     rc = lib.sbm_emit_pairs(_ptr(owner), _ptr(is_upper), _ptr(is_sub),
                             _ptr(valid), _ptr(sub_active0), _ptr(upd_active0),
                             _ptr(sub_mask), _ptr(upd_mask), _ptr(out_i),
-                            _ptr(out_j), _ptr(broken), total, block_size, ws,
+                            _ptr(out_j), _ptr(general), total, block_size, ws,
                             wu, cap, _build.stream_handle(dev))
     _build.check(rc, "sbm_emit_pairs")
     emit_pairs.launches += 1
-    if int(broken.item()):
-        raise KernelError("sbm_emit_pairs: the records are not a sorted "
-                          "endpoint stream with the exact entering sets (a "
-                          "lower found its bit set or an upper found it "
-                          "clear)")
+    emit_pairs.general_blocks = general
     return out_i, out_j
 
 
@@ -216,6 +217,7 @@ block_sums.launches = 0
 emission.launches = 0
 delta_bitmasks.launches = 0
 emit_pairs.launches = 0
+emit_pairs.general_blocks = None
 
 #: the four kernel wrappers, in pipeline order
 KERNEL_WRAPPERS = (block_sums, emission, delta_bitmasks, emit_pairs)

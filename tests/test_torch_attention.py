@@ -22,8 +22,10 @@ from repro.kernels import ops as jops
 from repro.kernels.ref import ref_attention as jax_ref_attention
 from repro.models.attention import blockwise_attention as jax_blockwise
 from repro_torch.core.errors import ValidationError
-from repro_torch.kernels.flash_attention import (_pad_head_dim,
-                                                 flash_attention_kernel)
+from repro_torch.kernels.flash_attention import (RT_MAX_HEAD_DIM,
+                                                 _pad_head_dim,
+                                                 flash_attention_kernel,
+                                                 flash_route)
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models.attention import blockwise_attention
@@ -206,15 +208,79 @@ def test_padded_head_dim_equals_unpadded_and_pallas(d):
                                              window=40)
     sched = (torch.from_numpy(idx), torch.from_numpy(cnt), _t(seg), _t(seg))
     kw = dict(scale=d ** -0.5, block_q=blk, block_k=blk, q_offset=0, **feats)
-    pq, pk, pv, d_pad = _pad_head_dim(_t(q), _t(k), _t(v), d)
-    assert d_pad == (64 if d <= 64 else 128) and pq.shape[-1] == d_pad
+    route, d_pad = flash_route(d, torch.bfloat16)
+    assert (route, d_pad) == ("padded", 64 if d <= 64 else 128)
+    pq, pk, pv = _pad_head_dim(_t(q), _t(k), _t(v), d_pad)
+    assert pq.shape[-1] == pk.shape[-1] == pv.shape[-1] == d_pad
     assert torch.equal(pq[..., :d], _t(q)) and not pq[..., d:].any()
     got = tref.ref_flash_attention(pq, pk, pv, *sched, **kw)[..., :d]
     plain = tref.ref_flash_attention(_t(q), _t(k), _t(v), *sched, **kw)
     np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    with pytest.raises(ValidationError):          # no instance above 256
-        _pad_head_dim(*(torch.zeros((1, 1, 8, 320)),) * 3, 320)
+    # no instance above 256: wider heads run at their own width
+    assert flash_route(320, torch.bfloat16) == ("runtime", 320)
+
+
+# (atol, rtol): float32 as above; bf16 outputs of two float32 computations
+# rounded to bf16 may differ by one bf16 unit in the last place, 2^-6 at
+# |out| < 4 (the repo's bf16 bound, tests/test_kernels_attention.py)
+WIDE_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+            "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [320, 512])
+def test_plain_flash_equals_pallas_interpret_above_256(d, dtype):
+    """Head widths that the card serves with the run-time-width kernel:
+    its plain version against the Pallas kernel in interpret mode, both fed
+    the same (bf16-rounded, for bf16) inputs; causal, window, softcap."""
+    B, H, S, blk = 1, 2, 128, 32
+    q, k, v = _qkv(d, B, H, H, S, S, d)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "float32"
+                else (jnp.bfloat16, torch.bfloat16))
+    feats = dict(causal=True, window=40, softcap=30.0)
+    want = jops.flash_attention(*(_j(x).astype(jdt) for x in (q, k, v)),
+                                block_q=blk, block_k=blk, interpret=True,
+                                **feats)
+    got = tops.flash_attention(*(_t(x).to(tdt) for x in (q, k, v)),
+                               block_q=blk, block_k=blk, **feats)
+    assert got.dtype == tdt and got.shape == q.shape and want.dtype == jdt
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               **WIDE_TOL[dtype])
+    assert flash_route(d, tdt) == ("runtime", d)
+
+
+ROUTE_WIDTHS = [16, 64, 96, 128, 200, 256, 257, 320, 512, 593, 594, 1024]
+
+
+@pytest.mark.parametrize("d,route", zip(ROUTE_WIDTHS, [
+    "padded", "instance", "padded", "instance", "padded", "instance",
+    "runtime", "runtime", "runtime", "runtime", None, None]))
+def test_flash_route_by_head_width(d, route):
+    """The wrapper's routing of bf16 on the card: an instance, zero-padding
+    to the next instance, or the run-time-width kernel above 256, up to the
+    largest width whose tiles fit a block's shared memory, which the
+    refusal names."""
+    assert RT_MAX_HEAD_DIM == 593
+    if route is None:
+        with pytest.raises(ValidationError, match="up to 593"):
+            flash_route(d, torch.bfloat16)
+    else:
+        width = (min(w for w in (64, 128, 256) if w >= d)
+                 if route == "padded" else d)
+        assert flash_route(d, torch.bfloat16) == (route, width)
+
+
+@pytest.mark.parametrize("d", ROUTE_WIDTHS)
+def test_flash_route_float32_runs_every_width_at_run_time(d):
+    """float32 takes the run-time-width kernel at its own width, padded
+    never, up to the same limit."""
+    if d > RT_MAX_HEAD_DIM:
+        with pytest.raises(ValidationError, match="up to 593"):
+            flash_route(d, torch.float32)
+    else:
+        assert flash_route(d, torch.float32) == ("runtime", d)
 
 
 def test_bf16_plain_flash_close_to_f32():

@@ -121,6 +121,52 @@ def test_unbounded_subscription_matches_the_xla_form():
     assert int(count) == 5
 
 
+def _edge_arrays(seed, d, n, m, bounds):
+    """(d, n) / (d, m) float32 bounds on a small integer grid (ties), with
+    -0.0 for a share of the zeros (``"signed_zero"``) or -inf / +inf for a
+    share of the bounds (``"unbounded"``)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for size in (n, m):
+        lo = rng.integers(-4, 5, (d, size)).astype(np.float32)
+        hi = lo + rng.integers(0, 4, (d, size)).astype(np.float32)
+        if bounds == "signed_zero":
+            for x in (lo, hi):
+                x[(x == 0) & (rng.random(x.shape) < 0.5)] = np.float32(-0.0)
+        if bounds == "unbounded":
+            lo[rng.random(lo.shape) < 0.2] = -np.inf
+            hi[rng.random(hi.shape) < 0.2] = np.inf
+        out += [lo, hi]
+    return out
+
+
+# m straddles the kernel's words and stages (1, 31, 33 and 1025 updates:
+# one word and a ragged stage of four); n straddles its row tiles (1024
+# rows a block at d <= 4, 512 at d >= 5); d = 1, 4 and 5 (the run-time-d
+# form's chunk of four and its tail of one)
+EDGE_SHAPES = [(1, 1030, 1, "finite"), (4, 1030, 31, "unbounded"),
+               (5, 515, 33, "signed_zero"), (1, 7, 1025, "signed_zero"),
+               (4, 513, 1025, "finite"), (5, 1, 1025, "unbounded"),
+               (5, 1030, 31, "finite"), (4, 3, 33, "signed_zero")]
+
+
+@pytest.mark.parametrize("d,n,m,bounds", EDGE_SHAPES)
+def test_plain_bitmatrix_matches_xla_at_edge_shapes(d, n, m, bounds):
+    """The kernel's plain version (what the card's words are held to)
+    against the JAX package's XLA ``bitmatrix_words``, exactly: words, row
+    popcounts, and no bit past m."""
+    arrs = _edge_arrays(d * 1000 + n + m, d, n, m, bounds)
+    (rs, ru), _ = _both(*arrs)
+    want = np.asarray(rddim.bitmatrix_words(rs, ru))
+    words, counts = tref.ref_bitmatrix(*(torch.from_numpy(a) for a in arrs))
+    np.testing.assert_array_equal(_u32(words), want)
+    pop = np.unpackbits(want.astype("<u4").view(np.uint8), axis=1,
+                        bitorder="little")
+    np.testing.assert_array_equal(counts.numpy(), pop.sum(axis=1))
+    assert not pop[:, m:].any()
+    assert counts.dtype == torch.int32
+
+
 # ---------------------------------------------------------------------------
 # pair emission from the bit matrix
 # ---------------------------------------------------------------------------

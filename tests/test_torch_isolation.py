@@ -17,7 +17,7 @@ import torch
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.convert import extents_from_arrays, model_params_from_arrays
 from repro_torch.core import intervals
-from repro_torch.core.errors import KernelError, ValidationError
+from repro_torch.core.errors import ValidationError
 from repro_torch.core.incremental import IncrementalIndex
 from repro_torch.core.service import DDMService
 from repro_torch.data import ddm_workload
@@ -168,19 +168,45 @@ def test_kernels_match_plain_versions_on_the_card():
             got = tkernels.emit_pairs(*c_args, block_size=bs, cap=c)
             want = tref.ref_emit_pairs(*c_args, block_size=bs, cap=c)
             assert all(torch.equal(a, b) for a, b in zip(got, want))
-        # outside its contract (segment 0's first subscription lower finds
-        # its bit set) pass C raises on the card
+            assert int(tkernels.emit_pairs.general_blocks) == 0
+        # outside the contract of its fast path pass C equals the replay
+        # too: segment 0's first subscription lower finds its bit set; a
+        # second lower of it; a dropped lower whose upper then finds its
+        # bit clear; stray bits in every entering set; a cap that cuts those
         first = int(torch.nonzero(ep.is_sub[:bs] & real[:bs])[0])
         o = int(ep.owner[first])
         bad = masks[0].clone()
         bad[0, o // 32] ^= int(np.uint32(1 << (o % 32)).view(np.int32))
-        with pytest.raises(KernelError):
-            tkernels.emit_pairs(*c_args[:4], bad, masks[1], block_size=bs,
-                                cap=cap)
+        twice = [x.clone() for x in c_args[:4]]
+        for x, val in zip(twice, (o, 0, 1, 1)):
+            x[first + 1] = val
+        live = (ep.is_sub[:bs] & real[:bs]).cpu().numpy()
+        owners, ups = ep.owner[:bs].cpu().numpy(), up[:bs].cpu().numpy()
+        closed = np.isin(owners, owners[live & (ups == 1)])
+        dropped = real.to(torch.int32).clone()
+        dropped[int(np.flatnonzero(live & (ups == 0) & closed)[0])] = 0
+        rng = np.random.default_rng(bs)
+        stray = []
+        for m in masks:                 # 16 stray members per entering set
+            ids = rng.integers(0, 32 * m.shape[1], (m.shape[0], 16))
+            bits = np.zeros(tuple(m.shape), np.uint32)
+            np.bitwise_or.at(bits, (np.arange(m.shape[0])[:, None], ids // 32),
+                             np.uint32(1) << (ids % 32).astype(np.uint32))
+            stray.append(m | torch.from_numpy(bits.view(np.int32)).cuda())
+        for args, c in (((*c_args[:4], bad, masks[1]), cap),
+                        ((*twice, *masks), cap),
+                        ((*c_args[:3], dropped, *masks), cap),
+                        ((*c_args[:4], *stray), cap),
+                        ((*c_args[:4], *stray), max(cap // 3, 1))):
+            got = tkernels.emit_pairs(*args, block_size=bs, cap=c)
+            want = tref.ref_emit_pairs(*args, block_size=bs, cap=c)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            assert int(tkernels.emit_pairs.general_blocks) > 0
     # the bit-matrix AND, d = 1..4 and the run-time d of 5 and 8, ragged
-    # rows and words
+    # rows and words; blocks of several update chunks (n = 1500, m = 8192)
     for d, n, m in ((1, 33, 40), (2, 37, 130), (3, 300, 257), (4, 65, 1000),
-                    (5, 70, 300), (8, 40, 65)):
+                    (5, 70, 300), (8, 40, 65), (2, 1500, 8192),
+                    (5, 1500, 8192)):
         g = torch.Generator().manual_seed(d)
         subs, upds = intervals.make_uniform_workload(n, m, 50.0, d=d,
                                                      generator=g)
@@ -188,6 +214,23 @@ def test_kernels_match_plain_versions_on_the_card():
                 (subs.lo, subs.hi, upds.lo, upds.hi)]
         got = tbitmatch.bitmatch(*(x.contiguous() for x in rows))
         want = tref.ref_bitmatrix(*(x.contiguous() for x in rows))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # edge shapes: m = 1, 31, 33, 1025 against the row tiles, d = 1, 4, 5,
+    # integer-grid ties with -0.0 and +-inf bounds
+    rng = np.random.default_rng(7)
+    for d, n, m in ((1, 1030, 1), (4, 1030, 31), (5, 515, 33),
+                    (1, 7, 1025), (4, 513, 1025), (5, 1030, 1025)):
+        arrs = []
+        for size in (n, m):
+            lo = rng.integers(-4, 5, (d, size)).astype(np.float32)
+            hi = lo + rng.integers(0, 4, (d, size)).astype(np.float32)
+            lo[(lo == 0) & (rng.random(lo.shape) < 0.5)] = np.float32(-0.0)
+            lo[rng.random(lo.shape) < 0.1] = -np.inf
+            hi[rng.random(hi.shape) < 0.1] = np.inf
+            arrs += [lo, hi]
+        rows = [torch.from_numpy(a).cuda() for a in arrs]
+        got = tbitmatch.bitmatch(*rows)
+        want = tref.ref_bitmatrix(*rows)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     # block-sparse flash attention, f32 and bf16: GQA, window, softcap,
     # segments, q_offset, a ragged 32-block schedule, D = 64, 128 and 256
@@ -234,9 +277,33 @@ def test_kernels_match_plain_versions_on_the_card():
     torch.testing.assert_close(got, tref.ref_flash_attention(q, k, v, idx, cnt,
                                                              **kw),
                                rtol=2e-5, atol=2e-5)
-    q512 = torch.zeros((1, 2, 64, 512), device="cuda")
-    with pytest.raises(ValidationError):                    # D = 512
-        flash_attention_kernel(q512, q512, q512, idx, cnt, block_q=32,
+    # D = 257 to 593 run the run-time-width kernel, one launch, in f32
+    # and bf16 (window, softcap, segments, GQA, q_offset)
+    seg = torch.sort(torch.randint(0, 3, (1, 96), generator=gen),
+                     dim=1).values.to(torch.int32).cuda()
+    idx, cnt, _ = tops.build_block_structure(64, 96, block_q=32, block_k=32,
+                                             window=40)
+    idx, cnt = torch.from_numpy(idx), torch.from_numpy(cnt)
+    for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for d in (257, 320, 512, 593):
+            q = torch.randn((1, 4, 64, d), generator=gen).cuda().to(dt)
+            k, v = (torch.randn((1, 2, 96, d), generator=gen).cuda().to(dt)
+                    for _ in range(2))
+            args = (q, k, v, idx, cnt, seg[:, 32:].contiguous(), seg)
+            kw = dict(scale=d ** -0.5, causal=True, window=40, softcap=30.0,
+                      block_q=32, block_k=32, q_offset=32)
+            before = flash_attention_kernel.launches
+            got = flash_attention_kernel(*args, **kw)
+            assert flash_attention_kernel.launches == before + 1
+            assert got.dtype == dt and got.shape == q.shape
+            torch.testing.assert_close(
+                got.float(), tref.ref_flash_attention(*args, **kw).float(),
+                rtol=tol, atol=tol)
+    idx, cnt, _ = tops.build_block_structure(64, 64, block_q=32, block_k=32)
+    idx, cnt = torch.from_numpy(idx), torch.from_numpy(cnt)
+    q594 = torch.zeros((1, 2, 64, 594), device="cuda")
+    with pytest.raises(ValidationError):        # above the run-time limit
+        flash_attention_kernel(q594, q594, q594, idx, cnt, block_q=32,
                                block_k=32)
     q64 = torch.zeros((1, 2, 64, 64), device="cuda")
     with pytest.raises(ValidationError):            # schedule on the card

@@ -350,6 +350,88 @@ def test_pass_c_arrays_match_pallas_interpret(name):
     np.testing.assert_array_equal(got_j.numpy(), np.asarray(want_j))
 
 
+def _off_contract(kind, args, cap, block_size, seed):
+    """Pass C's inputs pushed outside the contract its CUDA kernel's closed
+    forms need (every lower finds its bit clear, every upper finds it set),
+    as numpy int32 / uint32 arrays, and the cap."""
+    owner, up, sub, valid = (np.array(a, np.int32) for a in args[:4])
+    sets = [np.array(a, np.uint32) for a in args[4:]]
+    rng = np.random.default_rng(seed)
+    segs = owner.size // block_size
+    if kind in ("lower_twice", "cap_cuts"):
+        # the first subscription lower of each segment comes again in place
+        # of the record after it: it finds its bit set
+        for p in range(segs):
+            t = np.arange(p * block_size, (p + 1) * block_size - 1)
+            lows = t[(sub[t] == 1) & (up[t] == 0) & (valid[t] == 1)]
+            if lows.size:
+                nxt = lows[0] + 1
+                owner[nxt], up[nxt], sub[nxt], valid[nxt] = \
+                    owner[lows[0]], 0, 1, 1
+    if kind == "upper_bit_clear":
+        # a lower whose upper lies in its segment is dropped (made padding):
+        # the upper finds its bit clear
+        for p in range(segs):
+            t = np.arange(p * block_size, (p + 1) * block_size)
+            for i in t[(up[t] == 0) & (valid[t] == 1)]:
+                later = t[(t > i) & (owner[t] == owner[i]) & (sub[t] == sub[i])
+                          & (up[t] == 1)]
+                if later.size:
+                    valid[i] = 0
+                    break
+    if kind in ("stray_bits", "cap_cuts"):
+        # entering sets with stray members, some of them extents whose lower
+        # comes in the segment
+        for words in sets:
+            words |= (rng.integers(0, 2 ** 32, words.shape, dtype=np.uint64)
+                      & rng.integers(0, 2 ** 32, words.shape,
+                                     dtype=np.uint64)).astype(np.uint32)
+    if kind == "cap_cuts":
+        cap = max(cap // 3, 1)
+    return (owner, up, sub, valid, *sets), cap
+
+
+OFF_CONTRACT = ("lower_twice", "upper_bit_clear", "stray_bits", "cap_cuts")
+
+
+@pytest.mark.parametrize("kind", OFF_CONTRACT)
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_pass_c_plain_matches_pallas_outside_the_contract(name, kind):
+    """Records outside the contract of the CUDA kernel's fast path: the
+    plain replay (which the kernel's general path follows) and the Pallas
+    kernel in interpret mode give equal arrays element for element."""
+    (rs, ru), _ = WORKLOADS[name]()
+    block_size = 64
+    args, cap = _pass_c_inputs(rs, ru, block_size)
+    args, cap = _off_contract(kind, args, cap, block_size, seed=len(name))
+    want_i, want_j = ref_kernels.sweep_emit_pairs_pallas(
+        *(jnp.asarray(a) for a in args), block_size=block_size, cap=cap,
+        interpret=True)
+    targs = [torch.from_numpy(a.view(np.int32)) for a in args]
+    got_i, got_j = tkernels.emit_pairs(*targs, block_size=block_size, cap=cap)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_j.numpy(), np.asarray(want_j))
+    assert _toggle_faults(*args, block_size) > 0     # really outside it
+    assert kind != "cap_cuts" or bool((got_i[:, -1] >= 0).any())  # it cuts
+
+
+def _toggle_faults(owner, up, sub, valid, s0, u0, block_size):
+    """How many toggles of the records find their bit the wrong way."""
+    faults = 0
+    for p in range(owner.size // block_size):
+        live = {1: tref._members(s0[p]), 0: tref._members(u0[p])}
+        for t in range(p * block_size, (p + 1) * block_size):
+            if not valid[t]:
+                continue
+            side, o = int(sub[t] != 0), int(owner[t])
+            faults += (o in live[side]) != bool(up[t])
+            if up[t]:
+                live[side].discard(o)
+            else:
+                live[side].add(o)
+    return faults
+
+
 @pytest.mark.parametrize("max_pairs", [16, 4096])
 @pytest.mark.parametrize("name", sorted(WORKLOADS))
 def test_enumerate_kernel_arrays_match_pallas_interpret(name, max_pairs):
