@@ -13,7 +13,12 @@ Phases (any failure exits non-zero and prints no result line):
    (L = 1e6): n = m = 1e6 at α = 1 and n = m = 1e5 at α = 100.  Passes A
    and B (at both segment sizes the main path launches them with: 2048
    for counting, 4096 for enumeration) and the delta-bitmask kernel equal
-   their plain versions exactly;
+   their plain versions exactly, the delta-bitmask kernel also on the
+   records of ``ref.off_contract_records`` (a lower twice, an upper
+   twice, an upper before its lower, a dropped lower, one owner's lower
+   in two segments); at n = m = 1e6 it is timed (full size A) beside its
+   plain version and its byte bound, its launches counted in the pass-C
+   engine's run;
    pass C equals its plain replay at a reduced size (printed) and, at
    n = m = 1e6, at full size with its masks in global memory; it is timed
    at both full sizes; at full size the pass-C engine's pair set equals the rank-table
@@ -26,10 +31,12 @@ Phases (any failure exits non-zero and prints no result line):
    after the churn must equal a fresh rebuild.  The kernels' launch counts
    are zeroed just before and read just after; each must be > 0.  Then
    five more rebuilds by the host clock and one under ``torch.profiler``
-   (device busy time, idle share, top device kernels and host ops).
+   (device busy time, idle share, top device kernels and host ops, each
+   sweep kernel's device time).
 4. Each sweep kernel at the main path's shapes: held against its plain
-   version again, then timed (device time per launch) beside the plain
-   version and the least time the card could take (bytes over the
+   version again (the delta-bitmask kernel also on the off-contract
+   records of phase 2), then timed (device time per launch) beside the
+   plain version and the least time the card could take (bytes over the
    published HBM rate); pass C with its masks in shared memory, no block
    taking its general path.  On records outside the contract of its fast
    path (an entering set that says a lower's extent is already open, a
@@ -257,6 +264,9 @@ SOURCES = dict.fromkeys(
 SOURCES["bitmatch"] = "src/repro_torch/kernels/csrc/bitmatch.cu"
 SOURCES["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
 DEVICE = "cuda"
+# the sweep kernels' names in a profile (the rebuild trace sums each)
+SWEEP_KERNELS = ("block_sums_kernel", "emission_kernel",
+                 "delta_bitmask_kernel", "emit_pairs_kernel")
 # SASS opcodes counted per kernel: tensor cores, cp.async, ldmatrix
 SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "LDSM")
 
@@ -504,13 +514,22 @@ class Smoke:
         return int(got[1].sum())
 
     def check_bitmasks(self, x, what):
+        """The delta-bitmask kernel == its plain version on both extent
+        types' records, as the stream gives them and pushed off its
+        contract by each kind of ``ref.off_contract_records``."""
         K, ref, bs = self.K, self.ref, self.ops.ENUMERATE_BLOCK
         for valid, words in ((x["vs"], x["ws"]), (x["vu"], x["wu"])):
-            got = K.delta_bitmasks(x["ep4"].owner, x["up"], valid,
-                                   num_words=words, block_size=bs)
-            want = ref.ref_delta_bitmasks(x["ep4"].owner, x["up"], valid,
-                                          num_words=words, block_size=bs)
-            self.same("delta_bitmasks", got, want, f"delta bitmasks {what}")
+            streams = {"": (x["ep4"].owner, x["up"], valid)}
+            for kind in ref.OFF_CONTRACT_KINDS:
+                streams[f", {kind}"] = ref.off_contract_records(
+                    kind, x["ep4"].owner, x["up"], valid, block_size=bs)
+            for kind, records in streams.items():
+                got = K.delta_bitmasks(*records, num_words=words,
+                                       block_size=bs)
+                want = ref.ref_delta_bitmasks(*records, num_words=words,
+                                              block_size=bs)
+                self.same("delta_bitmasks", got, want,
+                          f"delta bitmasks {what}{kind}")
 
     def check_pass_c(self, x, what, placement=None):
         """Pass C == its replay; the kernel's mask placement must be
@@ -596,11 +615,14 @@ class Smoke:
         seq_s = time.perf_counter() - t0
         max_pairs = self.round_up_pow2(k)
         torch.cuda.synchronize()
+        self.K.delta_bitmasks.launches = 0
         t0 = time.perf_counter()
         pairs, count = self.ops.sbm_enumerate_kernel(subs, upds,
                                                      max_pairs=max_pairs)
         torch.cuda.synchronize()
         engine_ms = (time.perf_counter() - t0) * 1e3
+        if n == PASS_C_FULL_N:
+            self.bitmasks_full(x, tag, self.K.delta_bitmasks.launches)
         t0 = time.perf_counter()
         plain, plain_count = sbm_enumerate(subs, upds, max_pairs=max_pairs)
         torch.cuda.synchronize()
@@ -615,13 +637,44 @@ class Smoke:
                                       f"n=m={REDUCED_N} alpha={alpha:g}")
         self.pass_c_full(x, tag, check=n == PASS_C_FULL_N)
         print(f"full size {tag}: K={k} exact (sequential sweep {seq_s:.1f} s); "
-              f"passes A/B and delta bitmasks == plain; pass-C engine "
+              f"passes A/B and delta bitmasks == plain (bitmasks also off the "
+              f"contract); pass-C engine "
               f"{engine_ms:.1f} ms, pair set == sbm_enumerate "
               f"({plain_ms:.1f} ms); pass C == "
               f"replay at n=m={REDUCED_N} (replay {replay_ms:.0f} ms)",
               flush=True)
         self.phase_ms[f"enumerate_kernel {tag}"] = engine_ms
         self.phase_ms[f"sbm_enumerate (plain) {tag}"] = plain_ms
+
+    def bitmasks_full(self, x, tag, launches: int):
+        """The delta-bitmask kernel's row at full size A: device time per
+        launch beside its plain version and its byte bound (three int32
+        records read, two rows of words written); ``launches`` were counted
+        in the pass-C engine's run at this size."""
+        K, ref, bs = self.K, self.ref, self.ops.ENUMERATE_BLOCK
+        require(launches > 0, f"{tag}: the pass-C engine launched no "
+                "delta-bitmask kernel")
+        args = (x["ep4"].owner, x["up"], x["vs"])
+        total = args[0].shape[0]
+        ms = self.time_ms(lambda: K.delta_bitmasks(
+            *args, num_words=x["ws"], block_size=bs), 20,
+            "delta_bitmask_kernel")
+        self.bitmask_full_row = {
+            "name": f"delta_bitmasks (full size A, {tag})", "route": "cuda",
+            "source": SOURCES["delta_bitmasks"],
+            "replaces": REPLACES["delta_bitmasks"], "launches": launches,
+            "max_abs_err": self.err["delta_bitmasks"], "ms": ms,
+            "plain_ms": self.time_ms(lambda: ref.ref_delta_bitmasks(
+                *args, num_words=x["ws"], block_size=bs), 20),
+            "bound_ms": (12 * total + 8 * (total // bs) * x["ws"])
+            / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+        }
+        print(f"delta bitmasks at full size {tag}: {ms:.4f} ms per launch "
+              f"(source {self.timing_source.get('delta_bitmask_kernel')}), "
+              f"plain {self.bitmask_full_row['plain_ms']:.4f} ms, bound "
+              f"{self.bitmask_full_row['bound_ms']:.5f} ms; {launches} "
+              "launches in the pass-C engine", flush=True)
 
     def pass_c_full(self, x, tag, check: bool):
         """Pass C at full size: its device time per launch and, when
@@ -724,7 +777,8 @@ class Smoke:
     def rebuild_profile(self, svc, want):
         """The main path's rebuild (cache dropped, ``pairs()``) five more
         times by the host clock, then once under ``torch.profiler``: device
-        busy time, idle share, and the top device kernels and host ops."""
+        busy time, idle share, the top device kernels and host ops, and
+        each sweep kernel's device time."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -746,12 +800,16 @@ class Smoke:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         busy, dev, host = 0.0, [], []
+        sweep = dict.fromkeys(SWEEP_KERNELS, 0.0)
         for evt in prof.key_averages():
             if evt.device_type == DeviceType.CUDA:
                 ms = getattr(evt, "self_device_time_total",
                              getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
                 busy += ms
                 dev.append((round(ms, 4), evt.count, evt.key[:50]))
+                for name in sweep:
+                    if name in evt.key:
+                        sweep[name] += ms
             else:
                 host.append((round(evt.self_cpu_time_total / 1e3, 3),
                              evt.count, evt.key[:50]))
@@ -760,6 +818,7 @@ class Smoke:
                "device_busy_ms": round(busy, 4),
                "device_idle_share": round(1.0 - busy / wall_ms, 4),
                "top_device": sorted(dev, reverse=True)[:5],
+               "sweep_kernels_ms": {k: round(v, 4) for k, v in sweep.items()},
                "top_host_self": sorted(host, reverse=True)[:6]}
         self.phase_ms["rebuild warm (median of 5)"] = sorted(walls)[2]
         print("rebuild profile (main path, n=m=%d): %s" % (MAIN_N,
@@ -854,6 +913,7 @@ class Smoke:
                 "library_ms": (self.time_ms(library[name], reps)
                                if name in library else None),
             }
+        self.rows["delta_bitmasks_full_a"] = self.bitmask_full_row
         # pass C's wrapper by the host clock: allocation, placement query
         # and launch (nothing waits for the card), then one sync
         torch.cuda.synchronize()

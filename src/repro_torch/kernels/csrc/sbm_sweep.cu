@@ -158,37 +158,210 @@ __global__ void emission_kernel(const int* __restrict__ deltas,
 }
 
 // Algorithm 6 lines 1-17 for one extent type: the Add/Del bitmask words of
-// each segment.  The block zeroes its two rows of words, then one thread
-// replays the segment in order (lower: Add |= bit; upper: clear the bit in
-// Add if set there, else Del |= bit).  The rows live in global memory: at
-// n = 1e6 one row is 125 KB and the pair exceeds a block's shared memory.
-// Bound: the sequential read-modify-write chain of one thread per segment.
-__global__ void delta_bitmask_kernel(const int* __restrict__ owner,
-                                     const int* __restrict__ is_upper,
-                                     const int* __restrict__ valid,
-                                     unsigned* __restrict__ add,
-                                     unsigned* __restrict__ del,
-                                     int block_size, int num_words) {
-  const size_t row = (size_t)blockIdx.x * num_words;
-  for (int w = threadIdx.x; w < num_words; w += blockDim.x) {
-    add[row + w] = 0u;
-    del[row + w] = 0u;
+// each segment.  Replaces _delta_bitmask_kernel, whose replay of a segment
+// in order (lower: Add |= bit; upper: clear the bit in Add if set there,
+// else Del |= bit) is, per owner, a function of that owner's records in
+// the segment alone: in position order, an owner is in Add iff its last
+// record is a lower, and in Del iff one of its uppers follows an upper of
+// it or nothing.  So the block sorts the segment's records by (owner,
+// position) and every thread decides its records from their neighbours;
+// no step waits on a previous record's outcome.
+//
+//   1. All threads zero the block's two rows (16-byte stores).  Each warp
+//      takes a contiguous span of the segment, loads it coalesced twice
+//      (the second time from cache) and writes the valid records whose
+//      clamped owner lies below 32 * num_words, in position order, to
+//      shared memory: the owner (int) and position << 1 | is_upper
+//      (16 bits).  Other records write nothing, so no owner id reaches
+//      outside the block's rows.
+//   2. A stable LSD radix sort on the owner, 8 bits a pass, as many passes
+//      as the owner ids have bytes (3 at n = 1e5 and 1e6): in each pass
+//      each warp ranks the records of its span by digit (__match_any_sync
+//      peers, per-warp counters), one block scan over (digit, warp) gives
+//      every warp's offset per digit, and the warps scatter into the other
+//      buffer.  Stability keeps position order within an owner, so no
+//      position bits are sorted and the sort keys stay 32-bit.
+//   3. Each thread takes records of the sorted run: a lower that is its
+//      owner's last record sets its bit in Add, an upper whose predecessor
+//      is not a lower of its owner sets its bit in Del, by atomicOr on the
+//      zeroed rows (ordered after the zero stores by the sort's barriers;
+//      Del's repeats are idempotent).
+//
+// Shared memory: 12 bytes a record (two buffers of owner and position) and
+// 16 KB of counters, so segments up to kBitmaskMaxBlock = 16,384 records;
+// the C entry point refuses larger ones.  Bound: at large num_words the
+// rows' zero stores (n = m = 1e6: 250 KB a block); else the sort's chain of
+// shared-memory steps and barriers (the main path's 98 blocks fill less
+// than one wave).
+constexpr int kBitmaskThreads = 512;
+constexpr int kBitmaskWarps = kBitmaskThreads / 32;
+constexpr int kBitmaskMaxBlock = 16384;
+constexpr int kDigitBits = 8;
+constexpr int kDigits = 1 << kDigitBits;
+// radix counters, (digit, warp) order; each thread scans kPerThread of them
+constexpr int kCounters = kDigits * kBitmaskWarps;
+constexpr int kPerThread = kCounters / kBitmaskThreads;
+
+// Zero the n words at p with 16-byte stores between a scalar head and tail.
+__device__ __forceinline__ void zero_words(unsigned* p, int n) {
+  const int head =
+      min(n, (int)(((16u - ((unsigned)(size_t)p & 15u)) & 15u) >> 2));
+  const int vec = (n - head) >> 2;
+  uint4* v = reinterpret_cast<uint4*>(p + head);
+  for (int i = threadIdx.x; i < head; i += blockDim.x) p[i] = 0u;
+  for (int i = threadIdx.x; i < vec; i += blockDim.x)
+    v[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = head + 4 * vec + threadIdx.x; i < n; i += blockDim.x)
+    p[i] = 0u;
+}
+
+// This warp's span of [0, n): whole rounds of 32, in warp order.
+__device__ __forceinline__ void warp_span(int n, int* lo, int* hi) {
+  const int span =
+      (n + 32 * kBitmaskWarps - 1) / (32 * kBitmaskWarps) * 32;
+  *lo = min((int)(threadIdx.x >> 5) * span, n);
+  *hi = min(*lo + span, n);
+}
+
+// One stable pass of the radix sort: records [0, n) of (so, sv) to
+// (dst_o, dst_v) by the digit of the owner at `shift`.
+__device__ void radix_pass(const int* so, const unsigned short* sv,
+                           int* dst_o, unsigned short* dst_v, int n,
+                           int shift, int* cnt, int* scratch) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  for (int i = threadIdx.x; i < kCounters; i += blockDim.x) cnt[i] = 0;
+  __syncthreads();
+  int lo, hi;
+  warp_span(n, &lo, &hi);
+  // the warp's count per digit; a digit's lowest lane adds its peers
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    const int d = i < hi ? (so[i] >> shift) & (kDigits - 1) : -1 - lane;
+    const unsigned peers = __match_any_sync(0xffffffffu, d);
+    if (i < hi && (peers & below) == 0) cnt[d * kBitmaskWarps + warp] +=
+        __popc(peers);
+    __syncwarp();
   }
   __syncthreads();
-  if (threadIdx.x != 0) return;
-  const long long base = (long long)blockIdx.x * block_size;
-  for (int t = 0; t < block_size; ++t) {
-    const long long g = base + t;
-    if (!valid[g]) continue;
-    const int o = max(owner[g], 0);
+  int run = 0, mine[kPerThread];
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    mine[k] = run;
+    run += cnt[threadIdx.x * kPerThread + k];
+  }
+  int total;
+  const int at = block_exclusive_scan(run, &total, scratch);
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k)
+    cnt[threadIdx.x * kPerThread + k] = at + mine[k];
+  __syncthreads();
+  // scatter in order: the warp's next slot per digit plus the rank among
+  // this round's peers
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    const int o = i < hi ? so[i] : 0;
+    const unsigned short v = i < hi ? sv[i] : 0;
+    const int d = i < hi ? (o >> shift) & (kDigits - 1) : -1 - lane;
+    const unsigned peers = __match_any_sync(0xffffffffu, d);
+    const int slot = i < hi ? cnt[d * kBitmaskWarps + warp] : 0;
+    __syncwarp();
+    if (i < hi) {
+      dst_o[slot + __popc(peers & below)] = o;
+      dst_v[slot + __popc(peers & below)] = v;
+      if ((peers & below) == 0)
+        cnt[d * kBitmaskWarps + warp] = slot + __popc(peers);
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kBitmaskThreads)
+delta_bitmask_kernel(const int* __restrict__ owner,
+                     const int* __restrict__ is_upper,
+                     const int* __restrict__ valid, unsigned* __restrict__ add,
+                     unsigned* __restrict__ del, int block_size,
+                     int num_words, int passes) {
+  // two buffers of block_size owners, then two of block_size positions
+  extern __shared__ __align__(16) unsigned char bitmask_smem[];
+  __shared__ int cnt[kCounters];
+  __shared__ int scratch[33];
+  __shared__ int warp_kept[kBitmaskWarps];
+  int* so = reinterpret_cast<int*>(bitmask_smem);
+  int* to = so + block_size;
+  unsigned short* sv = reinterpret_cast<unsigned short*>(to + block_size);
+  unsigned short* tv = sv + block_size;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const size_t row = (size_t)blockIdx.x * num_words;
+  const long long seg0 = (long long)blockIdx.x * block_size;
+  const long long owners = 32LL * num_words;
+  zero_words(add + row, num_words);
+  zero_words(del + row, num_words);
+
+  // step 1: the kept records in position order (loads issued together,
+  // none waiting on another)
+  int lo, hi;
+  warp_span(block_size, &lo, &hi);
+  int kept = 0;
+#pragma unroll 4
+  for (int base = lo; base < hi; base += 32) {
+    const long long g = seg0 + base + lane;
+    bool keep = false;
+    if (base + lane < hi)
+      keep = (valid[g] != 0) & (max(owner[g], 0) < owners);
+    kept += __popc(__ballot_sync(0xffffffffu, keep));
+  }
+  if (lane == 0) warp_kept[warp] = kept;
+  __syncthreads();
+  int n = 0, at = 0;
+  for (int w = 0; w < kBitmaskWarps; ++w) {
+    at += w < warp ? warp_kept[w] : 0;
+    n += warp_kept[w];
+  }
+#pragma unroll 4
+  for (int base = lo; base < hi; base += 32) {
+    const int t = base + lane;
+    const long long g = seg0 + t;
+    int o = 0, up = 0;
+    bool keep = false;
+    if (t < hi) {
+      o = max(owner[g], 0);
+      up = is_upper[g] != 0;
+      keep = (valid[g] != 0) & (o < owners);
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (keep) {
+      so[at + __popc(ballot & below)] = o;
+      sv[at + __popc(ballot & below)] = (unsigned short)(t << 1 | up);
+    }
+    at += __popc(ballot);
+  }
+  __syncthreads();
+
+  // step 2: stable radix sort by owner, the result back in (so, sv)
+  for (int p = 0; p < passes; ++p) {
+    radix_pass(so, sv, to, tv, n, p * kDigitBits, cnt, scratch);
+    int* x = so;
+    so = to;
+    to = x;
+    unsigned short* y = sv;
+    sv = tv;
+    tv = y;
+  }
+
+  // step 3: decide each record from its neighbours in (owner, position)
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int o = so[i];
     const unsigned bit = 1u << (o & 31);
     const size_t w = row + (o >> 5);
-    if (!is_upper[g]) {
-      add[w] |= bit;
-    } else if (add[w] & bit) {
-      add[w] &= ~bit;
-    } else {
-      del[w] |= bit;
+    if (sv[i] & 1u) {
+      if (i == 0 || so[i - 1] != o || (sv[i - 1] & 1u)) atomicOr(del + w, bit);
+    } else if (i + 1 == n || so[i + 1] != o) {
+      atomicOr(add + w, bit);
     }
   }
 }
@@ -706,11 +879,23 @@ int sbm_delta_bitmasks(const int* owner, const int* is_upper,
                        const int* valid, unsigned* add, unsigned* del,
                        long long total, int block_size, int num_words,
                        void* stream) {
+  if (block_size < 1 || block_size > kBitmaskMaxBlock || num_words < 1)
+    return (int)cudaErrorInvalidValue;
   const long long blocks = total / block_size;
-  if (blocks > 0)
-    delta_bitmask_kernel<<<(unsigned)blocks, kThreads, 0,
-                           (cudaStream_t)stream>>>(
-        owner, is_upper, valid, add, del, block_size, num_words);
+  if (blocks <= 0) return (int)cudaGetLastError();
+  // radix passes: the bytes of the largest owner id kept (owner < 2^31)
+  const long long top = 32LL * num_words - 1;
+  int bits = 0;
+  while (bits < 31 && (top >> bits) != 0) ++bits;
+  const int passes = (bits + kDigitBits - 1) / kDigitBits;
+  const int smem = 12 * block_size;
+  const cudaError_t err = cudaFuncSetAttribute(
+      delta_bitmask_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  delta_bitmask_kernel<<<(unsigned)blocks, kBitmaskThreads, smem,
+                         (cudaStream_t)stream>>>(owner, is_upper, valid, add,
+                                                 del, block_size, num_words,
+                                                 passes);
   return (int)cudaGetLastError();
 }
 

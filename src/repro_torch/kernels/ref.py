@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.errors import ValidationError
 from repro_torch.core.prefix import pack_bits, popcount32, words_from_values
 
 # mask elements per row block of ref_bitmatrix: pack_bits widens them to
@@ -99,48 +100,47 @@ def ref_delta_bitmasks(owner: torch.Tensor, is_upper: torch.Tensor,
                        block_size: int):
     """Per-segment Add/Del bitmask words of one extent type, vectorized.
 
-    Algorithm 6's invariant read directly: an extent whose lower and upper
-    endpoints fall in different segments is in Add of its lower's segment
-    and in Del of its upper's; one with both in the same segment is in
-    neither.  Returns (add, del) as (num_blocks, num_words) int32 words.
-    Fit for full sizes on the card; :func:`ref_delta_bitmasks_replay` is
-    the sequential replay it is checked against on the CPU.
+    The Pallas kernel's replay (a lower sets Add; an upper clears Add if
+    its bit is set there, else sets Del) in closed form, on any records:
+    order each segment's valid records by (owner, position); then an
+    owner is in Add iff its last record is a lower, and in Del iff one of
+    its uppers has an upper or nothing as the owner's record before it.
+    Owners are clamped at 0 first; owners >= 32·num_words are ignored.
+    Returns (add, del) as (num_blocks, num_words) int32 words.  Fit for
+    full sizes on the card; :func:`ref_delta_bitmasks_replay` is the
+    sequential replay it is checked against on the CPU.
     """
     dev = owner.device
-    total = owner.shape[0]
-    nb = total // block_size
+    nb = owner.shape[0] // block_size
     slots = num_words * 32
     o = owner.clamp(min=0).to(torch.int64)
-    seg = torch.arange(total, device=dev) // block_size
-    sel = valid != 0
-    up = is_upper != 0
+    pos = torch.nonzero((valid != 0) & (o < slots)).squeeze(1)
+    key = (pos // block_size) * slots + o[pos]
+    order = torch.argsort(key, stable=True)
+    key = key[order]
+    up = is_upper[pos[order]] != 0
+    same_next = torch.zeros_like(up)
+    same_next[:-1] = key[1:] == key[:-1]
+    prev_lower = torch.zeros_like(up)   # the owner's record before: a lower
+    prev_lower[1:] = (key[1:] == key[:-1]) & ~up[:-1]
 
-    def segment_of(which):
-        out = torch.full((slots + 1,), -1, dtype=torch.int64, device=dev)
-        out.scatter_(0, torch.where(which, o, slots), torch.where(which, seg, -1))
-        return out[:slots]
+    def words(keys):
+        seg, ids = keys // slots, keys % slots
+        flat = torch.zeros(nb * num_words, dtype=torch.int64, device=dev)
+        flat.index_add_(0, seg * num_words + ids // 32,
+                        torch.ones_like(ids) << (ids % 32))
+        return words_from_values(flat).reshape(nb, num_words)
 
-    lo_seg = segment_of(sel & ~up)
-    up_seg = segment_of(sel & up)
-    ids = torch.arange(slots, device=dev)
-    word = ids // 32
-    bit = torch.ones_like(ids) << (ids % 32)
-
-    def words(which, seg_of):
-        flat = torch.zeros(nb * num_words + 1, dtype=torch.int64, device=dev)
-        flat.index_add_(0, torch.where(which, seg_of * num_words + word,
-                                       nb * num_words),
-                        torch.where(which, bit, 0))
-        return words_from_values(flat[:-1]).reshape(nb, num_words)
-
-    return (words((lo_seg >= 0) & (lo_seg != up_seg), lo_seg),
-            words((up_seg >= 0) & (up_seg != lo_seg), up_seg))
+    return (words(key[~up & ~same_next]),
+            words(torch.unique_consecutive(key[up & ~prev_lower])))
 
 
 def ref_delta_bitmasks_replay(owner, is_upper, valid, *, num_words: int,
                               block_size: int):
-    """Sequential replay of each segment (Algorithm 6 lines 1-17 verbatim);
-    returns (add, del) as ``np.uint32`` arrays.  Host-only, small sizes."""
+    """Sequential replay of each segment (Algorithm 6 lines 1-17 verbatim,
+    the Pallas kernel's set/clear semantics; owners clamped at 0, owners
+    >= 32·num_words ignored); returns (add, del) as ``np.uint32`` arrays.
+    Host-only, small sizes."""
     owner = _host(owner)
     is_upper = _host(is_upper)
     valid = _host(valid)
@@ -152,7 +152,9 @@ def ref_delta_bitmasks_replay(owner, is_upper, valid, *, num_words: int,
         for t in range(p * block_size, (p + 1) * block_size):
             if not valid[t]:
                 continue
-            o = int(owner[t])
+            o = max(int(owner[t]), 0)
+            if o >= 32 * num_words:
+                continue
             if not is_upper[t]:
                 a.add(o)
             elif o in a:
@@ -164,6 +166,60 @@ def ref_delta_bitmasks_replay(owner, is_upper, valid, *, num_words: int,
         for o in d:
             rem[p, o // 32] |= np.uint32(1) << np.uint32(o % 32)
     return add, rem
+
+
+#: the kinds of :func:`off_contract_records`
+OFF_CONTRACT_KINDS = ("lower_twice", "upper_twice", "upper_before_lower",
+                      "dropped_lower", "lower_in_two_segments")
+
+
+def off_contract_records(kind: str, owner: torch.Tensor,
+                         is_upper: torch.Tensor, valid: torch.Tensor, *,
+                         block_size: int):
+    """One extent type's records of a sorted stream pushed outside its
+    contract (each extent's lower, then its upper, once each), per segment
+    at its first valid lower (or upper, for ``upper_twice``):
+
+    * ``lower_twice`` / ``upper_twice``: that record again in place of the
+      record after it;
+    * ``upper_before_lower``: that lower made an upper, and a lower of its
+      owner in place of the segment's last record;
+    * ``dropped_lower``: that lower made invalid;
+    * ``lower_in_two_segments``: the previous segment's first lower in place
+      of the segment's first record.
+
+    Returns new (owner, is_upper, valid) int32 tensors on the inputs'
+    device; vectorized, fit for full sizes on the card."""
+    owner, is_upper, valid = (x.clone() for x in (owner, is_upper, valid))
+    total = owner.shape[0]
+    nb = total // block_size
+    t = torch.arange(total, device=owner.device)
+    start = torch.arange(nb, device=owner.device) * block_size
+    pick = (valid != 0) & ((is_upper != 0) if kind == "upper_twice"
+                           else (is_upper == 0))
+    first = torch.where(pick, t, total).reshape(nb, block_size).amin(dim=1)
+    has = first < total
+    at = first[has]
+    if kind in ("lower_twice", "upper_twice"):
+        at = at[at + 1 < start[has] + block_size]
+        for x in (owner, is_upper, valid):
+            x[at + 1] = x[at]
+    elif kind == "upper_before_lower":
+        last = start[has] + block_size - 1
+        keep = last != at
+        at, last = at[keep], last[keep]
+        is_upper[at] = 1
+        owner[last], is_upper[last], valid[last] = owner[at], 0, 1
+    elif kind == "dropped_lower":
+        valid[at] = 0
+    elif kind == "lower_in_two_segments":
+        src = first[:-1]
+        keep = src < total
+        dst = start[1:][keep]
+        owner[dst], is_upper[dst], valid[dst] = owner[src[keep]], 0, 1
+    else:
+        raise ValidationError(f"unknown kind {kind!r}: {OFF_CONTRACT_KINDS}")
+    return owner, is_upper, valid
 
 
 def _host(x) -> np.ndarray:

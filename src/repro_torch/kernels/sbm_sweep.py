@@ -8,7 +8,14 @@ kernel of the JAX package's ``repro/kernels/sbm_sweep.py``:
 * :func:`emission` — ``emission_kernel`` (pass B), replaces
   ``_emission_kernel``;
 * :func:`delta_bitmasks` — ``delta_bitmask_kernel``, replaces
-  ``_delta_bitmask_kernel``;
+  ``_delta_bitmask_kernel``: not the Pallas kernel's serial replay of each
+  segment, but its outcome in closed form (per owner, its last record
+  decides Add, an upper after an upper or after nothing sets Del): each
+  block sorts its segment's records by (owner, position) in shared memory
+  (a stable radix sort on the owner) and every thread decides its records
+  from their neighbours.  Any records are taken, with the Pallas
+  semantics; owners >= 32·num_words are ignored; segments up to
+  :data:`BITMASK_MAX_BLOCK` records;
 * :func:`emit_pairs` — ``emit_pairs_kernel`` (pass C), replaces
   ``_emission_pairs_kernel``: not the Pallas kernel's serial replay of each
   segment, but counts, slot bases and every single-pair emission in
@@ -117,13 +124,21 @@ def sweep_count(deltas: torch.Tensor, *, block_size: int = 2048):
     return emit, seg, seg.sum(dtype=torch.int64)
 
 
+#: ``kBitmaskMaxBlock`` of ``csrc/sbm_sweep.cu``: the largest segment whose
+#: two sort buffers (12 bytes a record) fit a block's shared memory
+BITMASK_MAX_BLOCK = 16384
+
+
 def delta_bitmasks(owner: torch.Tensor, is_upper: torch.Tensor,
                    valid: torch.Tensor, *, num_words: int, block_size: int):
     """Per-segment Add/Del bitmasks of the extent type selected by ``valid``.
 
-    Inputs are (total,) int32 records of the sorted stream.  Returns
-    (add, del): (num_blocks, num_words) int32 words — Algorithm 6's
-    Sadd[p]/Sdel[p] (or Uadd/Udel).
+    Inputs are (total,) int32 records, any contents: the Pallas kernel's
+    replay (a lower sets Add; an upper clears Add if set there, else sets
+    Del) over each segment's valid records, owners clamped at 0; owners
+    >= 32·num_words are ignored.  Returns (add, del): (num_blocks,
+    num_words) int32 words — Algorithm 6's Sadd[p]/Sdel[p] (or Uadd/Udel).
+    On the card ``block_size`` may be at most :data:`BITMASK_MAX_BLOCK`.
     """
     total = owner.shape[0]
     nb = _blocks(total, block_size)
@@ -135,6 +150,11 @@ def delta_bitmasks(owner: torch.Tensor, is_upper: torch.Tensor,
         return ref_lib.ref_delta_bitmasks(owner, is_upper, valid,
                                           num_words=num_words,
                                           block_size=block_size)
+    if block_size > BITMASK_MAX_BLOCK:
+        raise ValidationError(
+            f"the delta-bitmask kernel takes segments of up to "
+            f"{BITMASK_MAX_BLOCK} records (its sort buffers must fit a "
+            f"block's shared memory), got block_size={block_size}")
     add = torch.empty((nb, num_words), dtype=torch.int32, device=owner.device)
     rem = torch.empty_like(add)
     lib = _build.library()

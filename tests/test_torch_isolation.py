@@ -114,6 +114,24 @@ def test_wrappers_validate_and_do_not_count_plain_runs():
                                block_k=32)
 
 
+def test_delta_bitmask_block_limit_is_the_kernels_alone():
+    """Above ``BITMASK_MAX_BLOCK`` only the kernel refuses (the
+    ``cuda``-marked test checks that); on the CPU the plain version takes
+    any segment size and launches nothing."""
+    bs = tkernels.BITMASK_MAX_BLOCK + 1
+    owner = torch.arange(2 * bs, dtype=torch.int32) % 64
+    up = (torch.arange(2 * bs, dtype=torch.int32) // 64) % 2
+    valid = torch.ones(2 * bs, dtype=torch.int32)
+    before = tkernels.delta_bitmasks.launches
+    got = tkernels.delta_bitmasks(owner, up, valid, num_words=2,
+                                  block_size=bs)
+    assert tkernels.delta_bitmasks.launches == before
+    want = tref.ref_delta_bitmasks_replay(owner, up, valid, num_words=2,
+                                          block_size=bs)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy().view(np.uint32), w)
+
+
 def test_chip_smoke_refuses_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
@@ -125,6 +143,76 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
     proc = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and '"ok": true' not in proc.stdout
+
+
+@pytest.mark.cuda
+def test_delta_bitmask_kernel_matches_plain_on_any_records():
+    """The delta-bitmask kernel against its plain version on the card,
+    exactly: every block size up to the kernel's limit on well-formed
+    streams, the off-contract kinds and random records (negative owners,
+    owners >= 32·W); owners wide enough that a 32-bit (owner, position)
+    key would overflow; rows surrounded by canaries that must survive;
+    the refusal above the limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build the kernels)")
+    from repro_torch.core.sweep import _pad_stream, encode_endpoints
+    from repro_torch.kernels import _build
+
+    limit = tkernels.BITMASK_MAX_BLOCK
+    g = torch.Generator().manual_seed(1)
+    subs, upds = intervals.make_uniform_workload(3000, 2500, 20.0,
+                                                 generator=g)
+    rng = np.random.default_rng(11)
+
+    def check(owner, up, valid, num_words, bs):
+        before = tkernels.delta_bitmasks.launches
+        got = tkernels.delta_bitmasks(owner, up, valid, num_words=num_words,
+                                      block_size=bs)
+        assert tkernels.delta_bitmasks.launches == before + 1
+        want = tref.ref_delta_bitmasks(owner, up, valid, num_words=num_words,
+                                       block_size=bs)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+    def random_records(total, num_words, low=-5, extra=40):
+        cols = (rng.integers(low, 32 * num_words + extra, total),
+                rng.integers(0, 2, total), rng.integers(0, 2, total))
+        return [torch.from_numpy(c.astype(np.int32)).cuda() for c in cols]
+
+    for bs in (32, 256, 2048, 4096, limit):
+        ep = _pad_stream(encode_endpoints(subs, upds), bs)
+        up = ep.is_upper.to(torch.int32)
+        valid = (ep.is_sub & (ep.owner >= 0)).to(torch.int32)
+        check(ep.owner, up, valid, 94, bs)
+        for kind in tref.OFF_CONTRACT_KINDS:
+            check(*tref.off_contract_records(kind, ep.owner, up, valid,
+                                             block_size=bs), 94, bs)
+        check(*random_records(2 * bs, 3), 3, bs)
+    # owners up to 2^21 at block 4096: (owner << 12 | position) needs 33
+    # bits; up to 2^24 (a fourth radix pass)
+    check(*random_records(3 * 4096, 1 << 16, low=0, extra=0), 1 << 16, 4096)
+    check(*random_records(2 * 256, 1 << 19, low=0, extra=0), 1 << 19, 256)
+    # owners >= 32·W write nothing outside the block's rows: canaries
+    bs, num_words, pad = 256, 2, 64
+    owner, up, valid = random_records(4 * bs, num_words, extra=200)
+    canary = int(np.uint32(0xA5A5A5A5).view(np.int32))
+    bufs = [torch.full((2 * pad + 4 * num_words,), canary, dtype=torch.int32,
+                       device="cuda") for _ in range(2)]
+    rc = _build.library().sbm_delta_bitmasks(
+        owner.data_ptr(), up.data_ptr(), valid.data_ptr(),
+        bufs[0][pad:].data_ptr(), bufs[1][pad:].data_ptr(), 4 * bs, bs,
+        num_words, _build.stream_handle(owner.device))
+    _build.check(rc, "sbm_delta_bitmasks")
+    want = tref.ref_delta_bitmasks(owner, up, valid, num_words=num_words,
+                                   block_size=bs)
+    for buf, w in zip(bufs, want):
+        assert torch.equal(buf[pad:-pad].view(4, num_words), w)
+        assert bool((buf[:pad] == canary).all())
+        assert bool((buf[-pad:] == canary).all())
+    over = torch.zeros(limit + 1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValidationError, match=str(limit)):
+        tkernels.delta_bitmasks(over, over, over, num_words=1,
+                                block_size=limit + 1)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -216,6 +216,111 @@ def test_delta_bitmasks_match_pallas_interpret(name, block_size):
     np.testing.assert_array_equal(got[1].numpy().view(np.uint32), replay[1])
 
 
+# records of one type, block 8, owners 3 and 5, num_words 1: the streams on
+# which a plain version reading Algorithm 6's invariant ("lower in this
+# segment, upper not") departs from the Pallas replay
+BITMASK_CASES = {
+    "lower_upper_upper": ([3, 3, 3] + [0] * 5, [0, 1, 1] + [0] * 5,
+                          [1, 1, 1] + [0] * 5),
+    "upper_then_lower": ([3, 3] + [0] * 6, [1, 0] + [0] * 6,
+                         [1, 1] + [0] * 6),
+    "lower_in_two_segments": ([5] + [0] * 7 + [5, 5] + [0] * 6,
+                              [0] * 8 + [0, 1] + [0] * 6,
+                              [1] + [0] * 7 + [1, 1] + [0] * 6),
+    "negative_owner": ([-4, 0, -1, 7] + [0] * 4, [0, 1, 1, 0] + [0] * 4,
+                       [1, 1, 1, 1] + [0] * 4),
+}
+
+
+def _bitmask_off_contract(kind, name, block_size):
+    """One extent type's records of a well-formed stream (built by the
+    reference) pushed off the contract by ``tref.off_contract_records``:
+    numpy int32 (owner, is_upper, valid) and num_words."""
+    (rs, ru), _ = WORKLOADS[name]()
+    ep = ref_sweep._pad_stream(ref_sweep.encode_endpoints(rs, ru), block_size)
+    valid = np.asarray(ep.is_sub & (ep.owner >= 0)).astype(np.int32)
+    records = [torch.from_numpy(np.array(a, np.int32))
+               for a in (ep.owner, ep.is_upper, valid)]
+    records = tref.off_contract_records(kind, *records, block_size=block_size)
+    return [r.numpy() for r in records], -(-rs.lo.shape[0] // 32)
+
+
+BITMASK_OFF_CONTRACT = sorted(BITMASK_CASES) + [
+    f"{kind}-{name}-{bs}" for kind in tref.OFF_CONTRACT_KINDS
+    for name in sorted(WORKLOADS) for bs in (32, 64)]
+
+
+@pytest.mark.parametrize("case", BITMASK_OFF_CONTRACT)
+def test_delta_bitmasks_plain_matches_pallas_on_any_records(case):
+    """The plain version (the wrapper's CPU route) equals the Pallas kernel
+    in interpret mode and the sequential replay exactly on records outside
+    the sorted stream's contract."""
+    if case in BITMASK_CASES:
+        records = [np.array(a, np.int32) for a in BITMASK_CASES[case]]
+        block_size, num_words = 8, 1
+    else:
+        kind, name, bs = case.rsplit("-", 2)
+        block_size = int(bs)
+        records, num_words = _bitmask_off_contract(kind, name, block_size)
+    want = ref_kernels.delta_bitmasks_pallas(
+        *(jnp.asarray(a) for a in records), num_words=num_words,
+        block_size=block_size, interpret=True)
+    got = tkernels.delta_bitmasks(*(torch.from_numpy(a) for a in records),
+                                  num_words=num_words, block_size=block_size)
+    replay = tref.ref_delta_bitmasks_replay(*records, num_words=num_words,
+                                            block_size=block_size)
+    for g, w, r in zip(got, want, replay):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy().view(np.uint32), np.asarray(w))
+        np.testing.assert_array_equal(g.numpy().view(np.uint32), r)
+    if case not in BITMASK_CASES:         # really off the contract
+        assert _bitmask_faults(*records) > 0
+
+
+def _bitmask_faults(owner, up, valid):
+    """Records that break the contract of a sorted stream: a lower of an
+    extent opened before, an upper of one never opened or closed before."""
+    faults, opened, closed = 0, set(), set()
+    for o, u, v in zip(owner.tolist(), up.tolist(), valid.tolist()):
+        if not v:
+            continue
+        if u:
+            faults += o not in opened or o in closed
+            closed.add(o)
+        else:
+            faults += o in opened
+            opened.add(o)
+    return faults
+
+
+@pytest.mark.parametrize("block_size", [32, 64])
+def test_delta_bitmasks_ignore_owners_beyond_the_words(block_size):
+    """Owners >= 32·num_words write nothing: the plain version gives what
+    it gives with those records dropped, and the replay's answer."""
+    rng = np.random.default_rng(block_size)
+    num_words, total = 2, 4 * block_size
+    owner = rng.integers(-5, 64 + 40, total).astype(np.int32)
+    up = rng.integers(0, 2, total).astype(np.int32)
+    valid = rng.integers(0, 2, total).astype(np.int32)
+    wide = (owner >= 32 * num_words) & (valid != 0)
+    assert wide.any()
+    kw = dict(num_words=num_words, block_size=block_size)
+    got = tkernels.delta_bitmasks(*map(torch.from_numpy, (owner, up, valid)),
+                                  **kw)
+    dropped = tkernels.delta_bitmasks(
+        *map(torch.from_numpy, (owner, up, np.where(wide, 0, valid))), **kw)
+    replay = tref.ref_delta_bitmasks_replay(owner, up, valid, **kw)
+    for g, d, r in zip(got, dropped, replay):
+        assert g.shape == (4, num_words) and torch.equal(g, d)
+        np.testing.assert_array_equal(g.numpy().view(np.uint32), r)
+    # within the words the Pallas kernel gives the same answer
+    want = ref_kernels.delta_bitmasks_pallas(
+        *(jnp.asarray(a) for a in (owner, up, np.where(wide, 0, valid))),
+        interpret=True, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy().view(np.uint32), np.asarray(w))
+
+
 # ---------------------------------------------------------------------------
 # pass C and the kernel enumeration engine
 # ---------------------------------------------------------------------------
