@@ -6,9 +6,9 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. Print the card (``nvidia-smi``), build the kernels from
-   ``src/repro_torch/kernels/csrc`` (the four sweep kernels and the
-   bit-matrix AND; one nvcc per source, in parallel) and print the build
-   time.
+   ``src/repro_torch/kernels/csrc`` (the four sweep kernels, the
+   bit-matrix AND and the flash kernels; one nvcc per source, in parallel)
+   and print the build time.
 2. Kernel parity at full size on the paper-§5 uniform workloads
    (L = 1e6): n = m = 1e6 at α = 1 and n = m = 1e5 at α = 100.  Passes A
    and B (at both segment sizes the main path launches them with: 2048
@@ -35,7 +35,9 @@ Phases (any failure exits non-zero and prints no result line):
    sweep kernel's device time).
 4. Each sweep kernel at the main path's shapes: held against its plain
    version again (the delta-bitmask kernel also on the off-contract
-   records of phase 2), then timed (device time per launch) beside the
+   records of phase 2; passes A and B also at block sizes 36, shorter
+   than pass B's span of a warp, and 2050, its scalar path),
+   then timed (device time per launch) beside the
    plain version and the least time the card could take (bytes over the
    published HBM rate); pass C with its masks in shared memory, no block
    taking its general path.  On records outside the contract of its fast
@@ -76,8 +78,9 @@ Phases (any failure exits non-zero and prints no result line):
    windows of 64, 100 and 128, softcap 30 and 50, segments, q_offset > 0, a
    global block, 32-blocks, 512-blocks (eight q tiles per block, with and
    without a window), D = 64, 128 and 256, D = 16 and 96, which the
-   wrapper zero-pads to the next built width, and D = 320 and 512, which
-   run the run-time-width kernel.
+   wrapper zero-pads to the next built width, and D = 257, 320, 512 and
+   593, which run the wide bf16 kernel (every feature at D = 320; the
+   float32 cases all run the scalar run-time-width kernel).
 10. Flash at full width: smollm-360m's prefill shapes (B = 4, H = 15,
     Hkv = 5, S = 2048, D = 64, bfloat16, causal 512-blocks) with a peaked
     softmax (scores of std 4): kernel == plain and dense oracle within the
@@ -92,9 +95,12 @@ Phases (any failure exits non-zero and prints no result line):
     sliding-window block mask), the yardstick.  Then row 6c: phi-3-vision's
     widths (B = 4, H = Hkv = 32, S = 2048, D = 96 zero-padded to 128,
     causal 512-blocks) through ``ops.flash_attention`` (one launch,
-    counted), beside SDPA.  Then row 6d: the run-time-width kernel at
-    B = 1, H = Hkv = 8, S = 4096, D = 512, causal 512-blocks, bf16, through
-    ``ops.flash_attention`` (one launch, counted), beside SDPA.
+    counted), beside SDPA.  Then row 6d: the wide bf16 kernel at
+    B = 1, H = Hkv = 8, S = 4096, D = 512, causal 512-blocks, through
+    ``ops.flash_attention`` (one launch, counted), beside SDPA; and row 6e:
+    the same shapes in float32 on the scalar run-time-width kernel (within
+    2e-5 of its plain version), beside SDPA in float32 with TF32 off, its
+    bound at the float32 rate.
 11. The serving path: smollm-360m at full width and depth (32 layers,
     bfloat16 compute, float32 weights from a seeded generator) behind
     ``ServeEngine`` with 4 slots answers 8 requests of 2048-token prompts,
@@ -150,6 +156,9 @@ REDUCED_N = 20_000             # pass C against its Python replay
 # a block's shared memory and live in global memory
 PASS_C_FULL_N = 1_000_000
 MAIN_N = 100_000               # the service's regions per side
+# pass B at block sizes the main path does not launch: 36, shorter than a
+# warp's span, and 2050 (not a multiple of 4), the scalar path
+PASS_B_EXTRA_BLOCKS = (36, 2050)
 CHURN = (("sub", 1), ("upd", 100), ("sub", 1000), ("upd", 10_000))
 # d = 5 and 8 run the kernel's run-time-d form
 BITMATCH_SHAPES = ((1, 33, 40), (2, 64, 70), (2, 37, 130), (3, 96, 257),
@@ -206,21 +215,25 @@ FLASH_CASES = (
     (2, 6, 2, 96, 192, 96, 32, {"window": 40, "softcap": 30.0,
                                 "segments": True}),
     (1, 3, 1, 512, 1536, 96, 512, {"window": 300}),
-    # widths above 256, the run-time-width kernel (which runs every
-    # float32 case of this battery): every feature at
-    # 32-blocks, causal 64-blocks, 512-blocks with a window, softcap and
-    # q_offset
-    (1, 2, 2, 128, 128, 320, 32, {"window": 40, "softcap": 30.0,
-                                  "segments": True}),
+    # widths above 256, the wide bf16 kernel (the scalar run-time-width
+    # kernel runs every float32 case of this battery): every feature (GQA,
+    # window, softcap, segments, q_offset) at 32-blocks, causal 64-blocks,
+    # 512-blocks with a window, softcap and q_offset; the domain's edges 257
+    # and 593 (rows staged by element loads: D not a multiple of 8)
+    (1, 4, 2, 96, 192, 320, 32, {"window": 40, "softcap": 30.0,
+                                 "segments": True}),
     (1, 4, 2, 256, 256, 512, 64, {}),
     (1, 2, 1, 512, 1536, 512, 512, {"window": 700, "softcap": 50.0}),
+    (1, 4, 2, 128, 256, 257, 64, {"softcap": 30.0, "segments": True}),
+    (2, 2, 1, 96, 96, 593, 32, {"window": 40}),
 )
 # row 6c: phi-3-vision's attention widths (src/repro/configs/
 # phi3_vision_4b.py: 32 heads of 96, kv 32) at smollm-360m's prefill batch,
 # length and block
 PHI3_FLASH = dict(B=4, H=32, Hkv=32, S=2048, D=96, block=512)
-# row 6d: a head width above 256 (no config of the repo has one), served by
-# the run-time-width kernel
+# rows 6d / 6e: a head width above 256 (no config of the repo has one),
+# served in bf16 by the wide tensor-core kernel and in float32 by the scalar
+# run-time-width kernel
 WIDE_FLASH = dict(B=1, H=8, Hkv=8, S=4096, D=512, block=512)
 # (atol, rtol) as |kernel - ref| <= atol + rtol * |ref|;
 # tests/test_kernels_attention.py's bounds
@@ -367,6 +380,19 @@ def flash_dynamic_smem(d: int) -> int:
     two-stage K/V ring of 64-row sub-tiles, 32-row at d = 256)."""
     kv_rows = 32 if d == 256 else 64
     return (64 * d + 2 * 2 * kv_rows * d) * 2
+
+
+def wide_flash_dynamic_smem(d: int) -> int:
+    """Dynamic shared memory of one block of the wide bf16 flash kernel at
+    head width d: ``WideShape::smem_bytes`` of ``flash_attention.cu`` (Q at
+    the padded width dp, a two-stage ring of 32-row K sub-tiles at dp and V
+    sub-tiles at the block's two chunks, vs 16-byte chunks a row, and the
+    partial scores the warpgroups swap)."""
+    dp = -(-d // 64) * 64
+    nc = 2 if dp <= 512 else 4
+    cw = -(-(-(-dp // nc)) // 16) * 16
+    vs = -(-(2 * cw // 8) // 8) * 8
+    return (64 * dp + 2 * 32 * (dp + 8 * vs)) * 2 + 2 * 64 * 32 * 4
 
 
 def require(cond, what: str) -> None:
@@ -583,8 +609,12 @@ class Smoke:
         sass = sass_counts(lib._name, self._build._nvcc())
         for name, res in resources.items():
             flash = re.match(r"flash_attention_fwd_bf16_kernel<(\d+)>", name)
-            if flash:
-                res["dynamic_smem"] = flash_dynamic_smem(int(flash.group(1)))
+            wide = name == "flash_attention_fwd_wide_kernel"
+            if flash or wide:
+                res["dynamic_smem"] = (
+                    flash_dynamic_smem(int(flash.group(1))) if flash else
+                    {f"D={d}": wide_flash_dynamic_smem(d)
+                     for d in (257, 320, 512, 593)})
                 if sass is not None:
                     res["sass"] = sass.get(name, dict.fromkeys(SASS_OPS, 0))
                     # the bf16 kernel runs on the tensor cores, fed by cp.async
@@ -861,6 +891,10 @@ class Smoke:
         tag = "main-path shapes"
         self.check_counting(x["deltas"], tag, self.ops.COUNT_BLOCK)
         self.check_counting(x["deltas4"], tag, self.ops.ENUMERATE_BLOCK)
+        # pass B's other shapes: a segment shorter than a warp's span (36)
+        # and the scalar path (2050, not a multiple of 4)
+        for bs in PASS_B_EXTRA_BLOCKS:
+            self.check_counting(self.stream(subs, upds, bs)[1], tag, bs)
         self.check_bitmasks(x, tag)
         plain_c_ms = self.check_pass_c(x, tag, "shared")
         require(int(K.emit_pairs.general_blocks) == 0, "pass C at the main "
@@ -1277,19 +1311,23 @@ class Smoke:
               f"|kernel - plain| {worst}", flush=True)
 
     def flash_row(self, tag, B, H, Hkv, S, D, blk, seed, window=None,
-                  softcap=None, whole_call=False):
-        """One full-width shape (bf16, scores of std FLASH_FULL_Q_GAIN):
-        kernel == plain and dense oracle within ``flash_full_tol``, then
-        the kernel's device time, the plain time and the bound over the
-        live (q, k) pairs.  With ``whole_call`` the row's time is the whole
-        wrapper call by CUDA events (a padded width's copies in and out
-        included), the flash kernel's own device time printed beside it.
-        Returns (row, (q, k, v), |kernel - plain|, the kernel's output)."""
+                  softcap=None, whole_call=False, dtype=None):
+        """One full-width shape (bf16 unless ``dtype``, scores of std
+        FLASH_FULL_Q_GAIN): kernel == plain and dense oracle within
+        ``flash_full_tol`` (float32: FLASH_TOL), then the kernel's device
+        time, the plain time and the bound over the live (q, k) pairs at
+        the dtype's rate (bf16 tensor cores, float32 CUDA cores).  With
+        ``whole_call`` the row's time is the whole wrapper call by CUDA
+        events (a padded width's copies in and out included), the flash
+        kernel's own device time printed beside it.  Returns (row,
+        (q, k, v), |kernel - plain|, the kernel's output)."""
         torch = self.torch
+        dtype = dtype or torch.bfloat16
+        bf16 = dtype == torch.bfloat16
         gen = torch.Generator().manual_seed(seed)
-        q, k, v = self.flash_inputs(B, H, Hkv, S, S, D, torch.bfloat16, gen,
+        q, k, v = self.flash_inputs(B, H, Hkv, S, S, D, dtype, gen,
                                     q_gain=FLASH_FULL_Q_GAIN)
-        tol = flash_full_tol(v)
+        tol = flash_full_tol(v) if bf16 else FLASH_TOL["float32"]
         got, err = self.flash_check(f"full width {tag}", q, k, v, None, blk,
                                     window=window, softcap=softcap,
                                     tols=(tol,))
@@ -1305,9 +1343,9 @@ class Smoke:
         require(pairs == want, f"flash {tag}: {pairs} live pairs, the token "
                 f"mask leaves {want}")
         ops = 4 * D * pairs * B * H
-        nbytes = 2 * (2 * q.numel() + 2 * B * Hkv * S * D) \
+        nbytes = q.element_size() * (2 * q.numel() + 2 * B * Hkv * S * D) \
             + 4 * (idx.size + cnt.size)
-        ops_ms = ops / BF16_OPS_PER_S * 1e3
+        ops_ms = ops / (BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S) * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         kernel_ms = self.time_ms(lambda: self.flash(*args, **kw), 20,
                                  "flash_attention_fwd")
@@ -1332,8 +1370,9 @@ class Smoke:
               f"{FLASH_FULL_Q_GAIN}): kernel == plain == dense oracle within "
               f"{tol[0]:.4g} + {tol[1]:.4g} |ref|, max |kernel - plain| "
               f"{err:.4g}; {pairs} live (q, k) pairs per (b, h), {ops} flop "
-              f"({ops_ms:.4f} ms at bf16 tensor-core rate, "
-              f"{ops / FP32_OPS_PER_S * 1e3:.4f} ms at the float32 rate), "
+              f"({ops / BF16_OPS_PER_S * 1e3:.4f} ms at bf16 tensor-core "
+              f"rate, {ops / FP32_OPS_PER_S * 1e3:.4f} ms at the float32 "
+              f"rate; bound at the {'bf16' if bf16 else 'float32'} rate), "
               f"{nbytes} bytes ({bytes_ms:.4f} ms); "
               f"{'wrapper call' if whole_call else 'kernel'} {row['ms']:.4f} "
               f"ms ({ops / row['ms'] / 1e9:.1f} TFLOP/s), plain "
@@ -1371,7 +1410,10 @@ class Smoke:
         self.flash_via_ops("flash_attention_d96", PHI3_FLASH,
                            "phi-3-vision widths", SEED + 18, "padded", True)
         self.flash_via_ops("flash_attention_d512", WIDE_FLASH,
-                           "run-time width", SEED + 20, "runtime", False)
+                           "wide head", SEED + 20, "wide", False)
+        self.flash_via_ops("flash_attention_d512_f32", WIDE_FLASH,
+                           "wide head, float32", SEED + 21, "runtime", False,
+                           torch.float32)
         # softcapped attention is one flex_attention call (a tanh score_mod
         # and a causal or sliding-window block mask), compiled by inductor
         from torch.nn.attention.flex_attention import (create_block_mask,
@@ -1413,43 +1455,57 @@ class Smoke:
             del q, k, v, got, mask, library
 
     def flash_via_ops(self, key: str, c: dict, label: str, seed: int,
-                      route: str, whole_call: bool):
+                      route: str, whole_call: bool, dtype=None):
         """A flash row at widths no config's path runs (``c``): kernel ==
         plain (``flash_row``), the wrapper's ``route`` for the width, one
         counted launch through the public ``ops.flash_attention``, SDPA on
         the same tensors beside it.  Rows 6c (D = 96, zero-padded to 128,
-        timed over the whole wrapper call as SDPA is over its own) and 6d
-        (D = 512, the run-time-width kernel)."""
+        timed over the whole wrapper call as SDPA is over its own), 6d
+        (D = 512, the wide bf16 kernel) and 6e (D = 512 in float32, the
+        scalar kernel, beside SDPA with TF32 off)."""
         torch = self.torch
         F = torch.nn.functional
+        dtype = dtype or torch.bfloat16
+        bf16 = dtype == torch.bfloat16
         B, H, Hkv, S, D, blk = (c[k] for k in ("B", "H", "Hkv", "S", "D",
                                                "block"))
-        got_route = self.flash_route(D, torch.bfloat16)[0]
+        got_route = self.flash_route(D, dtype)[0]
         require(got_route == route,
-                f"flash D={D}: routed {got_route}, not {route}")
+                f"flash D={D} {dtype}: routed {got_route}, not {route}")
+        kind = str(dtype).split(".")[-1]
         row, (q, k, v), err, got = self.flash_row(
-            f"{label}: B={B} H={H}/{Hkv} S={S} D={D} ({route}) bf16 block "
-            f"{blk}", B, H, Hkv, S, D, blk, seed, whole_call=whole_call)
+            f"{label}: B={B} H={H}/{Hkv} S={S} D={D} ({route}) {kind} block "
+            f"{blk}", B, H, Hkv, S, D, blk, seed, whole_call=whole_call,
+            dtype=dtype)
         self.flash.launches = 0
         out = self.ops.flash_attention(q, k, v, causal=True, block_q=blk,
                                        block_k=blk)
         torch.cuda.synchronize()
         require(self.flash.launches == 1 and out.shape == q.shape
                 and torch.equal(out, got),
-                f"flash D={D}: ops.flash_attention launched "
+                f"flash D={D} {kind}: ops.flash_attention launched "
                 f"{self.flash.launches} times or differs from the kernel")
+        # the float32 yardstick in float32: TF32 off for its products
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         lib_err = float((lib_out.float() - got.float()).abs().max())
-        require(lib_err <= 5e-2, f"flash D={D}: kernel vs "
+        require(lib_err <= 5e-2, f"flash D={D} {kind}: kernel vs "
                 f"scaled_dot_product_attention max |diff| {lib_err}")
-        row.update(name=f"flash_attention (D={D}, {route})",
+        lib_ms = self.time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            20)
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+        row.update(name=f"flash_attention (D={D}, {route}"
+                        f"{'' if bf16 else ', float32'})",
                    launches=self.flash.launches, max_abs_err=err,
-                   library_ms=self.time_ms(
-                       lambda: F.scaled_dot_product_attention(
-                           q, k, v, is_causal=True), 20))
+                   library_ms=lib_ms)
         self.rows[key] = row
-        print(f"  sdpa (is_causal; the same function): "
-              f"{row['library_ms']:.4f} ms, max |kernel - sdpa| "
+        print(f"  sdpa (is_causal{'' if bf16 else ', TF32 off'}; the same "
+              f"function): {row['library_ms']:.4f} ms, max |kernel - sdpa| "
               f"{lib_err:.4g}; ops.flash_attention launches 1", flush=True)
 
     def serve_path(self, spec: dict, seed: int):

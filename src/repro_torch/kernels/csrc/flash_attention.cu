@@ -17,20 +17,20 @@
 // masked probabilities forced to 0 (a fully masked tile ahead of a live one
 // must not leave exp(0) = 1 behind), and out = acc / (l > 0 ? l : 1) in
 // q's dtype (round to nearest even).  Head width D is 64, 128 or 256 for
-// the bfloat16 specialisations below, any D from 1 to kRtMaxD = 593 for the
-// run-time-width kernel.
+// the bfloat16 specialisations below, 257 to kRtMaxD = 593 for the wide
+// bfloat16 kernel, any D from 1 to kRtMaxD for the float32 kernel.
 //
 // block_q / block_k are the schedule's units (512 at full width, 32 in the
 // reduced configs), not a kernel's tile: a 512-row q block and a 512 x 512
 // score tile do not fit one SM.  Each block of threads takes one q tile (64
-// rows bf16, 32 run-time width) of one (batch, head), reads its q block's row of kv_index /
-// kv_count itself (this replaces the Pallas scalar prefetch), and walks
-// each scheduled KV block in K/V sub-tiles; rows past a block are zero and
-// masked, so 32-blocks run too.  A sub-tile whose every pair is masked by
-// causality or the window is skipped: its update is the identity (alpha =
-// 1, p = 0), so skipping it changes no bit of the result.
+// rows bf16, 32 float32) of one (batch, head), reads its q block's row of
+// kv_index / kv_count itself (this replaces the Pallas scalar prefetch), and
+// walks each scheduled KV block in K/V sub-tiles; rows past a block are zero
+// and masked, so 32-blocks run too.  A sub-tile whose every pair is masked
+// by causality or the window is skipped: its update is the identity (alpha
+// = 1, p = 0), so skipping it changes no bit of the result.
 //
-// Two kernels:
+// Three kernels:
 //
 // * bfloat16 at D = 64, 128, 256 (flash_attention_fwd_bf16_kernel, the
 //   serving path; the wrapper zero-pads other bf16 widths up to 256): tensor
@@ -67,20 +67,49 @@
 //   Shared memory (64 * D + 2 stages * 2 * rows * D) * 2 bytes: 40,960 at
 //   D = 64, 81,920 at 128, 98,304 at 256.
 //
-// * float32 at every D, and bfloat16 above 256
-//   (flash_attention_fwd_rt_kernel<T>, T float or bf16; the float32 path is
-//   the test path, and no config of the repo has D > 256): D at run time,
-//   scalar float32 FMA on the CUDA cores over 32-row q tiles and 32-row K/V
-//   sub-tiles, inputs widened to float32 in shared memory, p kept float32
-//   for P V (as the Pallas kernel does).  256 threads as a 16 x 16 grid;
-//   the 16 threads of a row share a half-warp, so row max and sum are
-//   shuffles; each thread owns two q rows' scores in two key columns and a
-//   slice of their output columns (c = tx mod 16, at most kRtCols = 38 a
-//   row) in registers, so no accumulator row has to fit one thread.  Q and
-//   K rows at the odd stride D | 1 (16 threads reading 16 rows at one
-//   column hit 16 banks).  Shared memory
-//   (2 * 32 * (D | 1) + 32 * D + 32 * 33) * 4 bytes: 201,088 at D = 512;
-//   D = 593 is the largest that fits 232,448 (the wrapper's
+// * bfloat16 at D = 257 .. kRtMaxD (flash_attention_fwd_wide_kernel): the
+//   same machinery and numerics (p rounded to bf16 before P V, so the same
+//   2^-9 max|v| bound), the width at run time.  O of 16 rows x D cannot stay
+//   in one warp's registers (D / 2 floats a thread: 256 at D = 512), so a
+//   block of two warpgroups (256 threads) takes a 64-row q tile and splits
+//   both products between them:
+//     - D is padded inside the kernel to Dp, the next multiple of 64
+//       (zero-filled cp.async: a zero column adds 0 to every score; the
+//       swizzle needs a multiple of 8 chunks a row).  The wrapper neither
+//       pads nor copies nor slices.
+//     - O is cut into nc column chunks of cw <= 256 (a multiple of 16):
+//       nc = 2 up to Dp = 512, one chunk a warpgroup, so each thread holds
+//       the D = 256 instance's 128 floats of O; nc = 4 above (Dp 576, 640),
+//       on two blocks of the grid, which then both compute Q K^T.
+//     - Q K^T's reduction is split: each warpgroup runs half of the k-steps
+//       (groups of four, 64 columns) over the shared Q tile and K sub-tile,
+//       the two warps that own the same 16 rows swap their partial S
+//       through shared memory (2 KB a warp, a named barrier of 64 threads)
+//       and both add them in one order, so S, m and l are bit-identical in
+//       both warpgroups.  At Dp <= 512 no product is computed twice.
+//     - K sub-tiles of 32 rows at the padded width and V sub-tiles at the
+//       block's 2 cw columns share one two-stage cp.async ring, loaded once
+//       for both warpgroups; each warpgroup accumulates P V for its chunk.
+//     - Rows of width D not a multiple of 8 (or q, k, v, out not 16-byte
+//       aligned) are staged by element loads instead of cp.async, and the
+//       output is stored element by element there.
+//     - Grid (B * H * nc / 2, q tiles), the last q tile first.
+//   Shared memory (64 Dp + 2 stages * 32 (Dp + 8 vs)) * 2 + 16,384 bytes,
+//   vs = 2 cw / 8 chunks rounded up to 8: 139,264 at D = 320, 212,992 at
+//   512, 221,184 at 593 (Dp = 640): one block (8 warps) an SM.
+//
+// * float32 at every D (flash_attention_fwd_rt_kernel; the test path, and
+//   no config of the repo runs float32 attention on the card): D at run
+//   time, scalar float32 FMA on the CUDA cores over 32-row q tiles and
+//   32-row K/V sub-tiles in shared memory, p kept float32 for P V (as the
+//   Pallas kernel does).  256 threads as a 16 x 16 grid; the 16 threads of
+//   a row share a half-warp, so row max and sum are shuffles; each thread
+//   owns two q rows' scores in two key columns and a slice of their output
+//   columns (c = tx mod 16, at most kRtCols = 38 a row) in registers, so no
+//   accumulator row has to fit one thread.  Q and K rows at the odd stride
+//   D | 1 (16 threads reading 16 rows at one column hit 16 banks).  Shared
+//   memory (2 * 32 * (D | 1) + 32 * D + 32 * 33) * 4 bytes: 201,088 at
+//   D = 512; D = 593 is the largest that fits 232,448 (the wrapper's
 //   RT_MAX_HEAD_DIM copies kRtMaxD).  Written to be right, not fast: a
 //   shared-memory load per FMA.
 //
@@ -88,14 +117,16 @@
 // D = 64, 512-blocks; live causal (q, k) pairs S(S+1)/2 = 2,098,176 per
 // (b, h)): 4 * D * pairs * B * H = 32.2 GFLOP, 0.033 ms at the bf16
 // tensor-core rate (989 TFLOP/s); about 42 MB of q, k, v and out, 0.013 ms
-// at 3.35 TB/s.  The bf16 kernel is bound by operations.  mma.sync reaches
-// only part of the wgmma rate, every warp reads the whole K/V sub-tile from
-// shared memory (1/8 byte per FMA: at most half the tensor-core rate), and
-// a warp's softmax does not overlap its own products; wgmma with TMA and
-// ping-pong warpgroups are later work.
+// at 3.35 TB/s.  The bf16 kernels are bound by operations.  mma.sync
+// reaches only part of the wgmma rate, every warp reads the whole K/V
+// sub-tile from shared memory (1/8 byte per FMA: at most half the
+// tensor-core rate), and a warp's softmax does not overlap its own
+// products; wgmma with TMA and ping-pong warpgroups are later work.  The
+// wide kernel also re-reads its Q fragment per k-step (three ldmatrix feed
+// four products in Q K^T) and holds one block an SM.
 //
-// Built without --use_fast_math: the run-time-width kernel's expf and both
-// kernels' tanhf are the accurate library functions.  The C entry point
+// Built without --use_fast_math: the float32 kernel's expf and every
+// kernel's tanhf are the accurate library functions.  The C entry point
 // launches on the caller's stream, does not synchronise, allocates nothing,
 // and returns cudaGetLastError().
 #include <cuda_bf16.h>
@@ -489,14 +520,441 @@ cudaError_t launch_bf16(const Params& p, int B, int nq, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// float32 at any width, bf16 above 256: the width at run time, float32
-// arithmetic
+// bfloat16 at D = 257 .. kRtMaxD: the same machinery, the width at run time;
+// two warpgroups a block split Q K^T's reduction and O's columns
+// ---------------------------------------------------------------------------
+
+// the largest D the wide and the float32 kernels take (rt_smem_bytes)
+constexpr int kRtMaxD = 593;
+constexpr int kWideKvRows = 32;              // K/V rows per sub-tile
+constexpr int kWideCols = 256;               // the most O columns a warpgroup holds
+constexpr int kWideThreads = 2 * kTcThreads; // two warpgroups
+
+using bf16 = __nv_bfloat16;
+
+// The helpers below hold the instance kernel's schedule walk and softmax for
+// the wide kernel.  The instance kernel keeps its own inline copy: built
+// from these helpers it used fewer registers at D = 256 (248, not 254) and
+// ran 1-2.5 % slower at gemma2-2b's and smollm-360m's prefill shapes
+// (measured on an H100).
+
+// The q tile of a block: rows [lo, hi) of q block qblk, positions and
+// segment ids of this thread's two accumulator rows (warp * 16 + g and
+// + 8), and the schedule's sub-tiles of N K/V rows that causality and the
+// window leave live, in order (the t-th KV block's sub-th N rows).
+struct QTile {
+  const Params& p;
+  int lo, hi, qblk, qmin, qmax, count, subs, t = 0, sub = 0, n;
+  const int* index;
+  int pos[2], seg[2];
+
+  __device__ QTile(const Params& p_, int tile, int b, int warp, int g, int n_)
+      : p(p_), n(n_) {
+    const int tiles = (p.block_q + kRows - 1) / kRows;
+    qblk = tile / tiles;
+    lo = qblk * p.block_q + (tile % tiles) * kRows;
+    hi = min(lo + kRows, (qblk + 1) * p.block_q);
+    qmin = p.q_offset + lo;
+    qmax = p.q_offset + hi - 1;
+    count = p.kv_count[qblk];
+    index = p.kv_index + (long long)qblk * p.max_nk;
+    subs = (p.block_k + n - 1) / n;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = lo + warp * 16 + g + 8 * r;
+      pos[r] = p.q_offset + row;
+      seg[r] = (p.q_seg != nullptr && row < hi)
+                   ? p.q_seg[(long long)b * p.Sq + row] : 0;
+    }
+  }
+
+  // moves to the next live sub-tile [k_lo, k_hi); false past the last
+  __device__ bool seek(int& k_lo, int& k_hi) {
+    for (; t < count; ++t, sub = 0) {
+      const int kb = __ldg(index + t);
+      for (; sub < subs; ++sub) {
+        k_lo = kb * p.block_k + sub * n;
+        k_hi = min(k_lo + n, (kb + 1) * p.block_k);
+        if (p.causal && k_lo > qmax) continue;
+        if (p.window >= 0 && k_hi - 1 <= qmin - p.window) continue;
+        ++sub;
+        return true;
+      }
+    }
+    return false;
+  }
+
+  // some pair of the sub-tile may be masked (or a row is past the block)
+  __device__ bool masked(int k_lo, int k_hi) const {
+    return k_hi - k_lo < n || (p.causal && k_hi - 1 > qmin) ||
+           (p.window >= 0 && k_lo <= qmax - p.window) || p.q_seg != nullptr;
+  }
+};
+
+// Scores in log2 units: x = s * mult; with a softcap s is first replaced by
+// cap * log2(e) * tanh(s * scale / cap) and mult = 1.
+struct ScoreMap {
+  bool capped;
+  float mult, cap_l2, scale_cap;
+  __device__ explicit ScoreMap(const Params& p)
+      : capped(p.softcap > 0.0f),
+        mult(p.softcap > 0.0f ? 1.0f : p.scale * kLog2e),
+        cap_l2(p.softcap * kLog2e),
+        scale_cap(p.softcap > 0.0f ? p.scale / p.softcap : 0.0f) {}
+};
+
+// Softcap, masks and the online softmax of one warp's 16 x 8 kNt score tile
+// of KV rows [k_lo, k_hi).  s[n][e] is row g + 8 (e >> 1), column k_lo +
+// 8n + 2 tig + (e & 1).  On return s holds p, m and l have moved on, and the
+// accumulator rows (acc[.][2r], acc[.][2r + 1] of row r) are rescaled.
+template <int kNt, int kDt>
+__device__ __forceinline__ void softmax_tile(float (&s)[kNt][4],
+                                             float (&acc)[kDt][4],
+                                             float (&m)[2], float (&l)[2],
+                                             const QTile& q, const ScoreMap& f,
+                                             int b, int k_lo, int k_hi,
+                                             int tig) {
+  static_assert(kNt * 4 <= 32, "the dead-score mask is one 32-bit word");
+  const Params& p = q.p;
+  if (f.capped) {
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = f.cap_l2 * tanhf(s[n][e] * f.scale_cap);
+  }
+  // bit 4n + e of dead marks s[n][e] masked
+  uint32_t dead = 0;
+  if (q.masked(k_lo, k_hi)) {
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int kpos = k_lo + 8 * n + 2 * tig + c;
+        const bool kin = kpos < k_hi;
+        const int kseg = (p.kv_seg != nullptr && kin)
+                             ? p.kv_seg[(long long)b * p.Skv + kpos] : 0;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          bool ok = kin;
+          if (p.causal) ok = ok && kpos <= q.pos[r];
+          if (p.window >= 0) ok = ok && kpos > q.pos[r] - p.window;
+          if (p.q_seg != nullptr) ok = ok && q.seg[r] == kseg;
+          if (!ok) dead |= 1u << (4 * n + 2 * r + c);
+        }
+      }
+  }
+  // row max over the live scores; the four lanes of a row are 4g .. 4g + 3
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        if (!((dead >> (4 * n + 2 * r + c)) & 1u))
+          mx = fmaxf(mx, s[n][2 * r + c]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // every score of the row dead so far: m stays kNegInf, alpha = 1
+    const float m_new = fmaxf(m[r], mx * f.mult);
+    alpha[r] = exp2_sfu(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha[r];   // this lane's share; summed over the row at the end
+  }
+#pragma unroll
+  for (int dt = 0; dt < kDt; ++dt) {
+    acc[dt][0] *= alpha[0];
+    acc[dt][1] *= alpha[0];
+    acc[dt][2] *= alpha[1];
+    acc[dt][3] *= alpha[1];
+  }
+#pragma unroll
+  for (int n = 0; n < kNt; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pr = (dead >> (4 * n + e)) & 1u
+                           ? 0.0f
+                           : exp2_sfu(fmaf(s[n][e], f.mult, -m[e >> 1]));
+      l[e >> 1] += pr;
+      s[n][e] = pr;
+    }
+}
+
+// P's accumulator pairs of k-step kk as an A fragment, rounded to bf16
+template <int kNt>
+__device__ __forceinline__ void p_fragment(const float (&s)[kNt][4], int kk,
+                                           uint32_t (&pf)[4]) {
+  pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+  pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+  pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+  pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+}
+
+// D padded to Dp (a multiple of 64); O cut into nc = 2 (Dp <= 512) or 4
+// chunks of cw columns (a multiple of 16), two a block: the grid's nc / 2
+// blocks of one q tile each keep V's columns [2 cw j, 2 cw (j + 1)) in
+// shared memory, vs 16-byte chunks a row (a multiple of 8, so the swizzle
+// stays inside the row).
+struct WideShape {
+  int dp, nc, cw, vs;
+  __host__ __device__ explicit WideShape(int D)
+      : dp((D + 63) / 64 * 64),
+        nc(dp <= 2 * kWideCols ? 2 : 4),
+        cw(((dp + nc - 1) / nc + 15) / 16 * 16),
+        vs((2 * cw / 8 + 7) / 8 * 8) {}
+  // Q, the two-stage K and V rings, the partial scores exchanged
+  __host__ __device__ size_t smem_bytes() const {
+    return (size_t)(kRows * dp + kStages * kWideKvRows * (dp + 8 * vs)) * 2 +
+           (size_t)2 * kRows * kWideKvRows * 4;
+  }
+};
+
+// Copy rows [0, rows) (the rest of the R-row tile zero) of the 16-byte
+// chunks [c0 / 8, c0 / 8 + n8) of a row-major (., D) bf16 matrix into a
+// swizzled shared tile of s8 chunks a row (chunk c of row r at c ^ (r & 7));
+// columns at or past D are zero.  aligned (D a multiple of 8, rows 16-byte
+// aligned): cp.async, zero-filled past D; else element loads, stored to
+// shared memory at once.  All kWideThreads threads take part, each stepping
+// its (row, chunk) without a division.
+__device__ __forceinline__ void load_wide(bf16* dst, const bf16* src, int R,
+                                          int rows, int c0, int n8, int s8,
+                                          int D, bool aligned, int tid) {
+  const int dr = kWideThreads / n8, dc = kWideThreads % n8;
+  for (int r = tid / n8, c = tid % n8; r < R;
+       r += dr + (c + dc >= n8), c = c + dc >= n8 ? c + dc - n8 : c + dc) {
+    const int col = c0 + 8 * c;
+    bf16* d = dst + (r * s8 + (c ^ (r & 7))) * 8;
+    if (aligned) {
+      const bool live = r < rows && col < D;
+      cp_async16(smem_addr(d), src + (live ? (long long)r * D + col : 0),
+                 live);
+    } else {
+      const unsigned short* row =
+          reinterpret_cast<const unsigned short*>(src) + (long long)r * D;
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c2 = col + 2 * i;
+        const uint32_t lo = r < rows && c2 < D ? row[c2] : 0u;
+        const uint32_t hi = r < rows && c2 + 1 < D ? row[c2 + 1] : 0u;
+        w[i] = lo | hi << 16;
+      }
+      *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// barrier of the `count` threads that use barrier `id` (1 .. 15)
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Block (bh * nc / 2 + j, q tile): warpgroup wg (warps 4 wg .. 4 wg + 3)
+// owns O chunk 2 j + wg; warp wq = warp mod 4 owns q rows 16 wq .. + 15 in
+// both warpgroups.  Per sub-tile each warp computes its rows' partial
+// S = Q K^T over its warpgroup's half of the k-steps, the two warps of a
+// row group swap partials through shared memory (a named barrier of 64
+// threads) and both add them in one order, so S, m and l are bit-identical
+// in both; each then accumulates P V for its own chunk.
+__global__ void __launch_bounds__(kWideThreads)
+flash_attention_fwd_wide_kernel(const Params p, int D, int aligned) {
+  constexpr int N = kWideKvRows;    // K/V rows per sub-tile
+  constexpr int kNt = N / 8;        // 8-column tiles of S
+  constexpr int kDt = kWideCols / 8;  // 8-column tiles of O (at most)
+  const WideShape ws(D);
+  const int C = ws.dp / 8;          // 16-byte chunks of a Q or K row
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_tc);    // kRows x Dp
+  bf16* sK = sQ + kRows * ws.dp;                   // stage s: N x Dp
+  bf16* sV = sK + kStages * N * ws.dp;             // stage s: N x 8 vs
+  float* sS = reinterpret_cast<float*>(sV + kStages * N * 8 * ws.vs);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wq = warp & 3;
+  const int g = lane >> 2, tig = lane & 3, sw = lane & 7;
+  const int pair = blockIdx.x % (ws.nc / 2), bh = blockIdx.x / (ws.nc / 2);
+  const int vc0 = 2 * pair * ws.cw;                // V's first column here
+  const int vcols = min(2 * ws.cw, ws.dp - vc0);
+  const int c0 = wg * ws.cw;                       // O chunk, from vc0
+  const int ncols = min(ws.cw, vcols - c0);
+  // this warpgroup's 4-k-step groups of Q K^T
+  const int groups = ws.dp / 64;
+  const int k8_lo = wg * groups / 2, k8_hi = (wg + 1) * groups / 2;
+  const int h = bh % p.H, b = bh / p.H;
+  const int hk = h / (p.H / p.Hkv);
+  QTile qt(p, gridDim.y - 1 - blockIdx.y, b, wq, g, N);
+
+  const bf16* q = (const bf16*)p.q + ((long long)b * p.H + h) * p.Sq * D;
+  const bf16* k = (const bf16*)p.k + ((long long)b * p.Hkv + hk) * p.Skv * D;
+  const bf16* v = (const bf16*)p.v + ((long long)b * p.Hkv + hk) * p.Skv * D;
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  float acc[kDt][4];
+#pragma unroll
+  for (int dt = 0; dt < kDt; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.0f;
+
+  const bool vec = aligned != 0;
+  auto load_kv = [&](int k_lo, int k_hi, int stage) {
+    load_wide(sK + stage * N * ws.dp, k + (long long)k_lo * D, N, k_hi - k_lo,
+              0, C, C, D, vec, tid);
+    load_wide(sV + stage * N * 8 * ws.vs, v + (long long)k_lo * D, N,
+              k_hi - k_lo, vc0, vcols / 8, ws.vs, D, vec, tid);
+  };
+
+  // ldmatrix row addresses as in flash_attention_fwd_bf16_kernel; a group
+  // of four k-steps spans 8 chunks (128 bytes), so within it the swizzled
+  // chunk of k-step i is 8 k8 + ((2 i + chunk) ^ sw)
+  const int q_row = wq * 16 + (lane & 15), q_chunk = lane >> 4;
+  const int k_row = (lane & 7) + ((lane >> 4) << 3), k_chunk = (lane >> 3) & 1;
+  const int v_row = (lane & 7) + (((lane >> 3) & 1) << 3), v_chunk = lane >> 4;
+  const uint32_t qa = smem_addr(sQ + q_row * C * 8);
+  // this lane's 16 partial scores, lane-major: the partner warp's lane
+  // holds the same (row, column) elements
+  float* part_mine = sS + ((wg * 4 + wq) * 16) * 32 + lane;
+  float* part_other = sS + (((wg ^ 1) * 4 + wq) * 16) * 32 + lane;
+
+  const ScoreMap f(p);
+  int cur_lo = 0, cur_hi = 0, nxt_lo = 0, nxt_hi = 0;
+  bool live = qt.seek(cur_lo, cur_hi);
+  if (live) {
+    load_wide(sQ, q + (long long)qt.lo * D, kRows, qt.hi - qt.lo, 0, C, C, D,
+              vec, tid);
+    load_kv(cur_lo, cur_hi, 0);
+    cp_async_commit();
+  }
+  for (int stage = 0; live; stage ^= 1) {
+    const bool more = qt.seek(nxt_lo, nxt_hi);
+    if (more) {
+      load_kv(nxt_lo, nxt_hi, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // this sub-tile (and Q) visible to every warp
+    const bf16* cK = sK + stage * N * ws.dp;
+    const bf16* cV = sV + stage * N * 8 * ws.vs;
+
+    // partial S = Q K^T over this warpgroup's k-steps: 16 x N per warp,
+    // the Q fragment re-read per k-step (O fills the registers)
+    float s[kNt][4];
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+    const uint32_t ka = smem_addr(cK + k_row * C * 8);
+#pragma unroll 4
+    for (int k8 = k8_lo; k8 < k8_hi; ++k8) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t af[4];
+        ldmatrix_x4(qa + k8 * 128 + (((2 * i + q_chunk) ^ sw) << 4), af);
+#pragma unroll
+        for (int n2 = 0; n2 < kNt / 2; ++n2) {
+          uint32_t bk[4];
+          ldmatrix_x4(ka + n2 * 256 * C + k8 * 128 +
+                          (((2 * i + k_chunk) ^ sw) << 4),
+                      bk);
+          mma_bf16(s[2 * n2], af, bk[0], bk[1]);
+          mma_bf16(s[2 * n2 + 1], af, bk[2], bk[3]);
+        }
+      }
+    }
+    // S = partial of warpgroup 0 + partial of warpgroup 1, in that order
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part_mine[(4 * n + e) * 32] = s[n][e];
+    named_barrier(1 + wq, 64);
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float other = part_other[(4 * n + e) * 32];
+        s[n][e] = wg == 0 ? s[n][e] + other : other + s[n][e];
+      }
+
+    softmax_tile(s, acc, m, l, qt, f, b, cur_lo, cur_hi, tig);
+
+    // O[:, chunk] += P V[:, chunk]
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      uint32_t pf[4];
+      p_fragment<kNt>(s, kk, pf);
+#pragma unroll
+      for (int d2 = 0; d2 < kDt / 2; ++d2) {
+        if (16 * d2 < ncols) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(
+              smem_addr(cV + ((kk * 16 + v_row) * ws.vs +
+                              ((c0 / 8 + 2 * d2 + v_chunk) ^ sw)) * 8),
+              bv);
+          mma_bf16(acc[2 * d2], pf, bv[0], bv[1]);
+          mma_bf16(acc[2 * d2 + 1], pf, bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this stage (and the
+                       // partials) before their reuse
+    cur_lo = nxt_lo;
+    cur_hi = nxt_hi;
+    live = more;
+  }
+
+  bf16* out = (bf16*)p.out + ((long long)b * p.H + h) * p.Sq * D;
+  const int oc0 = vc0 + c0;   // this chunk's first output column
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float safe = l[r] > 0.0f ? l[r] : 1.0f;
+    const int row = qt.lo + wq * 16 + g + 8 * r;
+    if (row >= qt.hi) continue;
+    bf16* orow = out + (long long)row * D;
+#pragma unroll
+    for (int dt = 0; dt < kDt; ++dt) {
+      const int col = oc0 + 8 * dt + 2 * tig;
+      if (8 * dt >= ncols || col >= D) continue;
+      const float a0 = acc[dt][2 * r] / safe, a1 = acc[dt][2 * r + 1] / safe;
+      if (vec) {          // D a multiple of 8: col + 1 < D, 4-byte aligned
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(a0, a1);
+      } else {
+        orow[col] = __float2bfloat16_rn(a0);
+        if (col + 1 < D) orow[col + 1] = __float2bfloat16_rn(a1);
+      }
+    }
+  }
+}
+
+cudaError_t launch_wide(const Params& p, int B, int nq, int D, bool aligned,
+                        cudaStream_t stream) {
+  if (D <= 256 || D > kRtMaxD) return cudaErrorInvalidValue;
+  const WideShape ws(D);
+  const size_t smem = ws.smem_bytes();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_fwd_wide_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)nq * ((p.block_q + kRows - 1) / kRows);
+  const long long blocks = (long long)B * p.H * (ws.nc / 2);
+  if (tiles > 65535 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, (unsigned)tiles);
+  flash_attention_fwd_wide_kernel<<<grid, kWideThreads, smem, stream>>>(
+      p, D, aligned ? 1 : 0);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float32 at any width: the width at run time, scalar float32 arithmetic
 // ---------------------------------------------------------------------------
 
 constexpr int kRtRows = 32;       // q rows per tile and k rows per sub-tile
 constexpr int kRtThreads = 256;   // a 16 x 16 grid
-// the largest D whose tiles fit a block's 232,448 bytes (rt_smem_bytes)
-constexpr int kRtMaxD = 593;
 constexpr int kRtCols = (kRtMaxD + 15) / 16;  // output columns a thread owns
 
 // Q and K rows at an odd stride: 16 threads reading 16 rows at one column
@@ -508,21 +966,12 @@ __host__ __device__ inline size_t rt_smem_bytes(int D) {
                   kRtRows * (kRtRows + 1)) * sizeof(float);
 }
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void narrow(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16_rn(x);
-}
-
-// Scalar float32 flash attention with D a run-time value: 32-row q tiles and 32-row K/V sub-tiles, widened to float32 in shared
-// memory.  Thread (ty, tx) owns scores (ty + 16 i, tx + 16 j), i, j < 2, and
-// output columns tx + 16 c of rows ty and ty + 16: a slice of D in
-// registers (at most kRtCols per row), so no thread holds a whole row.  p
-// stays float32 for P V, as in the Pallas kernel.
-template <typename T>
+// Scalar float32 flash attention with D a run-time value: 32-row q tiles
+// and 32-row K/V sub-tiles in shared memory.  Thread (ty, tx) owns scores
+// (ty + 16 i, tx + 16 j), i, j < 2, and output columns tx + 16 c of rows ty
+// and ty + 16: a slice of D in registers (at most kRtCols per row), so no
+// thread holds a whole row.  p stays float32 for P V, as in the Pallas
+// kernel.
 __global__ void __launch_bounds__(kRtThreads)
 flash_attention_fwd_rt_kernel(const Params p, int D) {
   extern __shared__ float smem[];
@@ -541,14 +990,16 @@ flash_attention_fwd_rt_kernel(const Params p, int D) {
   const int hk = h / (p.H / p.Hkv);
   const long long qkv_d = D;
 
-  const T* q = (const T*)p.q + ((long long)b * p.H + h) * p.Sq * qkv_d;
-  const T* k = (const T*)p.k + ((long long)b * p.Hkv + hk) * p.Skv * qkv_d;
-  const T* v = (const T*)p.v + ((long long)b * p.Hkv + hk) * p.Skv * qkv_d;
+  const float* q = (const float*)p.q + ((long long)b * p.H + h) * p.Sq * qkv_d;
+  const float* k =
+      (const float*)p.k + ((long long)b * p.Hkv + hk) * p.Skv * qkv_d;
+  const float* v =
+      (const float*)p.v + ((long long)b * p.Hkv + hk) * p.Skv * qkv_d;
 
   for (int e = threadIdx.x; e < kRtRows * D; e += kRtThreads) {
     const int r = e / D, c = e % D;
-    sQ[r * ld + c] =
-        q_lo + r < q_hi ? widen(q[(long long)(q_lo + r) * qkv_d + c]) : 0.0f;
+    sQ[r * ld + c] = q_lo + r < q_hi ? q[(long long)(q_lo + r) * qkv_d + c]
+                                     : 0.0f;
   }
 
   const int ncols = (D - tx + 15) / 16;   // this thread's output columns
@@ -583,8 +1034,8 @@ flash_attention_fwd_rt_kernel(const Params p, int D) {
         const int r = e / D, c = e % D;
         const bool live = k_lo + r < k_hi;
         const long long off = (long long)(k_lo + r) * qkv_d + c;
-        sK[r * ld + c] = live ? widen(k[off]) : 0.0f;
-        sV[r * D + c] = live ? widen(v[off]) : 0.0f;
+        sK[r * ld + c] = live ? k[off] : 0.0f;
+        sV[r * D + c] = live ? v[off] : 0.0f;
       }
       __syncthreads();
 
@@ -664,7 +1115,7 @@ flash_attention_fwd_rt_kernel(const Params p, int D) {
     }
   }
 
-  T* out = (T*)p.out + ((long long)b * p.H + h) * p.Sq * qkv_d;
+  float* out = (float*)p.out + ((long long)b * p.H + h) * p.Sq * qkv_d;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = q_lo + ty + 16 * i;
@@ -672,23 +1123,25 @@ flash_attention_fwd_rt_kernel(const Params p, int D) {
     const float safe = l[i] > 0.0f ? l[i] : 1.0f;
 #pragma unroll
     for (int c = 0; c < kRtCols; ++c)
-      if (c < ncols)
-        narrow(out + (long long)row * qkv_d + tx + 16 * c, acc[i][c] / safe);
+      if (c < ncols) out[(long long)row * qkv_d + tx + 16 * c] = acc[i][c] / safe;
   }
 }
 
-template <typename T>
 cudaError_t launch_rt(const Params& p, int B, int nq, int D,
                       cudaStream_t stream) {
   if (D < 1 || D > kRtMaxD) return cudaErrorInvalidValue;
-  auto kernel = flash_attention_fwd_rt_kernel<T>;
   const size_t smem = rt_smem_bytes(D);
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_attention_fwd_rt_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(nq * ((p.block_q + kRtRows - 1) / kRtRows), p.H, B);
-  kernel<<<grid, kRtThreads, smem, stream>>>(p, D);
+  flash_attention_fwd_rt_kernel<<<grid, kRtThreads, smem, stream>>>(p, D);
   return cudaGetLastError();
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
 }
 
 }  // namespace
@@ -719,9 +1172,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    err = launch_rt<float>(p, B, nq, D, s);
+    err = launch_rt(p, B, nq, D, s);
   } else if (dtype == 1 && D > 256) {
-    err = launch_rt<__nv_bfloat16>(p, B, nq, D, s);
+    const bool aligned = D % 8 == 0 && aligned16(q) && aligned16(k) &&
+                         aligned16(v) && aligned16(out);
+    err = launch_wide(p, B, nq, D, aligned, s);
   } else if (dtype == 1) {
     if (D == 64) err = launch_bf16<64>(p, B, nq, s);
     if (D == 128) err = launch_bf16<128>(p, B, nq, s);

@@ -18,6 +18,7 @@
 // Bitmask words are uint32 with bit k of word w standing for extent
 // 32*w + k (the JAX package's pack_bits layout).
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -71,21 +72,6 @@ __device__ T block_exclusive_scan(T v, T* total, T* scratch, Op op = Op()) {
   return out;
 }
 
-__device__ long long block_sum_ll(long long v, long long* scratch) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  long long total = 0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < nwarps; ++w) total += scratch[w];
-  __syncthreads();
-  return total;  // valid in thread 0 only
-}
-
 // Pass A — per-segment sums of the four ±1 indicator streams.
 // deltas: (4, total) int32 rows [sub_lo, sub_up, upd_lo, upd_up];
 // sums: (num_blocks, 4) int32.  Memory-bound: 16 B read per endpoint.
@@ -112,49 +98,112 @@ __global__ void block_sums_kernel(const int* __restrict__ deltas,
 // per-endpoint emission count
 //   sub_up * active_upd_before + upd_up * active_sub_before
 // (int32: at most max(n, m)) and the segment's emission total in int64.
-// Each thread scans a contiguous chunk; a block scan of the chunk totals
-// links the chunks.  Memory-bound: 16 B read + 4 B written per endpoint.
-__global__ void emission_kernel(const int* __restrict__ deltas,
-                                const int* __restrict__ offsets,
-                                int* __restrict__ emit,
-                                long long* __restrict__ block_emit,
-                                long long total, int block_size) {
-  __shared__ int scratch[33];
+// Memory-bound: 16 B read + 4 B written per endpoint, so each delta is read
+// once, coalesced, and stays in registers.  A block takes one segment and
+// each thread V consecutive endpoints of each of the four streams: V = 4
+// (one 16-byte load a stream, a warp covers 128 endpoints, the emission
+// stored as one int4) when the block size is a multiple of 4 and the rows
+// and `emit` are 16-byte aligned, else V = 1 (the scalar path: coalesced
+// 4-byte loads).  The streams are scanned by warp shuffles, the warp totals
+// by one block scan in shared memory (double-buffered, so one barrier per
+// tile of V * blockDim.x endpoints; blockDim.x = ceil(block_size / V) up to
+// 1024), plus the `offsets` carry; the int64 total is a warp reduction,
+// then a block one.
+constexpr int kEmitMaxThreads = 1024;
+
+struct EmissionArgs {
+  const int* deltas;       // (4, total)
+  const int* offsets;      // (num_blocks, 4)
+  int* emit;               // (total,)
+  long long* block_emit;   // (num_blocks,)
+  long long total;
+  int block_size;
+};
+
+template <int V>
+__device__ void emission_segment(const EmissionArgs& a) {
+  __shared__ int warp_tot[2][4][32];
   __shared__ long long red[32];
-  const long long base = (long long)blockIdx.x * block_size;
-  const int chunk = (block_size + blockDim.x - 1) / blockDim.x;
-  const int lo = min((int)threadIdx.x * chunk, block_size);
-  const int hi = min(lo + chunk, block_size);
-  int run[4] = {0, 0, 0, 0};
-  for (int i = lo; i < hi; ++i) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const long long seg = blockIdx.x;
+  int carry[4];
 #pragma unroll
-    for (int s = 0; s < 4; ++s) run[s] += deltas[s * total + base + i];
+  for (int s = 0; s < 4; ++s) carry[s] = __ldg(a.offsets + seg * 4 + s);
+  long long tot = 0;
+  for (int base = 0, buf = 0; base < a.block_size;
+       base += V * blockDim.x, buf ^= 1) {
+    const int i0 = base + V * threadIdx.x;
+    const bool active = i0 < a.block_size;   // V divides block_size
+    const long long g = seg * a.block_size + i0;
+    int d[4][V] = {};
+    if (active) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int* row = a.deltas + s * a.total + g;
+        if constexpr (V == 4) {
+          const int4 t = __ldg(reinterpret_cast<const int4*>(row));
+          d[s][0] = t.x;
+          d[s][1] = t.y;
+          d[s][2] = t.z;
+          d[s][3] = t.w;
+        } else {
+          d[s][0] = __ldg(row);
+        }
+      }
+    }
+    // run: the inclusive prefix before this thread's first endpoint
+    int mine[4], run[4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      mine[s] = 0;
+#pragma unroll
+      for (int i = 0; i < V; ++i) mine[s] += d[s][i];
+      run[s] = warp_inclusive_scan(mine[s]);
+      if (lane == 31) warp_tot[buf][s][warp] = run[s];
+      run[s] -= mine[s];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int w = warp_inclusive_scan(lane < nwarps ? warp_tot[buf][s][lane]
+                                                      : 0);
+      const int before = __shfl_sync(0xffffffffu, w, (warp + 31) & 31);
+      run[s] += carry[s] + (warp > 0 ? before : 0);
+      carry[s] += __shfl_sync(0xffffffffu, w, nwarps - 1);
+    }
+    if (!active) continue;
+    int e[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) run[s] += d[s][i];
+      const int active_sub_before = run[0] - (run[1] - d[1][i]);
+      const int active_upd_before = run[2] - (run[3] - d[3][i]);
+      e[i] = d[1][i] * active_upd_before + d[3][i] * active_sub_before;
+      tot += e[i];
+    }
+    if constexpr (V == 4)
+      *reinterpret_cast<int4*>(a.emit + g) = make_int4(e[0], e[1], e[2], e[3]);
+    else
+      a.emit[g] = e[0];
   }
 #pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    int tot;
-    run[s] = block_exclusive_scan(run[s], &tot, scratch) +
-             offsets[blockIdx.x * 4 + s];
+  for (int k = 16; k > 0; k >>= 1) tot += __shfl_down_sync(0xffffffffu, tot, k);
+  if (lane == 0) red[warp] = tot;
+  __syncthreads();
+  if (warp == 0) {
+    long long t = lane < nwarps ? red[lane] : 0;
+#pragma unroll
+    for (int k = 16; k > 0; k >>= 1) t += __shfl_down_sync(0xffffffffu, t, k);
+    if (lane == 0) a.block_emit[seg] = t;
   }
-  long long mine = 0;
-  for (int i = lo; i < hi; ++i) {
-    const long long g = base + i;
-    const int sub_lo = deltas[g];
-    const int sub_up = deltas[total + g];
-    const int upd_lo = deltas[2 * total + g];
-    const int upd_up = deltas[3 * total + g];
-    run[0] += sub_lo;
-    run[1] += sub_up;
-    run[2] += upd_lo;
-    run[3] += upd_up;
-    const int active_sub_before = run[0] - (run[1] - sub_up);
-    const int active_upd_before = run[2] - (run[3] - upd_up);
-    const int e = sub_up * active_upd_before + upd_up * active_sub_before;
-    emit[g] = e;
-    mine += e;
-  }
-  const long long seg = block_sum_ll(mine, red);
-  if (threadIdx.x == 0) block_emit[blockIdx.x] = seg;
+}
+
+__global__ void __launch_bounds__(kEmitMaxThreads)
+emission_kernel(const EmissionArgs a, int vec) {
+  if (vec) emission_segment<4>(a);
+  else     emission_segment<1>(a);
 }
 
 // Algorithm 6 lines 1-17 for one extent type: the Add/Del bitmask words of
@@ -869,9 +918,17 @@ int sbm_emission(const int* deltas, const int* offsets, int* emit,
                  long long* block_emit, long long total, int block_size,
                  void* stream) {
   const long long blocks = total / block_size;
-  if (blocks > 0)
-    emission_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        deltas, offsets, emit, block_emit, total, block_size);
+  if (blocks <= 0) return (int)cudaGetLastError();
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool vec = block_size % 4 == 0 && total % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(deltas) |
+                     reinterpret_cast<uintptr_t>(emit)) & 15) == 0;
+  const int V = vec ? 4 : 1;
+  const int lanes = ((block_size + V - 1) / V + 31) / 32 * 32;
+  const int threads = lanes < kEmitMaxThreads ? lanes : kEmitMaxThreads;
+  emission_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      EmissionArgs{deltas, offsets, emit, block_emit, total, block_size},
+      vec ? 1 : 0);
   return (int)cudaGetLastError();
 }
 

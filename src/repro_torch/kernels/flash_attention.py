@@ -17,11 +17,16 @@ launch in every case:
   way in and cut back on the way out (:func:`_pad_head_dim`), which is
   exact: a zero column adds 0 to every q·k score and its output column is
   dropped.
-* float32 at any D up to ``RT_MAX_HEAD_DIM``, and bfloat16 from 257 to it:
-  ``flash_attention_fwd_rt_kernel``, which takes the width at run time
-  (scalar float32 arithmetic, p kept float32).  Its tiles must fit a
-  block's shared memory; above that width the wrapper raises
-  :class:`ValidationError`.
+* bfloat16 from 257 to ``RT_MAX_HEAD_DIM``: ``flash_attention_fwd_wide_kernel``
+  on the same tensor cores with the width at run time; it pads D to a
+  multiple of 64 inside the kernel and splits O by columns over a grid axis
+  (chunks of at most 256), so the wrapper neither pads, copies nor slices.
+* float32 at any D up to ``RT_MAX_HEAD_DIM``: ``flash_attention_fwd_rt_kernel``,
+  which takes the width at run time (scalar float32 arithmetic, p kept
+  float32).
+
+Above ``RT_MAX_HEAD_DIM`` the wrapper raises :class:`ValidationError`: the
+run-time-width kernels' tiles must fit a block's shared memory.
 
 Like the other wrappers it:
 
@@ -49,7 +54,8 @@ from repro_torch.kernels import ref as ref_lib
 HEAD_DIMS_ON_CARD = (64, 128, 256)     # the bf16 tensor-core instances
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: ``kRtMaxD`` of ``csrc/flash_attention.cu``: the widest head whose
-#: run-time-width tiles fit a block's 232,448 bytes of shared memory
+#: float32 run-time-width tiles fit a block's 232,448 bytes of shared memory
+#: (the wide bf16 kernel takes the same range)
 RT_MAX_HEAD_DIM = 593
 
 
@@ -57,18 +63,21 @@ def flash_route(d: int, dtype: torch.dtype) -> tuple:
     """(route, width): the kernel that serves head width ``d`` of ``dtype``
     on the card and the width it runs at.  ``"instance"`` (bf16 at 64, 128,
     256), ``"padded"`` (bf16 at any other width up to 256, zero-padded to
-    the next instance) or ``"runtime"`` (float32 at any width, bf16 from
-    257; up to ``RT_MAX_HEAD_DIM``, above which it raises
-    :class:`ValidationError`)."""
+    the next instance), ``"wide"`` (bf16 from 257, the tensor-core kernel
+    with the width at run time) or ``"runtime"`` (float32 at any width, the
+    scalar kernel); up to ``RT_MAX_HEAD_DIM``, above which it raises
+    :class:`ValidationError`."""
     if d > RT_MAX_HEAD_DIM:
         raise ValidationError(
             f"the flash kernel takes head_dim up to {RT_MAX_HEAD_DIM} (the "
-            f"run-time-width kernel's tiles must fit a block's shared "
+            f"run-time-width kernels' tiles must fit a block's shared "
             f"memory), got {d}")
-    if dtype == torch.bfloat16 and d <= HEAD_DIMS_ON_CARD[-1]:
-        width = min(w for w in HEAD_DIMS_ON_CARD if w >= d)
-        return ("instance" if width == d else "padded"), width
-    return "runtime", d
+    if dtype != torch.bfloat16:
+        return "runtime", d
+    if d > HEAD_DIMS_ON_CARD[-1]:
+        return "wide", d
+    width = min(w for w in HEAD_DIMS_ON_CARD if w >= d)
+    return ("instance" if width == d else "padded"), width
 
 
 def _pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -218,7 +218,7 @@ def test_padded_head_dim_equals_unpadded_and_pallas(d):
     np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     # no instance above 256: wider heads run at their own width
-    assert flash_route(320, torch.bfloat16) == ("runtime", 320)
+    assert flash_route(320, torch.bfloat16) == ("wide", 320)
 
 
 # (atol, rtol): float32 as above; bf16 outputs of two float32 computations
@@ -231,8 +231,9 @@ WIDE_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", [320, 512])
 def test_plain_flash_equals_pallas_interpret_above_256(d, dtype):
-    """Head widths that the card serves with the run-time-width kernel:
-    its plain version against the Pallas kernel in interpret mode, both fed
+    """Head widths that the card serves with the run-time-width kernels
+    (bf16 the wide tensor-core kernel, float32 the scalar one): the plain
+    version against the Pallas kernel in interpret mode, both fed
     the same (bf16-rounded, for bf16) inputs; causal, window, softcap."""
     B, H, S, blk = 1, 2, 128, 32
     q, k, v = _qkv(d, B, H, H, S, S, d)
@@ -248,7 +249,8 @@ def test_plain_flash_equals_pallas_interpret_above_256(d, dtype):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
                                **WIDE_TOL[dtype])
-    assert flash_route(d, tdt) == ("runtime", d)
+    assert flash_route(d, tdt) == ("wide" if dtype == "bfloat16"
+                                   else "runtime", d)
 
 
 ROUTE_WIDTHS = [16, 64, 96, 128, 200, 256, 257, 320, 512, 593, 594, 1024]
@@ -256,12 +258,12 @@ ROUTE_WIDTHS = [16, 64, 96, 128, 200, 256, 257, 320, 512, 593, 594, 1024]
 
 @pytest.mark.parametrize("d,route", zip(ROUTE_WIDTHS, [
     "padded", "instance", "padded", "instance", "padded", "instance",
-    "runtime", "runtime", "runtime", "runtime", None, None]))
+    "wide", "wide", "wide", "wide", None, None]))
 def test_flash_route_by_head_width(d, route):
     """The wrapper's routing of bf16 on the card: an instance, zero-padding
-    to the next instance, or the run-time-width kernel above 256, up to the
-    largest width whose tiles fit a block's shared memory, which the
-    refusal names."""
+    to the next instance, or the wide tensor-core kernel above 256 at the
+    width itself, up to the largest width whose run-time-width tiles fit a
+    block's shared memory, which the refusal names."""
     assert RT_MAX_HEAD_DIM == 593
     if route is None:
         with pytest.raises(ValidationError, match="up to 593"):

@@ -216,6 +216,38 @@ def test_delta_bitmask_kernel_matches_plain_on_any_records():
 
 
 @pytest.mark.cuda
+def test_pass_b_kernel_matches_plain_at_every_block_size():
+    """Pass B against ``ref_emission``, exactly: block sizes 4 and 36
+    (shorter than a warp's span), 2048 and 4096 (the main path's), 8192
+    (two tiles of 4096), 5 and 37 (not a multiple of 4: the scalar path),
+    each with 16-byte aligned rows (the int4 path where the size allows
+    it) and with every row one int32 off alignment (the scalar path); one
+    launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build the kernels)")
+    rng = np.random.default_rng(3)
+    for bs in (4, 5, 36, 37, 2048, 4096, 8192):
+        nb = max(3, 30000 // bs)
+        total = nb * bs
+        d = torch.from_numpy(rng.integers(-2, 3, (4, total))
+                             .astype(np.int32)).cuda()
+        for shift in (0, 1):
+            buf = torch.empty(4 * total + shift, dtype=torch.int32,
+                              device="cuda")
+            deltas = buf[shift:].view(4, total)
+            deltas.copy_(d)
+            assert (deltas.data_ptr() % 16 == 0) == (shift == 0)
+            sums = tkernels.block_sums(deltas, block_size=bs)
+            offsets = torch.cumsum(sums, dim=0, dtype=torch.int32) - sums
+            before = tkernels.emission.launches
+            got = tkernels.emission(deltas, offsets, block_size=bs)
+            assert tkernels.emission.launches == before + 1
+            want = tref.ref_emission(deltas, offsets, block_size=bs)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card():
     """Each CUDA kernel against its plain version on the same inputs."""
     if not torch.cuda.is_available():
@@ -365,16 +397,24 @@ def test_kernels_match_plain_versions_on_the_card():
     torch.testing.assert_close(got, tref.ref_flash_attention(q, k, v, idx, cnt,
                                                              **kw),
                                rtol=2e-5, atol=2e-5)
-    # D = 257 to 593 run the run-time-width kernel, one launch, in f32
-    # and bf16 (window, softcap, segments, GQA, q_offset)
+    # D = 257 to 593: float32 on the scalar run-time-width kernel, bf16 on
+    # the wide tensor-core kernel (scores of std 4, held also to the bound
+    # of chip_smoke.flash_full_tol), one launch each (window, softcap,
+    # segments, GQA, q_offset); 257 and 593 stage rows by element loads,
+    # and so does 320 with q one element off 16-byte alignment
     seg = torch.sort(torch.randint(0, 3, (1, 96), generator=gen),
                      dim=1).values.to(torch.int32).cuda()
     idx, cnt, _ = tops.build_block_structure(64, 96, block_q=32, block_k=32,
                                              window=40)
     idx, cnt = torch.from_numpy(idx), torch.from_numpy(cnt)
     for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        for d in (257, 320, 512, 593):
-            q = torch.randn((1, 4, 64, d), generator=gen).cuda().to(dt)
+        for d, shift in ((257, 0), (320, 0), (320, 1), (384, 0), (512, 0),
+                         (593, 0)):
+            gain = 4.0 if dt == torch.bfloat16 else 1.0
+            qf = torch.randn((1, 4, 64, d), generator=gen) * gain
+            buf = torch.empty(qf.numel() + shift, device="cuda", dtype=dt)
+            q = buf[shift:].view(qf.shape)
+            q.copy_(qf)
             k, v = (torch.randn((1, 2, 96, d), generator=gen).cuda().to(dt)
                     for _ in range(2))
             args = (q, k, v, idx, cnt, seg[:, 32:].contiguous(), seg)
@@ -384,9 +424,15 @@ def test_kernels_match_plain_versions_on_the_card():
             got = flash_attention_kernel(*args, **kw)
             assert flash_attention_kernel.launches == before + 1
             assert got.dtype == dt and got.shape == q.shape
-            torch.testing.assert_close(
-                got.float(), tref.ref_flash_attention(*args, **kw).float(),
-                rtol=tol, atol=tol)
+            want = tref.ref_flash_attention(*args, **kw).float()
+            torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+            if dt == torch.bfloat16:
+                # |p~ - p| <= 2^-9 p moves out by 2^-9 max|v|, then both
+                # sides round to bf16 (chip_smoke.flash_full_tol)
+                delta = 2.0 ** -9 * float(v.float().abs().max())
+                bound = (1 + 2.0 ** -8) * delta + 1e-4 \
+                    + 2.0 ** -7 / (1 - 2.0 ** -8) * want.abs()
+                assert bool(((got.float() - want).abs() <= bound).all())
     idx, cnt, _ = tops.build_block_structure(64, 64, block_q=32, block_k=32)
     idx, cnt = torch.from_numpy(idx), torch.from_numpy(cnt)
     q594 = torch.zeros((1, 2, 64, 594), device="cuda")

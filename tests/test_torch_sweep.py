@@ -113,7 +113,9 @@ def test_encode_endpoints_matches_reference_lexsort(case):
 # counting: passes A/B and the count entry points
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("block_size", [64, 256])
+# 4, 12 and 36: segments shorter than one warp's span of the pass-B kernel
+# (a block of 32 threads, most idle), so its small shapes have a CPU oracle
+@pytest.mark.parametrize("block_size", [4, 12, 36, 64, 256])
 @pytest.mark.parametrize("name", sorted(WORKLOADS))
 def test_pass_ab_plain_matches_pallas_interpret(name, block_size):
     (rs, ru), (ts, tu) = WORKLOADS[name]()
