@@ -32,7 +32,16 @@ Phases (any failure exits non-zero and prints no result line):
    are zeroed just before and read just after; each must be > 0.  Then
    five more rebuilds by the host clock and one under ``torch.profiler``
    (device busy time, idle share, top device kernels and host ops, each
-   sweep kernel's device time).
+   sweep kernel's device time).  Then one warm rebuild on each route
+   under the profiler, device and wall time: the pass-C kernel engine
+   (the default: the main path's scratch, ``ops.pass_c_scratch_bytes``,
+   is far below ``service.REBUILD_SCRATCH_BUDGET``) and the rank-table
+   engine (the budget set to 0 in this process); equal pair sets, pass C
+   launched on the first route only.  Then ``ops.sbm_enumerate_kernel``
+   at the main path's shapes asked for segments of 32768 (above the
+   delta-bitmask kernel's and pass C's limits, so run at
+   ``ops.card_segment``'s size) must equal its output at 4096: the same
+   pairs in the same order, the same count.
 4. Each sweep kernel at the main path's shapes: held against its plain
    version again (the delta-bitmask kernel also on the off-contract
    records of phase 2; passes A and B also at block sizes 36, shorter
@@ -64,14 +73,19 @@ Phases (any failure exits non-zero and prints no result line):
    phase 3 (moved regions keep the tall-thin shape) against a
    ``device="cpu"`` twin; the regime ``sweep_dim1`` and the ``device``
    rematch must show in ``stats()``, and the four sweep kernels' launch
-   counts, zeroed before, must all be > 0.
+   counts, zeroed before, must all be > 0.  Then a service rebuild above
+   the budget: n = m = 1e7 regions (α = 1) registered in bulk, the cold
+   ``match_count()`` (passes A and B) equal to ``len(pairs())``, which
+   the rank-table engine enumerates (pass C not launched); its peak
+   device memory printed beside the pass-C engine's reckoned scratch
+   (~98 GB) at the same sizes.
 8. The bit-matrix kernel timed at cell (a) beside its plain version and its
    bound (the larger of bytes over the HBM rate and compares over the
    float32 rate); then its run-time-d form at d = 5 on the same cell
    (dimensions repeated, so the words must equal the plain d = 2 words).
 9. Flash battery: the block-sparse flash attention kernel against its plain
    version ``ref_flash_attention`` (same schedule) and the dense oracle
-   ``ref_attention``, in float32 (within 2e-5; the scalar kernel) and
+   ``ref_attention``, in float32 (within 2e-5; the float32 kernel) and
    bfloat16 (the tensor-core kernel; scores of std 4, within 2e-2 and
    within the bound derived at ``flash_full_tol``): the shapes of
    ``tests/test_kernels_attention.py`` (GQA 2:1 and 4:1, MQA with 5 heads),
@@ -80,7 +94,7 @@ Phases (any failure exits non-zero and prints no result line):
    without a window), D = 64, 128 and 256, D = 16 and 96, which the
    wrapper zero-pads to the next built width, and D = 257, 320, 512 and
    593, which run the wide bf16 kernel (every feature at D = 320; the
-   float32 cases all run the scalar run-time-width kernel).
+   float32 cases all run the float32 kernel).
 10. Flash at full width: smollm-360m's prefill shapes (B = 4, H = 15,
     Hkv = 5, S = 2048, D = 64, bfloat16, causal 512-blocks) with a peaked
     softmax (scores of std 4): kernel == plain and dense oracle within the
@@ -97,10 +111,12 @@ Phases (any failure exits non-zero and prints no result line):
     causal 512-blocks) through ``ops.flash_attention`` (one launch,
     counted), beside SDPA.  Then row 6d: the wide bf16 kernel at
     B = 1, H = Hkv = 8, S = 4096, D = 512, causal 512-blocks, through
-    ``ops.flash_attention`` (one launch, counted), beside SDPA; and row 6e:
-    the same shapes in float32 on the scalar run-time-width kernel (within
-    2e-5 of its plain version), beside SDPA in float32 with TF32 off, its
-    bound at the float32 rate.
+    ``ops.flash_attention`` (one launch, counted), beside SDPA; row 6e:
+    the same shapes in float32 on the float32 kernel (within 2e-5 of its
+    plain version), beside SDPA in float32 with TF32 off, its bound at the
+    float32 rate; and row 6f: smollm-360m's prefill shapes in float32 (the
+    width the model twin runs) on the same kernel, beside SDPA in float32
+    with TF32 off and ``enable_gqa``.
 11. The serving path: smollm-360m at full width and depth (32 layers,
     bfloat16 compute, float32 weights from a seeded generator) behind
     ``ServeEngine`` with 4 slots answers 8 requests of 2048-token prompts,
@@ -124,7 +140,15 @@ Phases (any failure exits non-zero and prints no result line):
     equal greedy tokens.
 
 The build prints every kernel's registers, shared memory and spills from
-nvcc's ``-Xptxas -v`` report.
+nvcc's ``-Xptxas -v`` report, and SASS opcode counts (the float32 flash
+kernel must hold FFMA and cp.async and no tensor-core instruction).
+Every line of numbers that a phase prints is followed, at the latest before
+the last line, by the card's name and power limit.
+
+``python3 chip_smoke.py --flash-f32-rows [SRC]`` runs rows 6e and 6f
+alone (each beside SDPA in float32 with TF32 off and its bound), on the
+port under SRC (another checkout's ``src/``, default this one's), so
+that two commits' float32 kernels are timed in one call on one card.
 The last lines are the ``{"kernels": [...]}`` record, the flash rows at
 gemma2-2b's shapes, the launch counts (d = 1 main path, d-dim service
 path, the two serving paths), the phase timings,
@@ -156,6 +180,11 @@ REDUCED_N = 20_000             # pass C against its Python replay
 # a block's shared memory and live in global memory
 PASS_C_FULL_N = 1_000_000
 MAIN_N = 100_000               # the service's regions per side
+# a service rebuild above the pass-C engine's scratch budget (2 GiB: the
+# route changes at n = m ~ 1.48e6), on the rank-table engine
+ABOVE_BUDGET_N = 10_000_000
+# sbm_enumerate_kernel asked for segments above the kernels' limits
+BIG_SEGMENT = 32768
 # pass B at block sizes the main path does not launch: 36, shorter than a
 # warp's span, and 2050 (not a multiple of 4), the scalar path
 PASS_B_EXTRA_BLOCKS = (36, 2050)
@@ -215,8 +244,8 @@ FLASH_CASES = (
     (2, 6, 2, 96, 192, 96, 32, {"window": 40, "softcap": 30.0,
                                 "segments": True}),
     (1, 3, 1, 512, 1536, 96, 512, {"window": 300}),
-    # widths above 256, the wide bf16 kernel (the scalar run-time-width
-    # kernel runs every float32 case of this battery): every feature (GQA,
+    # widths above 256, the wide bf16 kernel (the float32 kernel runs
+    # every float32 case of this battery): every feature (GQA,
     # window, softcap, segments, q_offset) at 32-blocks, causal 64-blocks,
     # 512-blocks with a window, softcap and q_offset; the domain's edges 257
     # and 593 (rows staged by element loads: D not a multiple of 8)
@@ -232,9 +261,12 @@ FLASH_CASES = (
 # length and block
 PHI3_FLASH = dict(B=4, H=32, Hkv=32, S=2048, D=96, block=512)
 # rows 6d / 6e: a head width above 256 (no config of the repo has one),
-# served in bf16 by the wide tensor-core kernel and in float32 by the scalar
-# run-time-width kernel
+# served in bf16 by the wide tensor-core kernel and in float32 by the
+# float32 kernel
 WIDE_FLASH = dict(B=1, H=8, Hkv=8, S=4096, D=512, block=512)
+# row 6f: float32 at smollm-360m's prefill shapes (the width the float32
+# model twin runs), on the float32 kernel
+F32_FLASH = dict(B=4, H=15, Hkv=5, S=2048, D=64, block=512)
 # (atol, rtol) as |kernel - ref| <= atol + rtol * |ref|;
 # tests/test_kernels_attention.py's bounds
 FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
@@ -280,8 +312,9 @@ DEVICE = "cuda"
 # the sweep kernels' names in a profile (the rebuild trace sums each)
 SWEEP_KERNELS = ("block_sums_kernel", "emission_kernel",
                  "delta_bitmask_kernel", "emit_pairs_kernel")
-# SASS opcodes counted per kernel: tensor cores, cp.async, ldmatrix
-SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "LDSM")
+# SASS opcodes counted per kernel: tensor cores, cp.async, ldmatrix, and
+# the float32 kernel's FFMA and shared loads
+SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "LDSM", "FFMA", "LDS")
 
 
 class SmokeFailure(Exception):
@@ -395,6 +428,12 @@ def wide_flash_dynamic_smem(d: int) -> int:
     return (64 * dp + 2 * 32 * (dp + 8 * vs)) * 2 + 2 * 64 * 32 * 4
 
 
+# dynamic shared memory of one block of the float32 flash kernel at every
+# width: kF32SmemBytes of flash_attention.cu (a three-stage ring of Q/K
+# chunks, 2 x 64 rows x 36 floats, and P^T, 64 x 68 floats)
+F32_FLASH_SMEM = (3 * 2 * 64 * 36 + 64 * 68) * 4
+
+
 def require(cond, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
@@ -407,17 +446,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    rows_only = argv[:1] == ["--flash-f32-rows"]
+    src = pathlib.Path(argv[1]).resolve() if rows_only and len(argv) > 1 \
+        else ROOT / "src"
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from the repository root (src/repro_torch "
               "missing)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(src))
+    if rows_only:
+        return flash_f32_rows(torch, src)
     # torch.compile's caches (the flex_attention yardstick) stay in the
     # checkout's build/
     os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
@@ -430,11 +475,13 @@ def main() -> int:
     for n, alpha in FULL:
         smoke.full_size(n, alpha)
     smoke.main_path()
+    smoke.segment_sizes()
     smoke.kernels_at_main_shapes()
     smoke.bitmatch_battery()
     for cell, n, d, alpha in BITMATCH_FULL:
         smoke.bitmatch_full(cell, n, d, alpha)
     smoke.ddim_service()
+    smoke.above_budget()
     smoke.bitmatch_timing()
     smoke.flash_battery()
     smoke.flash_full()
@@ -442,6 +489,27 @@ def main() -> int:
     smoke.serve_gemma()
     smoke.model_twin()
     smoke.report(card)
+    return 0
+
+
+def flash_f32_rows(torch, src) -> int:
+    """``chip_smoke.py --flash-f32-rows [SRC]``: rows 6e and 6f alone, on
+    the port whose ``src/`` directory is SRC (default this checkout's), so
+    that two commits' float32 kernels are timed in one call on one card:
+    each beside SDPA in float32 with TF32 off and its bound."""
+    card = card_line()
+    print(card, flush=True)
+    smoke = Smoke(torch)
+    smoke.build()
+    smoke.flash_via_ops("flash_attention_d512_f32", WIDE_FLASH,
+                        "wide head, float32", SEED + 21, "runtime", False,
+                        torch.float32)
+    smoke.flash_via_ops("flash_attention_d64_f32", F32_FLASH,
+                        "smollm-360m prefill, float32", SEED + 22, "runtime",
+                        False, torch.float32)
+    print(json.dumps({"src": str(src), "card": card,
+                      "kernels": list(smoke.rows.values())}))
+    print(card)
     return 0
 
 
@@ -622,6 +690,16 @@ class Smoke:
                             and res["sass"]["LDGSTS"] > 0,
                             f"{name}: no tensor-core or cp.async instruction "
                             f"in its SASS: {res['sass']}")
+            if name.startswith("flash_attention_fwd_f32_kernel"):
+                res["dynamic_smem"] = F32_FLASH_SMEM
+                if sass is not None:
+                    res["sass"] = sass.get(name, dict.fromkeys(SASS_OPS, 0))
+                    # FFMA only, fed by cp.async
+                    require(res["sass"]["HMMA"] + res["sass"]["HGMMA"] == 0
+                            and res["sass"]["FFMA"] > 0
+                            and res["sass"]["LDGSTS"] > 0,
+                            f"{name}: tensor-core instructions, or no FFMA "
+                            f"or cp.async, in its SASS: {res['sass']}")
             print(f"  {name}: " + json.dumps(res))
         if sass is None:
             print("  (no cuobjdump beside nvcc: SASS not counted)")
@@ -803,6 +881,140 @@ class Smoke:
               f"{[b for _, b in CHURN]} deltas == cpu twin, pairs == rebuild, "
               f"regimes {regimes}", flush=True)
         self.rebuild_profile(svc, rebuilt)
+        self.rebuild_routes(svc, rebuilt)
+
+    def profiled_rebuild(self, svc):
+        """One rebuild (cache dropped, ``pairs()``) under torch.profiler:
+        (pairs, wall ms by the host clock, device busy ms)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        svc.invalidate_cache()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            got = svc.pairs()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = sum(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3
+        return got, wall_ms, busy
+
+    def rebuild_routes(self, svc, want):
+        """One warm rebuild on each route at the main path: the pass-C
+        kernel engine (the default: its scratch is far below the budget)
+        and the rank-table engine (``REBUILD_SCRATCH_BUDGET`` set to 0 in
+        this process); device and wall time, equal pair sets, and which
+        engine ran by pass C's launch count."""
+        from repro_torch.core import service as service_lib
+
+        K = self.K
+        budget = service_lib.REBUILD_SCRATCH_BUDGET
+        scratch = self.ops.pass_c_scratch_bytes(MAIN_N, MAIN_N)
+        require(scratch <= budget, f"the main path's scratch {scratch} B is "
+                f"above the budget {budget} B")
+        out = {}
+        try:
+            for route, cap in (("kernel", budget), ("rank_table", 0)):
+                service_lib.REBUILD_SCRATCH_BUDGET = cap
+                svc.invalidate_cache()
+                require(svc.pairs() == want, f"rebuild ({route} route): "
+                        "pairs() differs from the main path's")   # warm-up
+                before = K.emit_pairs.launches
+                got, wall, busy = self.profiled_rebuild(svc)
+                ran = K.emit_pairs.launches - before
+                require(got == want, f"rebuild ({route} route): pairs() "
+                        "differs from the main path's")
+                require(ran == (route == "kernel"), f"rebuild ({route} "
+                        f"route): pass C launched {ran} times")
+                out[route] = {"wall_ms": round(wall, 3),
+                              "device_ms": round(busy, 4)}
+                self.phase_ms[f"rebuild {route} route wall"] = wall
+                self.phase_ms[f"rebuild {route} route device"] = busy
+        finally:
+            service_lib.REBUILD_SCRATCH_BUDGET = budget
+        print(f"rebuild routes (main path, n=m={MAIN_N}, pass-C scratch "
+              f"{scratch} B, budget {budget} B; one warm rebuild each, "
+              f"pairs equal): {json.dumps(out)}; {card_line()}", flush=True)
+
+    def above_budget(self):
+        """A service rebuild above the budget on the card: n = m =
+        ABOVE_BUDGET_N regions (α = 1), registered in bulk; the cold count
+        (passes A and B) must equal len(pairs()), which the rank-table
+        engine enumerates.  Peak device memory of the rebuild beside the
+        pass-C engine's reckoned scratch at the same sizes."""
+        from repro_torch.api import DDMService
+        from repro_torch.core import make_uniform_workload
+        from repro_torch.core import service as service_lib
+
+        torch, K, n = self.torch, self.K, ABOVE_BUDGET_N
+        scratch = self.ops.pass_c_scratch_bytes(n, n)
+        budget = service_lib.REBUILD_SCRATCH_BUDGET
+        require(scratch > budget, f"n=m={n}: scratch {scratch} B is not "
+                f"above the budget {budget} B")
+        g = torch.Generator().manual_seed(SEED + 30)
+        subs, upds = make_uniform_workload(n, n, 1.0, length=LENGTH,
+                                           generator=g, device="cpu")
+        svc = DDMService(device=DEVICE)
+        for side, e in (("sub", subs), ("upd", upds)):
+            self.timed(f"above budget register {side}",
+                       lambda e=e, side=side: svc.register(
+                           side, e.lo.numpy(), e.hi.numpy()))
+        del subs, upds
+        k = self.timed("above budget match_count", svc.match_count)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = K.emit_pairs.launches
+        pairs = self.timed("above budget pairs (rebuild)", svc.pairs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        require(K.emit_pairs.launches == before, "above the budget the "
+                "rebuild launched pass C")
+        require(len(pairs) == k and k > 0, f"above the budget: "
+                f"len(pairs()) {len(pairs)} != match_count() {k}")
+        print(f"above the budget: n=m={n}, K={k} == len(pairs()); rebuild "
+              f"peak device memory {peak} B ({peak - base} B above the "
+              f"{base} B held before it) beside the pass-C engine's "
+              f"reckoned scratch {scratch} B (budget {budget} B); register "
+              f"{self.phase_ms['above budget register sub']:.0f} + "
+              f"{self.phase_ms['above budget register upd']:.0f} ms, "
+              f"match_count {self.phase_ms['above budget match_count']:.0f} "
+              f"ms, pairs() {self.phase_ms['above budget pairs (rebuild)']:.0f}"
+              f" ms; {card_line()}", flush=True)
+        self.above = {"n": n, "K": k, "peak_bytes": peak, "base_bytes": base,
+                      "scratch_bytes": scratch}
+        del svc, pairs
+
+    def segment_sizes(self):
+        """``ops.sbm_enumerate_kernel`` at the main path's shapes asked for
+        segments of BIG_SEGMENT (above the delta-bitmask kernel's and pass
+        C's limits, so run at ``card_segment``'s size) equals its output at
+        ENUMERATE_BLOCK: the same pairs in the same order, the same count."""
+        torch, ops = self.torch, self.ops
+        subs, upds = self.main_live
+        n, m = subs.size, upds.size
+        k = int(ops.sbm_count_kernel(subs, upds))
+        want, k_want = ops.sbm_enumerate_kernel(
+            subs, upds, max_pairs=k, block_size=ops.ENUMERATE_BLOCK)
+        got, k_got = ops.sbm_enumerate_kernel(subs, upds, max_pairs=k,
+                                              block_size=BIG_SEGMENT)
+        torch.cuda.synchronize()
+        seg = ops.card_segment(BIG_SEGMENT, n, m)
+        pass_c = self.K.emit_pairs_max_block(ops._num_words(n),
+                                             ops._num_words(m))
+        require(int(k_got) == int(k_want) == k and torch.equal(got, want),
+                f"sbm_enumerate_kernel at block_size={BIG_SEGMENT} (run at "
+                f"{seg}) != at {ops.ENUMERATE_BLOCK}")
+        print(f"segment size: sbm_enumerate_kernel at block_size="
+              f"{BIG_SEGMENT} (run at {seg}: the delta-bitmask kernel takes "
+              f"{self.K.BITMASK_MAX_BLOCK}, pass C {pass_c}) == at "
+              f"{ops.ENUMERATE_BLOCK}: K={k}, pairs in order",
+              flush=True)
 
     def rebuild_profile(self, svc, want):
         """The main path's rebuild (cache dropped, ``pairs()``) five more
@@ -1414,6 +1626,9 @@ class Smoke:
         self.flash_via_ops("flash_attention_d512_f32", WIDE_FLASH,
                            "wide head, float32", SEED + 21, "runtime", False,
                            torch.float32)
+        self.flash_via_ops("flash_attention_d64_f32", F32_FLASH,
+                           "smollm-360m prefill, float32", SEED + 22,
+                           "runtime", False, torch.float32)
         # softcapped attention is one flex_attention call (a tanh score_mod
         # and a causal or sliding-window block mask), compiled by inductor
         from torch.nn.attention.flex_attention import (create_block_mask,
@@ -1461,8 +1676,9 @@ class Smoke:
         counted launch through the public ``ops.flash_attention``, SDPA on
         the same tensors beside it.  Rows 6c (D = 96, zero-padded to 128,
         timed over the whole wrapper call as SDPA is over its own), 6d
-        (D = 512, the wide bf16 kernel) and 6e (D = 512 in float32, the
-        scalar kernel, beside SDPA with TF32 off)."""
+        (D = 512, the wide bf16 kernel), 6e (D = 512 in float32, the
+        float32 kernel, beside SDPA with TF32 off) and 6f (smollm-360m's
+        prefill shapes in float32)."""
         torch = self.torch
         F = torch.nn.functional
         dtype = dtype or torch.bfloat16
@@ -1490,13 +1706,15 @@ class Smoke:
                 torch.backends.cudnn.allow_tf32)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        gqa = H != Hkv
+        lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                 enable_gqa=gqa)
         lib_err = float((lib_out.float() - got.float()).abs().max())
         require(lib_err <= 5e-2, f"flash D={D} {kind}: kernel vs "
                 f"scaled_dot_product_attention max |diff| {lib_err}")
         lib_ms = self.time_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-            20)
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=gqa), 20)
         torch.backends.cuda.matmul.allow_tf32, \
             torch.backends.cudnn.allow_tf32 = tf32
         row.update(name=f"flash_attention (D={D}, {route}"
@@ -1506,7 +1724,8 @@ class Smoke:
         self.rows[key] = row
         print(f"  sdpa (is_causal{'' if bf16 else ', TF32 off'}; the same "
               f"function): {row['library_ms']:.4f} ms, max |kernel - sdpa| "
-              f"{lib_err:.4g}; ops.flash_attention launches 1", flush=True)
+              f"{lib_err:.4g}; ops.flash_attention launches 1; {card_line()}",
+              flush=True)
 
     def serve_path(self, spec: dict, seed: int):
         """One ``ServeEngine`` run of ``spec`` at full width and depth;

@@ -17,10 +17,12 @@ The stateless sweep is the rebuild path: :meth:`match_count` runs the
 counting sweep (passes A and B of :mod:`repro_torch.kernels.sbm_sweep`) and
 the rebuild in :meth:`_planned_sweep` runs the kernel pair enumeration
 (passes A and B, the delta-bitmask pass and pass C) under the runtime's
-count-then-retry executor.  For ``dims > 1`` both run the
-selective-dimension sweep of :mod:`repro_torch.core.ddim` on the same
-kernels: the counting sweep probes every projection, the most selective
-one generates candidates and the other projections filter them.  On a CUDA
+count-then-retry executor — or, where that engine's scratch would pass
+:data:`REBUILD_SCRATCH_BUDGET`, the rank-table enumeration.  For
+``dims > 1`` both run the selective-dimension sweep of
+:mod:`repro_torch.core.ddim` on the same kernels: the counting sweep probes
+every projection, the most selective one generates candidates and the
+other projections filter them.  On a CUDA
 ``device`` those are the hand-written kernels; on ``device="cpu"`` the same
 calls take the kernels' plain PyTorch versions.
 """
@@ -41,6 +43,13 @@ from repro_torch.core.errors import ValidationError
 from repro_torch.core.incremental import SUB, UPD, BatchDelta, IncrementalIndex
 from repro_torch.core.intervals import Extents
 from repro_torch.kernels import ops as kernel_ops
+
+# The rebuild's scratch budget: the pass-C engine's (num_blocks, W) word
+# arrays (kernels.ops.pass_c_scratch_bytes) grow as (n+m)·n, about 1 GB at
+# n = m = 1e6 and 98 GB at 1e7.  Above the budget (n = m ≈ 1.48e6 at block
+# 4096) the rebuild enumerates with the rank-table sbm_enumerate, which is
+# O((n+m)·log(n+m) + K) in time and memory — the JAX package's engine.
+REBUILD_SCRATCH_BUDGET = 2 * 2 ** 30
 
 # accepted spellings of the side argument of the unified mutation API
 # (register/move/unregister) — canonicalized to the SUB/UPD constants
@@ -557,6 +566,14 @@ class DDMService:
         the executor's retry loop is structurally retry-free.  Stats land in
         the service recorder under ``engine``; d > 1 records the generator
         dimension as the regime.
+
+        The enumeration runs on the pass-C kernel engine while its scratch
+        (:func:`repro_torch.kernels.ops.pass_c_scratch_bytes` of the live
+        sizes, which the generator projection shares) fits
+        :data:`REBUILD_SCRATCH_BUDGET`, else on the rank-table
+        :func:`repro_torch.core.enumerate.sbm_enumerate`; the same rule on
+        every device.  The service returns sets, so the two engines' pair
+        orders do not matter.
         """
         t0 = time.perf_counter()
         if self.dims == 1:
@@ -574,10 +591,14 @@ class DDMService:
             self._recorder.record(stats)
             return None, 0, stats
 
+        scratch = kernel_ops.pass_c_scratch_bytes(subs.size, upds.size)
+        engine_fn = (kernel_ops.sbm_enumerate_kernel
+                     if scratch <= REBUILD_SCRATCH_BUDGET else None)
+
         def fn(s, u, *, max_pairs):
             return ddim_lib.enumerate_matches_ddim(
                 s, u, max_pairs=max_pairs, method="sweep", generator_dim=gen,
-                engine=kernel_ops.sbm_enumerate_kernel)
+                engine=engine_fn)
 
         return runtime_lib.execute_enumeration(
             fn, subs, upds, estimate=k, policy=self._policy, engine=engine,

@@ -49,6 +49,7 @@ SIGNATURES = {
     "sbm_emit_pairs": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I,
                        _I, _I, _LL, _P),
     "sbm_emit_pairs_placement": (_I, _I, _I),
+    "sbm_emit_pairs_max_block": (_I, _I),
     "bitmatch_words": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _I, _P),

@@ -23,7 +23,7 @@
 // block_q / block_k are the schedule's units (512 at full width, 32 in the
 // reduced configs), not a kernel's tile: a 512-row q block and a 512 x 512
 // score tile do not fit one SM.  Each block of threads takes one q tile (64
-// rows bf16, 32 float32) of one (batch, head), reads its q block's row of
+// rows) of one (batch, head), reads its q block's row of
 // kv_index / kv_count itself (this replaces the Pallas scalar prefetch), and
 // walks each scheduled KV block in K/V sub-tiles; rows past a block are zero
 // and masked, so 32-blocks run too.  A sub-tile whose every pair is masked
@@ -98,20 +98,18 @@
 //   vs = 2 cw / 8 chunks rounded up to 8: 139,264 at D = 320, 212,992 at
 //   512, 221,184 at 593 (Dp = 640): one block (8 warps) an SM.
 //
-// * float32 at every D (flash_attention_fwd_rt_kernel; the test path, and
-//   no config of the repo runs float32 attention on the card): D at run
-//   time, scalar float32 FMA on the CUDA cores over 32-row q tiles and
-//   32-row K/V sub-tiles in shared memory, p kept float32 for P V (as the
-//   Pallas kernel does).  256 threads as a 16 x 16 grid; the 16 threads of
-//   a row share a half-warp, so row max and sum are shuffles; each thread
-//   owns two q rows' scores in two key columns and a slice of their output
-//   columns (c = tx mod 16, at most kRtCols = 38 a row) in registers, so no
-//   accumulator row has to fit one thread.  Q and K rows at the odd stride
-//   D | 1 (16 threads reading 16 rows at one column hit 16 banks).  Shared
-//   memory (2 * 32 * (D | 1) + 32 * D + 32 * 33) * 4 bytes: 201,088 at
-//   D = 512; D = 593 is the largest that fits 232,448 (the wrapper's
-//   RT_MAX_HEAD_DIM copies kRtMaxD).  Written to be right, not fast: a
-//   shared-memory load per FMA.
+// * float32 at every D (flash_attention_fwd_f32_kernel; the model twin and
+//   every float32-compute config): FFMA on the CUDA cores only (no TF32,
+//   p kept float32 for P V, as the Pallas kernel does), D at run time.  A
+//   block of 256 threads takes a 64-row q tile; each thread holds a 4 x 4
+//   register tile of every 64 x 64 score tile (fed by 16-byte shared
+//   loads: 8 FFMA per LDS.128 in Q K^T, 16 per two in P V) and O's 4 rows
+//   x 4 columns of each 64-column group (at most 8 groups, 128 floats; D >
+//   512 splits the groups over two blocks on the grid, which both compute
+//   Q K^T).  Q/K in 32-wide d chunks and V in 64-column chunks stream
+//   through a three-stage cp.async ring, so shared memory is 72,704 bytes
+//   at every D.  Bound by operations: 4 D FFMA-flops per live pair at the
+//   67 TFLOP/s float32 rate.
 //
 // Bound at smollm-360m's prefill shapes (B = 4, H = 15, Hkv = 5, S = 2048,
 // D = 64, 512-blocks; live causal (q, k) pairs S(S+1)/2 = 2,098,176 per
@@ -524,7 +522,8 @@ cudaError_t launch_bf16(const Params& p, int B, int nq, cudaStream_t stream) {
 // two warpgroups a block split Q K^T's reduction and O's columns
 // ---------------------------------------------------------------------------
 
-// the largest D the wide and the float32 kernels take (rt_smem_bytes)
+// the largest D the port takes, for the wide and the float32 kernels (the
+// domain its tests pin; the wide kernel's shared memory would hold D <= 640)
 constexpr int kRtMaxD = 593;
 constexpr int kWideKvRows = 32;              // K/V rows per sub-tile
 constexpr int kWideCols = 256;               // the most O columns a warpgroup holds
@@ -950,194 +949,395 @@ cudaError_t launch_wide(const Params& p, int B, int nq, int D, bool aligned,
 }
 
 // ---------------------------------------------------------------------------
-// float32 at any width: the width at run time, scalar float32 arithmetic
+// float32 at any width: register micro-tiles on the CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kRtRows = 32;       // q rows per tile and k rows per sub-tile
-constexpr int kRtThreads = 256;   // a 16 x 16 grid
-constexpr int kRtCols = (kRtMaxD + 15) / 16;  // output columns a thread owns
+constexpr int kF32Rows = 64;      // q rows per tile
+constexpr int kF32Keys = 64;      // K/V rows per sub-tile
+constexpr int kF32Threads = 256;  // a 16 x 16 grid of 4 x 4 score tiles
+constexpr int kF32Dk = 32;        // d values per Q/K chunk
+constexpr int kF32Ld = kF32Dk + 4;      // Q/K chunk row stride (floats)
+constexpr int kF32Vc = 64;        // V columns per chunk (one O column group)
+constexpr int kF32PLd = kF32Rows + 4;   // P^T row stride (floats)
+// a ring stage: one Q and one K chunk, or one V chunk (64 x 64 floats)
+constexpr int kF32Stage = 2 * kF32Rows * kF32Ld;
+constexpr int kF32Stages = 3;
+// O column groups a block holds: 4 rows x 4 columns x 8 = 128 floats a
+// thread; wider heads split their groups over a grid axis, each block
+// computing Q K^T in full.  (Two halves of a 512-thread block, each adding
+// a partial Q K^T over half the d values, gained 2 % at D = 512 and moved
+// the result 3e-5 from the plain version there: past FLASH_TOL.)
+constexpr int kF32MaxGroups = 8;
+constexpr size_t kF32SmemBytes =
+    (size_t)(kF32Stages * kF32Stage + kF32Keys * kF32PLd) * sizeof(float);
+static_assert(kF32Keys * kF32Vc <= kF32Stage, "a V chunk fits a stage");
 
-// Q and K rows at an odd stride: 16 threads reading 16 rows at one column
-// hit 16 banks
-__host__ __device__ inline int rt_ld(int D) { return D | 1; }
-
-__host__ __device__ inline size_t rt_smem_bytes(int D) {
-  return (size_t)(2 * kRtRows * rt_ld(D) + kRtRows * D +
-                  kRtRows * (kRtRows + 1)) * sizeof(float);
+// 4 bytes global -> shared, asynchronous; zero-filled when !live
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(live ? 4 : 0));
 }
 
-// Scalar float32 flash attention with D a run-time value: 32-row q tiles
-// and 32-row K/V sub-tiles in shared memory.  Thread (ty, tx) owns scores
-// (ty + 16 i, tx + 16 j), i, j < 2, and output columns tx + 16 c of rows ty
-// and ty + 16: a slice of D in registers (at most kRtCols per row), so no
-// thread holds a whole row.  p stays float32 for P V, as in the Pallas
-// kernel.
-__global__ void __launch_bounds__(kRtThreads)
-flash_attention_fwd_rt_kernel(const Params p, int D) {
-  extern __shared__ float smem[];
-  const int ld = rt_ld(D);
-  float* sQ = smem;                        // kRtRows x ld
-  float* sK = sQ + kRtRows * ld;           // kRtRows x ld
-  float* sV = sK + kRtRows * ld;           // kRtRows x D
-  float* sP = sV + kRtRows * D;            // kRtRows x (kRtRows + 1)
+// The schedule's K/V sub-tiles of kF32Keys rows that causality and the
+// window leave live for the q tile whose positions are [qmin, qmax], in
+// order: the sub-th sub-tile of the t-th scheduled KV block, keys [lo, hi).
+struct F32Walk {
+  int t = 0, sub = 0, lo = 0, hi = 0;
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int tiles = (p.block_q + kRtRows - 1) / kRtRows;
-  const int qblk = blockIdx.x / tiles;
-  const int q_lo = qblk * p.block_q + (blockIdx.x % tiles) * kRtRows;
-  const int q_hi = min(q_lo + kRtRows, (qblk + 1) * p.block_q);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.H / p.Hkv);
-  const long long qkv_d = D;
-
-  const float* q = (const float*)p.q + ((long long)b * p.H + h) * p.Sq * qkv_d;
-  const float* k =
-      (const float*)p.k + ((long long)b * p.Hkv + hk) * p.Skv * qkv_d;
-  const float* v =
-      (const float*)p.v + ((long long)b * p.Hkv + hk) * p.Skv * qkv_d;
-
-  for (int e = threadIdx.x; e < kRtRows * D; e += kRtThreads) {
-    const int r = e / D, c = e % D;
-    sQ[r * ld + c] = q_lo + r < q_hi ? q[(long long)(q_lo + r) * qkv_d + c]
-                                     : 0.0f;
+  // settle on the first live sub-tile at or after (t, sub); false at the end
+  __device__ __forceinline__ bool settle(const Params& p, const int* index,
+                                         int count, int qmin, int qmax) {
+    const int subs = (p.block_k + kF32Keys - 1) / kF32Keys;
+    for (; t < count; ++t, sub = 0) {
+      const int kb = index[t];
+      const int kb_end = (kb + 1) * p.block_k;
+      for (; sub < subs; ++sub) {
+        lo = kb * p.block_k + sub * kF32Keys;
+        hi = min(lo + kF32Keys, kb_end);
+        if (p.causal && lo > qmax) continue;
+        if (p.window >= 0 && hi - 1 <= qmin - p.window) continue;
+        return true;
+      }
+    }
+    return false;
   }
+};
 
-  const int ncols = (D - tx + 15) / 16;   // this thread's output columns
-  int qpos[2], qseg[2];
-  float m[2], l[2], acc[2][kRtCols];
+// Float32 flash attention, FFMA only, D at run time (the q tile's O column
+// groups a compile-time bound CG).  Block: 256 threads, one 64-row q tile of
+// one (batch, head) and, for heads above 8 groups of 64 columns, one chunk
+// of O's columns (blockIdx.y % nchunk).  Thread (ty, tx) = (tid / 16, tid %
+// 16) owns rows 4 ty + i and keys tx + 16 j (i, j < 4) of each 64 x 64 score
+// tile, and O's columns col0 + 64 c + 4 tx + e (c < ncg, e < 4) of its rows.
+//
+// Per live K/V sub-tile a sequence of jobs runs through a three-stage
+// cp.async ring (two jobs in flight while one computes, one barrier a job):
+// ceil(D / 32) Q/K chunks (64 rows x 32 d of each, row-major at stride 36),
+// then ncg V chunks (64 keys x 64 columns).  A Q/K chunk adds to the 4 x 4
+// scores: per 4 d values, 4 LDS.128 of K (keys tx + 16 j: eight
+// consecutive rows at stride 36 floats fall in eight bank groups) and 4 of
+// Q (two addresses a warp, broadcast) feed 64 FFMA.  Then the online
+// softmax in registers (the row's 16 threads are one half-warp), P^T to
+// shared memory as one STS.128 per key (4 rows), and per V chunk and key
+// one LDS.128 of P (4 rows) and one of V (4 columns) feed 16 FFMA.
+//
+// q is reloaded per sub-tile with K, chunk by chunk, so shared memory does
+// not grow with D (72,704 bytes).  Rows and pieces past the tile, the KV
+// block or D zero-fill.  16-byte copies when vec (D % 4 == 0 and q, k, v,
+// out 16-byte aligned), else 4-byte copies; indices by shifts and masks.
+// Sums run over d and over keys in increasing order, as the scalar kernel
+// before this one did; expf and tanhf are the accurate library functions.
+template <int CG>
+__global__ void __launch_bounds__(kF32Threads, CG <= 2 ? 2 : 1)
+flash_attention_fwd_f32_kernel(const Params p, int D, int gpc, int nchunk,
+                               int tiles, int vec) {
+  // the d loop unrolled in full only where the registers allow it
+  constexpr int kDdUnroll = CG == 1 ? kF32Dk / 4 : 2;
+  extern __shared__ __align__(16) float f32_smem[];
+  float* sP = f32_smem + kF32Stages * kF32Stage;   // P^T: kF32Keys x kF32PLd
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int tile = tiles - 1 - (blockIdx.z * gridDim.y + blockIdx.y);
+  if (tile < 0) return;
+  const int chunk = blockIdx.x % nchunk;
+  const int bh = blockIdx.x / nchunk;
+  const int h = bh % p.H, b = bh / p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int per_block = (p.block_q + kF32Rows - 1) / kF32Rows;
+  const int qblk = tile / per_block;
+  const int q_lo = qblk * p.block_q + (tile % per_block) * kF32Rows;
+  const int q_hi = min(q_lo + kF32Rows, (qblk + 1) * p.block_q);
+  const int qmin = p.q_offset + q_lo, qmax = p.q_offset + q_hi - 1;
+  const int col0 = chunk * gpc * kF32Vc;
+  const int ncg = min(gpc, (D - col0 + kF32Vc - 1) / kF32Vc);
+  const int ns = (D + kF32Dk - 1) / kF32Dk;
+  const long long ld = D;
+
+  const float* q = (const float*)p.q + ((long long)b * p.H + h) * p.Sq * ld;
+  const float* k =
+      (const float*)p.k + ((long long)b * p.Hkv + hk) * p.Skv * ld;
+  const float* v =
+      (const float*)p.v + ((long long)b * p.Hkv + hk) * p.Skv * ld;
+  const int count = p.kv_count[qblk];
+  const int* index = p.kv_index + (long long)qblk * p.max_nk;
+
+  // -- the producer: the job sequence, two jobs ahead of the consumer ------
+  F32Walk lw;
+  bool l_live = lw.settle(p, index, count, qmin, qmax);
+  int lj = 0;
+  auto issue = [&](float* st) {
+    if (!l_live) return;
+    if (lj < ns) {                       // Q/K chunk lj: d in [32 lj, +32)
+      float* sQ = st;
+      float* sK = st + kF32Rows * kF32Ld;
+      const int d0 = lj * kF32Dk;
+      if (vec) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q_lo + ty + 16 * i;
-    qpos[i] = p.q_offset + row;
+        for (int u = 0; u < 2; ++u) {    // 64 rows x 8 pieces of 4 floats
+          const int e = tid + u * kF32Threads;
+          const int r = e >> 3, c = (e & 7) << 2, d = d0 + c;
+          const bool okq = q_lo + r < q_hi && d < D;
+          const bool okk = lw.lo + r < lw.hi && d < D;
+          cp_async16(smem_addr(sQ + r * kF32Ld + c),
+                     okq ? q + (q_lo + r) * ld + d : q, okq);
+          cp_async16(smem_addr(sK + r * kF32Ld + c),
+                     okk ? k + (lw.lo + r) * ld + d : k, okk);
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {    // 64 rows x 32 floats
+          const int e = tid + u * kF32Threads;
+          const int r = e >> 5, c = e & 31, d = d0 + c;
+          const bool okq = q_lo + r < q_hi && d < D;
+          const bool okk = lw.lo + r < lw.hi && d < D;
+          cp_async4(smem_addr(sQ + r * kF32Ld + c),
+                    okq ? q + (q_lo + r) * ld + d : q, okq);
+          cp_async4(smem_addr(sK + r * kF32Ld + c),
+                    okk ? k + (lw.lo + r) * ld + d : k, okk);
+        }
+      }
+    } else {                             // V chunk: 64 keys x 64 columns
+      const int c0 = col0 + (lj - ns) * kF32Vc;
+      if (vec) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {    // 64 rows x 16 pieces of 4 floats
+          const int e = tid + u * kF32Threads;
+          const int r = e >> 4, c = (e & 15) << 2, col = c0 + c;
+          const bool ok = lw.lo + r < lw.hi && col < D;
+          cp_async16(smem_addr(st + r * kF32Vc + c),
+                     ok ? v + (lw.lo + r) * ld + col : v, ok);
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {   // 64 rows x 64 floats
+          const int e = tid + u * kF32Threads;
+          const int r = e >> 6, c = e & 63, col = c0 + c;
+          const bool ok = lw.lo + r < lw.hi && col < D;
+          cp_async4(smem_addr(st + r * kF32Vc + c),
+                    ok ? v + (lw.lo + r) * ld + col : v, ok);
+        }
+      }
+    }
+    if (++lj == ns + ncg) {
+      lj = 0;
+      ++lw.sub;
+      l_live = lw.settle(p, index, count, qmin, qmax);
+    }
+  };
+
+  // -- the consumer ---------------------------------------------------------
+  int slot = 0;                          // the stage of the next job
+  issue(f32_smem);
+  cp_async_commit();
+  issue(f32_smem + kF32Stage);
+  cp_async_commit();
+  // wait for the next job's copies, free the stage two jobs back, refill it
+  auto step = [&]() -> const float* {
+    cp_async_wait<1>();
+    __syncthreads();
+    const int fill = slot == 0 ? 2 : slot - 1;
+    issue(f32_smem + fill * kF32Stage);
+    cp_async_commit();
+    const float* st = f32_smem + slot * kF32Stage;
+    slot = slot == 2 ? 0 : slot + 1;
+    return st;
+  };
+
+  int qseg[4];
+  float m[4], l[4], acc[4][CG][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q_lo + 4 * ty + i;
     qseg[i] = (p.q_seg != nullptr && row < q_hi)
                   ? p.q_seg[(long long)b * p.Sq + row] : 0;
     m[i] = kNegInf;
     l[i] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < kRtCols; ++c) acc[i][c] = 0.0f;
+    for (int c = 0; c < CG; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.0f;
   }
 
-  const int count = p.kv_count[qblk];
-  const int* index = p.kv_index + (long long)qblk * p.max_nk;
-  const int tile_qmin = p.q_offset + q_lo, tile_qmax = p.q_offset + q_hi - 1;
-  const int subs = (p.block_k + kRtRows - 1) / kRtRows;
-  for (int t = 0; t < count; ++t) {
-    const int kb = index[t];
-    const int kb_end = (kb + 1) * p.block_k;
-    for (int sub = 0; sub < subs; ++sub) {
-      const int k_lo = kb * p.block_k + sub * kRtRows;
-      const int k_hi = min(k_lo + kRtRows, kb_end);
-      if (p.causal && k_lo > tile_qmax) continue;
-      if (p.window >= 0 && k_hi - 1 <= tile_qmin - p.window) continue;
-      __syncthreads();  // the previous sub-tile's reads of sK, sV, sP are done
-      for (int e = threadIdx.x; e < kRtRows * D; e += kRtThreads) {
-        const int r = e / D, c = e % D;
-        const bool live = k_lo + r < k_hi;
-        const long long off = (long long)(k_lo + r) * qkv_d + c;
-        sK[r * ld + c] = live ? k[off] : 0.0f;
-        sV[r * D + c] = live ? v[off] : 0.0f;
-      }
-      __syncthreads();
-
-      float s[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        const float a0 = sQ[ty * ld + d], a1 = sQ[(ty + 16) * ld + d];
-        const float b0 = sK[tx * ld + d], b1 = sK[(tx + 16) * ld + d];
-        s[0][0] = fmaf(a0, b0, s[0][0]);
-        s[0][1] = fmaf(a0, b1, s[0][1]);
-        s[1][0] = fmaf(a1, b0, s[1][0]);
-        s[1][1] = fmaf(a1, b1, s[1][1]);
-      }
-
-      int kpos[2], kseg[2];
-      bool kin[2];
+  F32Walk w;
+  for (bool live = w.settle(p, index, count, qmin, qmax); live;
+       ++w.sub, live = w.settle(p, index, count, qmin, qmax)) {
+    float s[4][4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        kpos[j] = k_lo + tx + 16 * j;
-        kin[j] = kpos[j] < k_hi;
-        kseg[j] = (p.kv_seg != nullptr && kin[j])
-                      ? p.kv_seg[(long long)b * p.Skv + kpos[j]] : 0;
-      }
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        bool live[2];
-        float tmax = kNegInf;
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+    for (int jd = 0; jd < ns; ++jd) {
+      const float* sQ = step();
+      const float* sK = sQ + kF32Rows * kF32Ld;
+#pragma unroll kDdUnroll
+      for (int dd = 0; dd < kF32Dk; dd += 4) {
+        float4 kv[4];
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float x = s[i][j] * p.scale;
-          if (p.softcap > 0.0f) x = p.softcap * tanhf(x / p.softcap);
-          bool ok = kin[j];
-          if (p.causal) ok = ok && kpos[j] <= qpos[i];
-          if (p.window >= 0) ok = ok && kpos[j] > qpos[i] - p.window;
-          if (p.q_seg != nullptr) ok = ok && qseg[i] == kseg[j];
-          s[i][j] = ok ? x : kNegInf;
-          live[j] = ok;
-          tmax = fmaxf(tmax, s[i][j]);
+        for (int j = 0; j < 4; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(
+              sK + (tx + 16 * j) * kF32Ld + dd);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 qv = *reinterpret_cast<const float4*>(
+              sQ + (4 * ty + i) * kF32Ld + dd);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+            s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+            s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+            s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+          }
         }
-        // the 16 threads of a row are one half-warp
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-        const float m_new = fmaxf(m[i], tmax);
-        const float alpha = expf(m[i] - m_new);
-        float rsum = 0.0f;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float pr = live[j] ? expf(s[i][j] - m_new) : 0.0f;
-          sP[(ty + 16 * i) * (kRtRows + 1) + tx + 16 * j] = pr;
-          rsum += pr;
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-        l[i] = l[i] * alpha + rsum;
-        m[i] = m_new;
-#pragma unroll
-        for (int c = 0; c < kRtCols; ++c) acc[i][c] *= alpha;
       }
-      __syncthreads();
+    }
 
-#pragma unroll 2
-      for (int kk = 0; kk < kRtRows; ++kk) {
-        const float p0 = sP[ty * (kRtRows + 1) + kk];
-        const float p1 = sP[(ty + 16) * (kRtRows + 1) + kk];
-        const float* vrow = sV + kk * D + tx;
+    // online softmax over this sub-tile's 64 keys; P^T to shared memory
+    int kpos[4], kseg[4];
+    bool kin[4];
 #pragma unroll
-        for (int c = 0; c < kRtCols; ++c) {
-          if (c < ncols) {
-            const float vv = vrow[16 * c];
-            acc[0][c] = fmaf(p0, vv, acc[0][c]);
-            acc[1][c] = fmaf(p1, vv, acc[1][c]);
+    for (int j = 0; j < 4; ++j) {
+      kpos[j] = w.lo + tx + 16 * j;
+      kin[j] = kpos[j] < w.hi;
+      kseg[j] = (p.kv_seg != nullptr && kin[j])
+                    ? p.kv_seg[(long long)b * p.Skv + kpos[j]] : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = qmin + 4 * ty + i;
+      bool ok[4];
+      float tmax = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = s[i][j] * p.scale;
+        if (p.softcap > 0.0f) x = p.softcap * tanhf(x / p.softcap);
+        ok[j] = kin[j];
+        if (p.causal) ok[j] = ok[j] && kpos[j] <= qpos;
+        if (p.window >= 0) ok[j] = ok[j] && kpos[j] > qpos - p.window;
+        if (p.q_seg != nullptr) ok[j] = ok[j] && qseg[i] == kseg[j];
+        s[i][j] = ok[j] ? x : kNegInf;
+        tmax = fmaxf(tmax, s[i][j]);
+      }
+      // the 16 threads of a row are one half-warp
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+      const float m_new = fmaxf(m[i], tmax);
+      // every score of the row dead so far: m stays kNegInf, alpha = 1
+      const float alpha = expf(m[i] - m_new);
+      float rsum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = ok[j] ? expf(s[i][j] - m_new) : 0.0f;
+        rsum += s[i][j];
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
+      l[i] = l[i] * alpha + rsum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < CG; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][c][e] *= alpha;
+    }
+    // key tx + 16 j, rows 4 ty .. 4 ty + 3: eight consecutive keys of a
+    // quarter-warp at stride 68 floats fall in eight bank groups
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(sP + (tx + 16 * j) * kF32PLd + 4 * ty) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+
+    // O += P V, one 64-column group per job (the barrier of the first job
+    // also publishes P)
+#pragma unroll
+    for (int c = 0; c < CG; ++c) {
+      if (c < ncg) {
+        const float* sV = step();
+#pragma unroll 8
+        for (int kk = 0; kk < kF32Keys; ++kk) {
+          const float4 pv =
+              *reinterpret_cast<const float4*>(sP + kk * kF32PLd + 4 * ty);
+          const float4 vv =
+              *reinterpret_cast<const float4*>(sV + kk * kF32Vc + 4 * tx);
+          const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[i][c][0] = fmaf(pr[i], vv.x, acc[i][c][0]);
+            acc[i][c][1] = fmaf(pr[i], vv.y, acc[i][c][1]);
+            acc[i][c][2] = fmaf(pr[i], vv.z, acc[i][c][2]);
+            acc[i][c][3] = fmaf(pr[i], vv.w, acc[i][c][3]);
           }
         }
       }
     }
   }
+  cp_async_wait<0>();
 
-  float* out = (float*)p.out + ((long long)b * p.H + h) * p.Sq * qkv_d;
+  float* out = (float*)p.out + ((long long)b * p.H + h) * p.Sq * ld;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q_lo + ty + 16 * i;
+  for (int i = 0; i < 4; ++i) {
+    const int row = q_lo + 4 * ty + i;
     if (row >= q_hi) continue;
     const float safe = l[i] > 0.0f ? l[i] : 1.0f;
+    float* orow = out + row * ld;
 #pragma unroll
-    for (int c = 0; c < kRtCols; ++c)
-      if (c < ncols) out[(long long)row * qkv_d + tx + 16 * c] = acc[i][c] / safe;
+    for (int c = 0; c < CG; ++c) {
+      const int col = col0 + c * kF32Vc + 4 * tx;
+      if (c >= ncg || col >= D) continue;
+      if (vec) {
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(acc[i][c][0] / safe, acc[i][c][1] / safe,
+                        acc[i][c][2] / safe, acc[i][c][3] / safe);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < D) orow[col + e] = acc[i][c][e] / safe;
+      }
+    }
   }
 }
 
-cudaError_t launch_rt(const Params& p, int B, int nq, int D,
-                      cudaStream_t stream) {
-  if (D < 1 || D > kRtMaxD) return cudaErrorInvalidValue;
-  const size_t smem = rt_smem_bytes(D);
+template <int CG>
+cudaError_t launch_f32_groups(const Params& p, int B, int tiles, int D,
+                              int gpc, int nchunk, bool vec,
+                              cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_fwd_rt_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_attention_fwd_f32_kernel<CG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kF32SmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(nq * ((p.block_q + kRtRows - 1) / kRtRows), p.H, B);
-  flash_attention_fwd_rt_kernel<<<grid, kRtThreads, smem, stream>>>(p, D);
+  const long long blocks = (long long)B * p.H * nchunk;
+  const int ty = tiles < 65535 ? tiles : 65535;
+  const int tz = (tiles + ty - 1) / ty;
+  if (blocks > 0x7fffffffLL || tz > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, (unsigned)ty, (unsigned)tz);
+  flash_attention_fwd_f32_kernel<CG><<<grid, kF32Threads, kF32SmemBytes,
+                                       stream>>>(p, D, gpc, nchunk, tiles,
+                                                 vec ? 1 : 0);
   return cudaGetLastError();
+}
+
+// O's column groups of 64: up to kF32MaxGroups a block (D <= 512), else
+// split evenly over nchunk blocks on the grid; an instance per bound on the
+// groups (1, 2, 4, 8: O's registers set how many blocks share an SM), the
+// run-time count ncg <= the bound inside.
+cudaError_t launch_f32(const Params& p, int B, int nq, int D, bool vec,
+                       cudaStream_t stream) {
+  if (D < 1 || D > kRtMaxD) return cudaErrorInvalidValue;
+  const int groups = (D + kF32Vc - 1) / kF32Vc;
+  const int nchunk = (groups + kF32MaxGroups - 1) / kF32MaxGroups;
+  const int gpc = (groups + nchunk - 1) / nchunk;
+  const long long tiles =
+      (long long)nq * ((p.block_q + kF32Rows - 1) / kF32Rows);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (gpc <= 1)
+    return launch_f32_groups<1>(p, B, (int)tiles, D, gpc, nchunk, vec, stream);
+  if (gpc <= 2)
+    return launch_f32_groups<2>(p, B, (int)tiles, D, gpc, nchunk, vec, stream);
+  if (gpc <= 4)
+    return launch_f32_groups<4>(p, B, (int)tiles, D, gpc, nchunk, vec, stream);
+  return launch_f32_groups<8>(p, B, (int)tiles, D, gpc, nchunk, vec, stream);
 }
 
 bool aligned16(const void* ptr) {
@@ -1172,7 +1372,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    err = launch_rt(p, B, nq, D, s);
+    const bool vec = D % 4 == 0 && aligned16(q) && aligned16(k) &&
+                     aligned16(v) && aligned16(out);
+    err = launch_f32(p, B, nq, D, vec, s);
   } else if (dtype == 1 && D > 256) {
     const bool aligned = D % 8 == 0 && aligned16(q) && aligned16(k) &&
                          aligned16(v) && aligned16(out);

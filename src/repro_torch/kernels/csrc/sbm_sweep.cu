@@ -970,6 +970,21 @@ int sbm_emit_pairs_placement(int block_size, int ws, int wu) {
   return -1;
 }
 
+// The largest segment (records) pass C takes for these W on this card:
+// its lists, stages and summaries in shared memory, the masks in the
+// global scratch rows; 0 when not even one record's lists fit.
+int sbm_emit_pairs_max_block(int ws, int wu) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  const size_t room = (size_t)optin - kPassCStaticSmem;
+  const size_t fixed = pass_c_smem(0, ws, wu, false);
+  if (fixed >= room) return 0;
+  return (int)((room - fixed) / (6 * sizeof(int)));
+}
+
 // *general: incremented by each block that took the general path (the
 // caller zeroes it; nothing here reads it back).
 int sbm_emit_pairs(const int* owner, const int* is_upper, const int* is_sub,

@@ -21,12 +21,16 @@ launch in every case:
   on the same tensor cores with the width at run time; it pads D to a
   multiple of 64 inside the kernel and splits O by columns over a grid axis
   (chunks of at most 256), so the wrapper neither pads, copies nor slices.
-* float32 at any D up to ``RT_MAX_HEAD_DIM``: ``flash_attention_fwd_rt_kernel``,
-  which takes the width at run time (scalar float32 arithmetic, p kept
-  float32).
+* float32 at any D up to ``RT_MAX_HEAD_DIM``:
+  ``flash_attention_fwd_f32_kernel``, FFMA only (no TF32; p kept float32), the width at run time: 64-row q
+  tiles, 4 x 4 register score tiles fed by 16-byte shared loads, Q/K and V
+  streamed in chunks through a cp.async ring (shared memory independent
+  of D), O's 64-column groups in registers (above 512 split over two
+  blocks of the grid).
 
 Above ``RT_MAX_HEAD_DIM`` the wrapper raises :class:`ValidationError`: the
-run-time-width kernels' tiles must fit a block's shared memory.
+port's domain, which its tests pin (the wide bf16 kernel's tiles must fit a
+block's shared memory).
 
 Like the other wrappers it:
 
@@ -53,9 +57,9 @@ from repro_torch.kernels import ref as ref_lib
 
 HEAD_DIMS_ON_CARD = (64, 128, 256)     # the bf16 tensor-core instances
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: ``kRtMaxD`` of ``csrc/flash_attention.cu``: the widest head whose
-#: float32 run-time-width tiles fit a block's 232,448 bytes of shared memory
-#: (the wide bf16 kernel takes the same range)
+#: ``kRtMaxD`` of ``csrc/flash_attention.cu``: the widest head the port
+#: takes in either dtype (the wide bf16 kernel's shared memory would hold
+#: up to 640; the float32 kernel's does not grow with D)
 RT_MAX_HEAD_DIM = 593
 
 
@@ -65,13 +69,13 @@ def flash_route(d: int, dtype: torch.dtype) -> tuple:
     256), ``"padded"`` (bf16 at any other width up to 256, zero-padded to
     the next instance), ``"wide"`` (bf16 from 257, the tensor-core kernel
     with the width at run time) or ``"runtime"`` (float32 at any width, the
-    scalar kernel); up to ``RT_MAX_HEAD_DIM``, above which it raises
-    :class:`ValidationError`."""
+    float32 register-tile kernel); up to ``RT_MAX_HEAD_DIM``, above which it
+    raises :class:`ValidationError`."""
     if d > RT_MAX_HEAD_DIM:
         raise ValidationError(
             f"the flash kernel takes head_dim up to {RT_MAX_HEAD_DIM} (the "
-            f"run-time-width kernels' tiles must fit a block's shared "
-            f"memory), got {d}")
+            f"port's domain: the wide bf16 kernel's tiles must fit a block's "
+            f"shared memory), got {d}")
     if dtype != torch.bfloat16:
         return "runtime", d
     if d > HEAD_DIMS_ON_CARD[-1]:

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prefix as prefix_lib
+from repro_torch.core.errors import ValidationError
 from repro_torch.core.intervals import Extents
 from repro_torch.core.sweep import _indicator_deltas, _pad_stream, encode_endpoints
 from repro_torch.kernels.flash_attention import flash_attention_kernel
@@ -45,6 +46,40 @@ def sbm_count_kernel(subs: Extents, upds: Extents, *,
 
 def _num_words(count: int) -> int:
     return max(-(-count // 32), 1)
+
+
+def pass_c_scratch_bytes(n: int, m: int,
+                         block_size: int = ENUMERATE_BLOCK) -> int:
+    """Bytes of the (num_blocks, W) int32 word arrays that
+    :func:`sbm_enumerate_kernel` keeps alive at once for ``n`` subscriptions
+    and ``m`` updates: the Add/Del words of both sides, the two entering
+    sets and pass C's two scratch copies of them — four arrays of
+    ``ceil(n/32)`` words and four of ``ceil(m/32)`` a segment.  It grows as
+    (n+m)·(n+m)/block_size: about 1 GB at n = m = 1e6 and 98 GB at 1e7
+    (block 4096)."""
+    if n == 0 or m == 0:
+        return 0
+    num_blocks = -(-(2 * n + 2 * m) // block_size)   # the padded stream
+    return 4 * num_blocks * 4 * (_num_words(n) + _num_words(m))
+
+
+def card_segment(block_size: int, n: int, m: int) -> int:
+    """The segment size :func:`sbm_enumerate_kernel` runs at on the card:
+    ``block_size``, or where the delta-bitmask kernel
+    (:data:`~repro_torch.kernels.sbm_sweep.BITMASK_MAX_BLOCK`) or pass C
+    (:func:`~repro_torch.kernels.sbm_sweep.emit_pairs_max_block` for these
+    W) takes less, the largest segment both take, rounded down to a
+    multiple of 4 (pass B's 16-byte loads); builds the library."""
+    limit = min(sweep_kernels.BITMASK_MAX_BLOCK,
+                sweep_kernels.emit_pairs_max_block(_num_words(n),
+                                                   _num_words(m)))
+    if block_size <= limit:
+        return block_size
+    if limit < 4:
+        raise ValidationError(f"pass C takes no segment at n={n}, m={m} on "
+                              "this card (its mask summaries alone fill a "
+                              "block's shared memory)")
+    return limit - limit % 4
 
 
 def _type_bitmasks(ep, up, n: int, m: int, block_size: int):
@@ -96,12 +131,21 @@ def sbm_enumerate_kernel(subs: Extents, upds: Extents, *, max_pairs: int,
     :func:`repro_torch.core.enumerate.sbm_enumerate`, in pass C's
     segment-sequential order.  Each segment's region holds the largest
     segment total, read with one host sync, so no pair is ever dropped.
+
+    Any ``block_size`` is answered.  On the card a segment larger than the
+    delta-bitmask kernel or pass C takes runs at :func:`card_segment`'s
+    size instead (never on the plain versions): pass C writes each
+    segment's pairs in stream order and the stitch concatenates segments
+    in stream order, so the pairs, their order and the count do not depend
+    on the segment size.
     """
     dev = subs.lo.device
     n, m = subs.size, upds.size
     if n == 0 or m == 0:
         return (torch.full((max_pairs, 2), -1, dtype=torch.int32, device=dev),
                 _empty_count(dev))
+    if dev.type == "cuda":
+        block_size = card_segment(block_size, n, m)
     ep = _pad_stream(encode_endpoints(subs, upds), block_size)
     deltas = torch.stack(_indicator_deltas(ep))
     # pass B's per-endpoint counts stay here: pass C derives the same counts

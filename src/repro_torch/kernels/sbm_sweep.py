@@ -178,6 +178,14 @@ def emit_pairs_placement(block_size: int, ws: int, wu: int) -> str:
     return "shared" if place else "global"
 
 
+def emit_pairs_max_block(ws: int, wu: int) -> int:
+    """The largest segment (records) the pass-C kernel takes on the current
+    card with ``ws`` / ``wu`` words a side: its six per-record lists must
+    fit a block's shared memory beside the stages and the mask summaries
+    (about 9,267 records at the main path's W); builds the library."""
+    return int(_build.library().sbm_emit_pairs_max_block(ws, wu))
+
+
 def emit_pairs(owner: torch.Tensor, is_upper: torch.Tensor,
                is_sub: torch.Tensor, valid: torch.Tensor,
                sub_active0: torch.Tensor, upd_active0: torch.Tensor, *,
@@ -185,13 +193,15 @@ def emit_pairs(owner: torch.Tensor, is_upper: torch.Tensor,
     """Pass C: per-segment pair emission from the active sets entering
     each segment (``sub_active0``/``upd_active0``: (num_blocks, W) int32
     words).  ``owner`` must be clipped to >= 0 and lie below 32·W of its
-    side, padding marked valid=0.  Any records are taken, as by the Pallas
-    kernel: at an upper endpoint the counterpart set is emitted, then a
-    lower sets and an upper clears its own bit.  On the card the fast path
-    derives every slot base in closed form, which holds where every lower
-    finds its bit clear and every upper finds it set (a sorted stream with
-    the exact entering sets, as ``ops`` builds them); a block where one
-    does not replays its segment exactly instead.  The launch does not
+    side, padding marked valid=0; on the card ``block_size`` may be at
+    most :func:`emit_pairs_max_block` of these W.  Any records are taken,
+    as by the Pallas kernel: at an upper endpoint the counterpart set is
+    emitted, then a lower sets and an upper clears its own bit.  On the
+    card the fast path derives every slot base in closed form, which
+    holds where every lower finds its bit clear and every upper finds it
+    set (a sorted stream with the exact entering sets, as ``ops`` builds
+    them); a block where one does not replays its segment exactly
+    instead.  The launch does not
     wait: ``emit_pairs.general_blocks`` is then a (1,) int32 tensor on the
     card that counts the blocks of the last launch that took the replay
     (read it after a sync).
@@ -216,6 +226,12 @@ def emit_pairs(owner: torch.Tensor, is_upper: torch.Tensor,
                               f"kernel's: cap={cap} must be < 2**31")
     dev = owner.device
     ws, wu = sub_active0.shape[1], upd_active0.shape[1]
+    most = emit_pairs_max_block(ws, wu)
+    if block_size > most:
+        raise ValidationError(
+            f"the pass-C kernel takes segments of up to {most} records at "
+            f"W = {ws}/{wu} (its per-record lists must fit a block's shared "
+            f"memory), got block_size={block_size}")
     sub_mask = torch.empty_like(sub_active0)     # live active sets (scratch)
     upd_mask = torch.empty_like(upd_active0)
     out_i = torch.empty((nb, cap), dtype=torch.int32, device=dev)

@@ -17,6 +17,7 @@ import torch
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.convert import extents_from_arrays, model_params_from_arrays
 from repro_torch.core import intervals
+from repro_torch.core import prefix as tprefix
 from repro_torch.core.errors import ValidationError
 from repro_torch.core.incremental import IncrementalIndex
 from repro_torch.core.service import DDMService
@@ -132,6 +133,36 @@ def test_delta_bitmask_block_limit_is_the_kernels_alone():
         np.testing.assert_array_equal(g.numpy().view(np.uint32), w)
 
 
+def test_pass_c_block_limit_is_the_kernels_alone():
+    """Above pass C's shared-memory limit (about 9,300 records at small W)
+    only the kernel refuses (the ``cuda``-marked test checks that); on the
+    CPU the plain version takes any segment size and launches nothing."""
+    from repro_torch.core.sweep import _pad_stream, encode_endpoints
+
+    g = torch.Generator().manual_seed(4)
+    subs, upds = intervals.make_uniform_workload(300, 200, 5.0, generator=g,
+                                                 device="cpu")
+    ws, wu = tops._num_words(subs.size), tops._num_words(upds.size)
+    outs = []
+    for bs in (64, 12_000):
+        ep = _pad_stream(encode_endpoints(subs, upds), bs)
+        nb = ep.owner.shape[0] // bs
+        add_s, del_s, add_u, del_u = tops._type_bitmasks(
+            ep, ep.is_upper.to(torch.int32), subs.size, upds.size, bs)
+        args = (ep.owner.clamp(min=0), ep.is_upper.to(torch.int32),
+                ep.is_sub.to(torch.int32), (ep.owner >= 0).to(torch.int32),
+                tprefix.delta_scan_exclusive(add_s, del_s),
+                tprefix.delta_scan_exclusive(add_u, del_u))
+        assert args[4].shape == (nb, ws) and args[5].shape == (nb, wu)
+        before = tkernels.emit_pairs.launches
+        out_i, out_j = tkernels.emit_pairs(*args, block_size=bs, cap=4096)
+        assert tkernels.emit_pairs.launches == before
+        keep = out_i.flatten() >= 0
+        outs.append(torch.stack([out_i.flatten()[keep],
+                                 out_j.flatten()[keep]], 1))
+    assert outs[0].shape[0] > 0 and torch.equal(outs[0], outs[1])
+
+
 def test_chip_smoke_refuses_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
@@ -212,6 +243,131 @@ def test_delta_bitmask_kernel_matches_plain_on_any_records():
     with pytest.raises(ValidationError, match=str(limit)):
         tkernels.delta_bitmasks(over, over, over, num_words=1,
                                 block_size=limit + 1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_float32_flash_kernel_matches_plain_at_every_width():
+    """The float32 register-tile kernel against ``ref_flash_attention``
+    within 2e-5 (FLASH_TOL of chip_smoke), one launch a call: D = 1 to 593
+    (16-byte copies where D % 4 == 0, element copies otherwise, two blocks
+    of O columns above 512) at schedule units of 32 (a 64-row q tile
+    overhanging its block) and 512 (eight tiles a block), causal; every
+    feature (GQA 3:1, window, softcap, segments, q_offset, a global block)
+    at D = 63 and 200; q one element off 16-byte alignment at D = 64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build the kernels)")
+    gen = torch.Generator().manual_seed(21)
+
+    def check(b, h, hkv, sq, skv, d, blk, shift=0, window=None,
+              softcap=None, segments=False, num_global_blocks=0):
+        qf = torch.randn((b, h, sq, d), generator=gen) / d ** 0.25
+        buf = torch.empty(qf.numel() + shift, device="cuda")
+        q = buf[shift:].view(qf.shape)
+        q.copy_(qf)
+        k = (torch.randn((b, hkv, skv, d), generator=gen) / d ** 0.25).cuda()
+        v = torch.randn((b, hkv, skv, d), generator=gen).cuda()
+        seg = qseg = None
+        if segments:
+            seg = torch.sort(torch.randint(0, 3, (b, skv), generator=gen),
+                             dim=1).values.to(torch.int32).cuda()
+            qseg = seg[:, skv - sq:].contiguous()
+        idx, cnt, _ = tops.build_block_structure(
+            sq, skv, block_q=blk, block_k=blk, window=window,
+            num_global_blocks=num_global_blocks)
+        args = (q, k, v, torch.from_numpy(idx), torch.from_numpy(cnt), qseg,
+                seg)
+        kw = dict(scale=d ** -0.5, causal=True, window=window,
+                  softcap=softcap, block_q=blk, block_k=blk,
+                  q_offset=skv - sq)
+        before = flash_attention_kernel.launches
+        got = flash_attention_kernel(*args, **kw)
+        assert flash_attention_kernel.launches == before + 1
+        assert got.dtype == torch.float32 and got.shape == q.shape
+        want = tref.ref_flash_attention(*args, **kw)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+    for d in (1, 16, 63, 64, 96, 128, 200, 256, 257, 512, 593):
+        check(1, 2, 1, 96, 160, d, 32)
+        check(1, 2, 2, 512, 1024, d, 512)
+    for d in (63, 200):
+        check(2, 6, 2, 96, 192, d, 32, window=40, softcap=30.0,
+              segments=True, num_global_blocks=1)
+        check(1, 3, 1, 512, 1536, d, 512, window=700, softcap=50.0)
+    check(1, 2, 2, 128, 128, 64, 32, shift=1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_pass_c_kernel_refuses_segments_above_its_shared_memory():
+    """Pass C's limit, pinned beside the delta-bitmask kernel's: at
+    ``emit_pairs_max_block`` records a segment it launches and equals its
+    plain version; one record more and the wrapper raises
+    :class:`ValidationError` naming the limit, launching nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build the kernels)")
+    ws = wu = 4
+    most = tkernels.emit_pairs_max_block(ws, wu)
+    assert 9000 < most < tkernels.BITMASK_MAX_BLOCK
+    rng = np.random.default_rng(9)
+    for bs in (most, most + 1):
+        total = 2 * bs
+        owner = torch.from_numpy(rng.integers(0, 32 * ws, total)
+                                 .astype(np.int32)).cuda()
+        up, sub = (torch.from_numpy(rng.integers(0, 2, total)
+                                    .astype(np.int32)).cuda()
+                   for _ in range(2))
+        valid = torch.from_numpy((rng.random(total) < 0.01)
+                                 .astype(np.int32)).cuda()
+        act = torch.zeros((2, ws), dtype=torch.int32, device="cuda")
+        args = (owner, up, sub, valid, act, act)
+        before = tkernels.emit_pairs.launches
+        if bs > most:
+            with pytest.raises(ValidationError, match=str(most)):
+                tkernels.emit_pairs(*args, block_size=bs, cap=64)
+            assert tkernels.emit_pairs.launches == before
+            continue
+        got = tkernels.emit_pairs(*args, block_size=bs, cap=64)
+        assert tkernels.emit_pairs.launches == before + 1
+        want = tref.ref_emit_pairs(*args, block_size=bs, cap=64)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_enumerate_kernel_answers_at_any_segment_size():
+    """``ops.sbm_enumerate_kernel`` on the card at block sizes 4096, 16385
+    and 32768 (above the delta-bitmask kernel's and pass C's limits, so run
+    at ``card_segment``'s size): the same pairs in the same order and the
+    same count, equal to the plain versions' at 32768 and, as a set, to the
+    rank-table engine's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build the kernels)")
+    from repro_torch.core import enumerate as tenum
+    from repro_torch.core.runtime import pair_set
+
+    g = torch.Generator().manual_seed(5)
+    subs, upds = intervals.make_uniform_workload(20_000, 20_000, 1.0,
+                                                 generator=g, device="cuda")
+    n, m = subs.size, upds.size
+    limit = min(tkernels.BITMASK_MAX_BLOCK,
+                tkernels.emit_pairs_max_block(tops._num_words(n),
+                                              tops._num_words(m)))
+    seg = tops.card_segment(32768, n, m)
+    assert tops.card_segment(4096, n, m) == 4096
+    assert seg == tops.card_segment(16385, n, m)
+    assert seg <= limit < seg + 4 and seg % 4 == 0
+    k = int(tops.sbm_count_kernel(subs, upds))
+    outs = [tops.sbm_enumerate_kernel(subs, upds, max_pairs=k, block_size=bs)
+            for bs in (4096, 16385, 32768)]
+    for pairs, count in outs:
+        assert int(count) == k and torch.equal(pairs, outs[0][0])
+    cpu = [intervals.Extents(e.lo.cpu(), e.hi.cpu()) for e in (subs, upds)]
+    plain, count = tops.sbm_enumerate_kernel(*cpu, max_pairs=k,
+                                             block_size=32768)
+    assert int(count) == k and torch.equal(plain, outs[0][0].cpu())
+    want, _ = tenum.sbm_enumerate(subs, upds, max_pairs=k)
+    assert pair_set(outs[0][0]) == pair_set(want)
     torch.cuda.synchronize()
 
 

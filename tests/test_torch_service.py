@@ -18,9 +18,11 @@ from repro_torch import convert
 from repro_torch.api import DDMService, ValidationError
 from repro_torch.core import ddim as tddim
 from repro_torch.core import runtime as truntime
+from repro_torch.core import service as tservice
 from repro_torch.core.enumerate import sbm_enumerate
 from repro_torch.core.incremental import IncrementalIndex
 from repro_torch.kernels.bitmatch import sbm_bitmatrix_kernel
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels.ops import sbm_enumerate_kernel
 from test_conformance import EDGE_CASES
 
@@ -207,6 +209,101 @@ def test_service_rebuild_runs_the_kernel_engine_plan():
     assert stats["by_engine"].get("service_rebuild") == 1
     last = [s for s in port.recorder.history() if s.engine == "service_rebuild"]
     assert last[-1].retries == 0 and last[-1].recompiles == 0
+
+
+def _count_engines(monkeypatch):
+    """Counts of the two rebuild engines' calls: the pass-C kernel engine
+    and the rank-table ``sbm_enumerate`` (the ddim composition's default)."""
+    calls = {"kernel": 0, "rank_table": 0}
+
+    def counted(key, fn):
+        def wrapper(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    monkeypatch.setattr(tops, "sbm_enumerate_kernel",
+                        counted("kernel", tops.sbm_enumerate_kernel))
+    monkeypatch.setattr(tddim, "sbm_enumerate",
+                        counted("rank_table", tddim.sbm_enumerate))
+    return calls
+
+
+@pytest.mark.parametrize("dims", [1, 2])
+def test_rebuild_engine_follows_the_scratch_budget(monkeypatch, dims):
+    """The rebuild takes the pass-C kernel engine while its scratch fits
+    the budget, and the rank-table engine one byte below it: the same rule
+    at d = 1 and on the generator projection at d = 2."""
+    calls = _count_engines(monkeypatch)
+    rng = np.random.default_rng(dims)
+    n, m = 60, 45
+    shape = (lambda k: k) if dims == 1 else (lambda k: (k, dims))
+    port = DDMService(dims=dims, device="cpu")
+    for side, k in (("sub", n), ("upd", m)):
+        lo = rng.uniform(0, 100, shape(k)).astype(np.float32)
+        port.register(side, lo, lo + np.float32(6))
+    port.flush()
+    scratch = tops.pass_c_scratch_bytes(n, m)
+    assert scratch > 0
+    want = None
+    for budget, engine in ((scratch, "kernel"), (scratch - 1, "rank_table")):
+        monkeypatch.setattr(tservice, "REBUILD_SCRATCH_BUDGET", budget)
+        before = dict(calls)
+        port.invalidate_cache()
+        got = port.pairs()
+        assert {k: calls[k] - before[k] for k in calls} == \
+            {k: int(k == engine) for k in calls}, (budget, calls)
+        want = got if want is None else want
+        assert got == want and len(got) == port.match_count() > 0
+
+
+@pytest.mark.parametrize("seed,dims", [(0, 1), (1, 1), (2, 2), (3, 2)])
+def test_rank_table_route_matches_kernel_route_and_reference(monkeypatch,
+                                                            seed, dims):
+    """With the budget at 0 every rebuild takes the rank-table engine: the
+    port's pairs(), match_count() and flush() BatchDeltas equal, batch by
+    batch, the default (kernel-engine) route's and the JAX reference
+    DDMService's, with the cache dropped before every other query so the
+    rebuild runs."""
+    calls = _count_engines(monkeypatch)
+    rng = np.random.default_rng(seed)
+    ref = ref_api.DDMService(dims=dims, capacity=4)
+    kernel_route = DDMService(dims=dims, capacity=4, device="cpu")
+    rank_route = DDMService(dims=dims, capacity=4, device="cpu")
+
+    def on_rank_route(fn, *args):
+        with monkeypatch.context() as mp:
+            mp.setattr(tservice, "REBUILD_SCRATCH_BUDGET", 0)
+            before = calls["kernel"]
+            out = fn(*args)
+            assert calls["kernel"] == before
+            return out
+
+    live = {"sub": set(), "upd": set()}
+    for step in range(8):
+        for op in _service_ops(rng, live, steps=5, dims=dims):
+            want = _apply(ref, op)
+            np.testing.assert_array_equal(
+                np.asarray(_apply(kernel_route, op)), np.asarray(want))
+            np.testing.assert_array_equal(
+                np.asarray(on_rank_route(_apply, rank_route, op)),
+                np.asarray(want))
+            if op[0] == "register":
+                live[op[1]].update(np.atleast_1d(want).tolist())
+            elif op[0] == "unregister":
+                live[op[1]].difference_update(np.atleast_1d(op[2]).tolist())
+        want = ref.flush()
+        assert kernel_route.flush() == want, f"step {step}: BatchDelta"
+        assert on_rank_route(rank_route.flush) == want, f"step {step}"
+        if step % 2:
+            for svc in (ref, kernel_route, rank_route):
+                svc.invalidate_cache()
+        want_k, want_pairs = ref.match_count(), ref.pairs()
+        assert kernel_route.match_count() == want_k
+        assert on_rank_route(rank_route.match_count) == want_k
+        assert kernel_route.pairs() == want_pairs
+        assert on_rank_route(rank_route.pairs) == want_pairs
+    assert calls["rank_table"] > 0 and calls["kernel"] > 0
 
 
 def test_service_rejects_d_above_one_and_keeps_the_error_hierarchy():

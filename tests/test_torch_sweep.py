@@ -554,6 +554,23 @@ def test_enumerate_kernel_arrays_match_pallas_interpret(name, max_pairs):
     assert int(k) == int(k_r)
 
 
+@pytest.mark.parametrize("block_size", [16, 4096, 32768])
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_enumerate_kernel_output_does_not_depend_on_segment_size(name,
+                                                                 block_size):
+    """Pass C writes each segment's pairs in stream order and the stitch
+    concatenates segments in stream order: the engine's buffer and count
+    at any segment size equal those at 64, element for element (on the
+    card a segment above the kernels' limits runs at ``card_segment``'s
+    size, which this makes safe)."""
+    (_, _), (ts, tu) = WORKLOADS[name]()
+    want, k_want = tops.sbm_enumerate_kernel(ts, tu, max_pairs=4096,
+                                             block_size=64)
+    got, k = tops.sbm_enumerate_kernel(ts, tu, max_pairs=4096,
+                                       block_size=block_size)
+    assert torch.equal(got, want) and int(k) == int(k_want) > 0
+
+
 @pytest.mark.parametrize("max_pairs", [16, 4096])
 @pytest.mark.parametrize("name", sorted(WORKLOADS))
 def test_sbm_enumerate_order_matches_reference(name, max_pairs):
@@ -585,6 +602,36 @@ def test_planned_enumeration_is_retry_free_and_counts_builds():
     assert stats.capacity == truntime.round_up_pow2(int(count))
     assert rec.calls == 1
     assert truntime.pair_set(pairs) == tsweep.sequential_sbm_pairs_numpy(ts, tu)
+
+
+@pytest.mark.parametrize("n,m,block_size,want", [
+    # ceil(4e6 / 4096) = 977 segments x 8 arrays x 31,250 words: ~1 GB
+    (10 ** 6, 10 ** 6, 4096, 977_000_000),
+    # ceil(4e7 / 4096) = 9,766 segments x 8 x 312,500 words: ~98 GB
+    (10 ** 7, 10 ** 7, 4096, 97_660_000_000),
+    (10 ** 5, 10 ** 5, 4096, 9_800_000),        # the main path: ~10 MB
+    (33, 1, 64, 4 * 2 * 4 * (2 + 1)),           # words round up
+    (0, 5, 4096, 0),
+])
+def test_pass_c_scratch_bytes(n, m, block_size, want):
+    """The pass-C engine's live (num_blocks, W) words, as the engine
+    allocates them: Add/Del of both sides, both entering sets, pass C's two
+    scratch copies."""
+    assert tops.pass_c_scratch_bytes(n, m, block_size) == want
+
+
+def test_pass_c_scratch_bytes_counts_the_engines_arrays():
+    """On a small stream the reckoning equals the bytes of the arrays the
+    engine builds: the four bitmask outputs and the two entering sets (pass
+    C's scratch copies are the entering sets' shapes again)."""
+    (_, _), (ts, tu) = WORKLOADS["uniform"]()
+    bs = 64
+    sadd, sdel, uadd, udel = tops.sbm_delta_bitmasks(ts, tu, block_size=bs)
+    s0 = tprefix.delta_scan_exclusive(sadd, sdel)
+    u0 = tprefix.delta_scan_exclusive(uadd, udel)
+    arrays = (sadd, sdel, uadd, udel, s0, u0, s0, u0)
+    assert sum(a.numel() * a.element_size() for a in arrays) == \
+        tops.pass_c_scratch_bytes(ts.size, tu.size, bs)
 
 
 def test_round_up_pow2_matches_reference_ladder():
