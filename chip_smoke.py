@@ -138,6 +138,33 @@ Phases (any failure exits non-zero and prints no result line):
     decode steps on the card and on a ``device="cpu"`` twin with the same
     weights: last-position logits and KV caches within 1e-3 relative, and
     equal greedy tokens.
+14. The DDM surface on the card, timed as a whole beside the script's
+    total so far.  (a) At the matching benchmark's bf/rank cell (n = m =
+    1e5, α = 100, uniform): ``rank_count``, ``bf_count(block=2048)``,
+    ``sbm_count`` under each ``scan_impl`` and ``grid_count(cap=2048)``
+    (overflow 0) equal the sequential sweep's K; ``grid_count`` at its
+    default cap gives the CPU's (count, overflow), overflow > 0, and its
+    strict form raises ``GridOverflowError``; K past 2**31 (65,536 x
+    32,769 identical extents) is exact on ``bf_count``, ``rank_count`` and
+    ``sbm_count_exact``; device time of each call.  (b) ``sbm_count``
+    under the three scans at n = m = 1e6, α = 1, equal to the kernel
+    count, and ``sbm_enumerate``'s buffers under the three at the main
+    path's size, identical; device times.  (c) A ``Broker(journal=True,
+    flush_interval=0.01)`` with two sessions of 1e5 regions a side (d = 1
+    uniform, d = 2 tall-thin), four producer threads each submitting,
+    per session, 2,500 single-region moves, 100 registers and 100
+    unregisters: every ticket resolves, each session's ``pairs()`` equals
+    ``replay_journal``'s into a ``device="cpu"`` service, a forced
+    degraded read (``grid_count`` for d = 1, ``probe_count`` for d = 2)
+    equals the same estimator on the replay's state, a healthy read is
+    exact; the four sweep kernels' launch counts, zeroed before the load,
+    are > 0 after it; flush p50/p99 and the admission counters printed.
+    (d) Every engine of ``repro_torch.api.engines_for(d)``, d = 1, 2, 3,
+    on ``cuda`` extents through ``check_engine``: edge cases (ties,
+    touching endpoints, -0.0, infinite bounds, empty sides, n = m = 1)
+    and seeded uniform, clustered and tall-thin workloads of 400 to 2,000
+    regions; pass C's and the bit-matrix kernel's launch counts, zeroed
+    before, > 0 after.
 
 The build prints every kernel's registers, shared memory and spills from
 nvcc's ``-Xptxas -v`` report, and SASS opcode counts (the float32 flash
@@ -151,7 +178,7 @@ port under SRC (another checkout's ``src/``, default this one's), so
 that two commits' float32 kernels are timed in one call on one card.
 The last lines are the ``{"kernels": [...]}`` record, the flash rows at
 gemma2-2b's shapes, the launch counts (d = 1 main path, d-dim service
-path, the two serving paths), the phase timings,
+path, the two serving paths, phase 14), the phase timings,
 the card line, and ``{"ok": true, "device": {...}}``.
 Data come from a fixed seed.  Exits 2 without a result when no CUDA device
 is present or the script stands outside the repository.
@@ -308,6 +335,26 @@ SOURCES = dict.fromkeys(
     "src/repro_torch/kernels/csrc/sbm_sweep.cu")
 SOURCES["bitmatch"] = "src/repro_torch/kernels/csrc/bitmatch.cu"
 SOURCES["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
+# phase 14: the DDM surface.  (a) the matching benchmark's bf/rank cell
+# (benchmarks/matching.py: n = m = 1e5, alpha = 100, uniform, L = 1e6);
+# grid_count's cap that holds every cell there, and bf_count's block
+SURFACE_N, SURFACE_ALPHA = 100_000, 100.0
+GRID_CAP_EXACT = 2048
+BF_BLOCK = 2048
+# n * m identical extents: K passes 2**31 (the JAX package's int32 wraps)
+WIDE_K = (65_536, 32_769)
+SCANS = ("two_level", "blelloch", "xla")
+# (c) the broker: sessions of BROKER_N regions a side, BROKER_THREADS
+# producers each submitting, per session, BROKER_MOVES single-region moves,
+# BROKER_CHURN registers and BROKER_CHURN unregisters
+BROKER_N = 100_000
+BROKER_THREADS = 4
+BROKER_MOVES = 2_500
+BROKER_CHURN = 100
+# (d) the conformance battery: seeded workloads (n, m) per d
+BATTERY_SEEDED = {1: (("uniform", 1000, 1000), ("clustered", 600, 400)),
+                  2: (("uniform", 500, 500), ("tall_thin", 300, 300)),
+                  3: (("uniform", 400, 300), ("tall_thin", 200, 200))}
 DEVICE = "cuda"
 # the sweep kernels' names in a profile (the rebuild trace sums each)
 SWEEP_KERNELS = ("block_sums_kernel", "emission_kernel",
@@ -449,6 +496,7 @@ def card_line() -> str:
 def main(argv=None) -> int:
     import torch
 
+    t_start = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
     rows_only = argv[:1] == ["--flash-f32-rows"]
     src = pathlib.Path(argv[1]).resolve() if rows_only and len(argv) > 1 \
@@ -488,6 +536,7 @@ def main(argv=None) -> int:
     smoke.serve()
     smoke.serve_gemma()
     smoke.model_twin()
+    smoke.ddm_surface(card, t_start)
     smoke.report(card)
     return 0
 
@@ -1976,6 +2025,344 @@ class Smoke:
               f"steps: logits and KV caches within {worst:.3g} relative of "
               f"the cpu twin, greedy tokens {g_tok} equal", flush=True)
 
+    # -- phase 14: the DDM surface ---------------------------------------
+    def ddm_surface(self, card: str, t_start: float):
+        """Phase 14: (a) the core engines at the matching benchmark's
+        bf/rank cell, (b) the scan variants at full size, (c) the broker,
+        (d) the conformance battery, all on the card."""
+        t0 = time.perf_counter()
+        self.surface_core()
+        self.surface_scans()
+        self.surface_broker()
+        self.surface_battery()
+        secs = time.perf_counter() - t0
+        self.phase_ms["phase 14"] = secs * 1e3
+        print(f"phase 14: {secs:.3f} s; chip_smoke so far "
+              f"{time.perf_counter() - t_start:.3f} s", flush=True)
+        print(card, flush=True)
+
+    def surface_core(self):
+        """(a) rank_count, bf_count, sbm_count under each scan and
+        grid_count at a cap that holds every cell, each equal to the
+        sequential sweep on the host; grid_count at its default cap equal
+        to the same call on the CPU (an overflowing lower bound), and its
+        strict form raising; K past 2**31 exact on three engines."""
+        from repro_torch import core
+        from repro_torch.core.intervals import Extents
+
+        torch = self.torch
+        subs, upds = self.workload(SURFACE_N, SURFACE_ALPHA, SEED + 40)
+        k = core.sequential_sbm_count_numpy(subs, upds)
+        calls = {"rank_count": lambda: core.rank_count(subs, upds),
+                 f"bf_count block={BF_BLOCK}":
+                     lambda: core.bf_count(subs, upds, block=BF_BLOCK)}
+        for scan in SCANS:
+            calls[f"sbm_count {scan}"] = (
+                lambda scan=scan: core.sbm_count(subs, upds, scan_impl=scan))
+        calls[f"grid_count cap={GRID_CAP_EXACT}"] = (
+            lambda: core.grid_count(subs, upds, cap=GRID_CAP_EXACT))
+        calls["grid_count cap=512"] = lambda: core.grid_count(subs, upds)
+        outs = {name: fn() for name, fn in calls.items()}
+        torch.cuda.synchronize()
+        for name, out in outs.items():
+            got = out if isinstance(out, tuple) else (out, None)
+            require(all(t.device.type == self.dev.type for t in got
+                        if t is not None), f"(a) {name}: result off the card")
+        for name in list(calls)[:5]:
+            require(int(outs[name]) == k, f"(a) {name} = {int(outs[name])} "
+                    f"!= the sequential sweep's {k}")
+        count, over = outs[f"grid_count cap={GRID_CAP_EXACT}"]
+        require((int(count), int(over)) == (k, 0),
+                f"(a) grid_count cap={GRID_CAP_EXACT}: ({int(count)}, "
+                f"{int(over)}) != ({k}, 0)")
+        count, over = outs["grid_count cap=512"]
+        host = (Extents(subs.lo.cpu(), subs.hi.cpu()),
+                Extents(upds.lo.cpu(), upds.hi.cpu()))
+        c_count, c_over = core.grid_count(*host)
+        require((int(count), int(over)) == (int(c_count), int(c_over))
+                and int(over) > 0 and int(count) < k,
+                f"(a) grid_count cap=512: ({int(count)}, {int(over)}) on the "
+                f"card, ({int(c_count)}, {int(c_over)}) on the CPU, K={k}")
+        raised = False
+        try:
+            core.grid_count(subs, upds, strict=True)
+        except core.GridOverflowError:
+            raised = True
+        require(raised, "(a) grid_count(strict=True) did not raise "
+                "GridOverflowError on an overflowing cap")
+        n, m = WIDE_K
+        ws = Extents(torch.zeros(n, device=self.dev),
+                     torch.ones(n, device=self.dev))
+        wu = Extents(torch.zeros(m, device=self.dev),
+                     torch.ones(m, device=self.dev))
+        wide = (int(core.bf_count(ws, wu, block=16_384)),
+                int(core.rank_count(ws, wu)), core.sbm_count_exact(ws, wu))
+        require(wide == (n * m,) * 3,
+                f"(a) K past 2**31: bf/rank/sbm {wide} != {n * m}")
+        times = {}
+        for name, fn in calls.items():
+            times[name] = self.time_ms(fn, 3)
+            self.phase_ms[f"surface (a) {name}"] = times[name]
+        print(f"phase 14 (a) n=m={SURFACE_N} alpha={SURFACE_ALPHA:g} uniform: "
+              f"K={k} on rank_count, bf_count, sbm_count x {len(SCANS)} "
+              f"scans and grid_count cap={GRID_CAP_EXACT} (overflow 0); "
+              f"grid_count cap=512 ({int(count)}, overflow {int(over)}) == "
+              f"the CPU's, strict raises; K={n * m} past 2**31 exact; "
+              "device ms per call: "
+              + json.dumps({k_: round(v, 4) for k_, v in times.items()}),
+              flush=True)
+
+    def surface_scans(self):
+        """(b) sbm_count under the three scans at full size A, equal to
+        each other and to the kernel count; sbm_enumerate's buffer under
+        the three scans at the main path's size, identical."""
+        from repro_torch import core
+
+        torch = self.torch
+        n_a, alpha_a = FULL[0]
+        subs, upds = self.workload(n_a, alpha_a, SEED)
+        ks = {scan: int(core.sbm_count(subs, upds, scan_impl=scan))
+              for scan in SCANS}
+        k_kernel = int(self.ops.sbm_count_kernel(subs, upds))
+        require(set(ks.values()) == {k_kernel},
+                f"(b) sbm_count by scan {ks} != the kernel count {k_kernel}")
+        times = {f"sbm_count {scan} n=m={n_a}": self.time_ms(
+            lambda scan=scan: core.sbm_count(subs, upds, scan_impl=scan), 3)
+            for scan in SCANS}
+        g = torch.Generator().manual_seed(SEED + 2)
+        subs, upds = core.make_uniform_workload(MAIN_N, MAIN_N, 1.0,
+                                                length=LENGTH, generator=g,
+                                                device=self.dev)
+        k = int(core.sbm_count(subs, upds))
+        bufs = {scan: core.sbm_enumerate(subs, upds, max_pairs=k + 64,
+                                         scan_impl=scan) for scan in SCANS}
+        base = bufs[SCANS[0]][0]
+        for scan, (pairs, count) in bufs.items():
+            require(int(count) == k and torch.equal(pairs, base),
+                    f"(b) sbm_enumerate {scan}: count {int(count)} (K={k}) "
+                    "or its buffer differs from two_level's")
+        for scan in SCANS:
+            times[f"sbm_enumerate {scan} n=m={MAIN_N}"] = self.time_ms(
+                lambda scan=scan: core.sbm_enumerate(
+                    subs, upds, max_pairs=k + 64, scan_impl=scan), 3)
+        for name, ms in times.items():
+            self.phase_ms[f"surface (b) {name}"] = ms
+        print(f"phase 14 (b) scans {list(SCANS)}: sbm_count K={k_kernel} at "
+              f"n=m={n_a} alpha={alpha_a:g} on each == the kernel count; "
+              f"sbm_enumerate buffers identical at n=m={MAIN_N} (K={k}); "
+              "device ms per call: "
+              + json.dumps({k_: round(v, 4) for k_, v in times.items()}),
+              flush=True)
+
+    @staticmethod
+    def region_bounds(rng, d: int, seg: float):
+        """One region's bounds: d = 1 a uniform thin segment; d = 2 wide
+        in dim 0, thin in dim 1 (the tall-thin shape)."""
+        thin = float(rng.uniform(0.0, LENGTH - seg))
+        if d == 1:
+            return thin, thin + seg
+        wide = float(rng.uniform(0.0, 0.02 * LENGTH))
+        return [wide, thin], [wide + 0.98 * LENGTH, thin + seg]
+
+    def surface_broker(self):
+        """(c) Two broker sessions (d = 1 uniform, d = 2 tall-thin) of
+        BROKER_N regions a side on the card, loaded by BROKER_THREADS
+        producer threads; every ticket resolves, pairs() equals the
+        journal's replay into a ``device="cpu"`` service, a forced degraded
+        read equals its estimator on the replay's state, a healthy read is
+        exact.  The sweep kernels' counts are zeroed before the load and
+        read after the joins and the reads: each must be > 0.  The
+        admission policy blocks producers for up to a minute (the default
+        5 s would turn a slow flush into rejected tickets)."""
+        import threading
+
+        import numpy as np
+        from repro_torch import api, core
+        from repro_torch.core import ddim as ddim_lib
+
+        torch, K = self.torch, self.K
+        t0 = time.perf_counter()
+        broker = api.Broker(journal=True, flush_interval=0.01,
+                            admission=api.AdmissionPolicy(block_timeout=60.0))
+        g = torch.Generator().manual_seed(SEED + 41)
+        uniform = core.make_uniform_workload(BROKER_N, BROKER_N, 1.0,
+                                             length=LENGTH, generator=g,
+                                             device="cpu")
+        g = torch.Generator().manual_seed(SEED + 42)
+        tall = core.make_tall_thin_workload(BROKER_N, BROKER_N, 1.0,
+                                            length=LENGTH, d=2, wide_dim=0,
+                                            generator=g, device="cpu")
+        sessions = {}
+        for name, d, (subs, upds) in (("uniform d=1", 1, uniform),
+                                      ("tall-thin d=2", 2, tall)):
+            block = (lambda x: x.numpy()) if d == 1 \
+                else (lambda x: x.T.contiguous().numpy())
+            sess = broker.create_session(name, dims=d, device=DEVICE)
+            tickets = [sess.register(side, block(e.lo), block(e.hi))
+                       for side, e in (("sub", subs), ("upd", upds))]
+            sess.flush()
+            sessions[name] = (sess, d, {side: t.result(timeout=600)
+                                        for side, t in zip(("sub", "upd"),
+                                                           tickets)})
+        self.phase_ms["surface (c) bulk register + flush"] = \
+            (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        for w in K.KERNEL_WRAPPERS:
+            w.launches = 0
+        seg = LENGTH / (2 * BROKER_N)             # alpha = 1
+        span = BROKER_N // BROKER_THREADS
+        every = BROKER_MOVES // BROKER_CHURN
+        tickets = [[] for _ in range(BROKER_THREADS)]
+        errors = []
+        barrier = threading.Barrier(BROKER_THREADS)
+
+        def producer(k):
+            """Per session: moves of rids of its own range, a register and
+            an unregister (of its range's tail, never moved) every
+            ``every`` moves.  Touches no tensor."""
+            rng = np.random.default_rng(SEED + 50 + k)
+            base = k * span
+            try:
+                barrier.wait(timeout=60.0)
+                for sess, d, rids in sessions.values():
+                    for i in range(BROKER_MOVES):
+                        side = ("sub", "upd")[i % 2]
+                        rid = int(rids[side][base + int(rng.integers(
+                            0, span - BROKER_CHURN))])
+                        tickets[k].append(sess.move(
+                            side, rid, *self.region_bounds(rng, d, seg)))
+                        if i % every == 0:
+                            j = i // every
+                            tickets[k].append(sess.register(
+                                side, *self.region_bounds(rng, d, seg)))
+                            tickets[k].append(sess.unregister(
+                                side, int(rids[side][base + span - 1 - j])))
+            except Exception as exc:    # reported below, after the joins
+                errors.append(repr(exc))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=producer, args=(k,))
+                   for k in range(BROKER_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        require(not any(th.is_alive() for th in threads) and not errors,
+                f"(c) producers did not finish cleanly: {errors}")
+        failed = []
+        for t in (t for per in tickets for t in per):
+            try:
+                t.result(timeout=600)
+            except api.DDMError as exc:
+                failed.append(repr(exc))
+        load_s = time.perf_counter() - t0
+        self.phase_ms["surface (c) load (submit to last ticket)"] = load_s * 1e3
+        n_tickets = sum(len(per) for per in tickets)
+        require(not failed and n_tickets == BROKER_THREADS * len(sessions)
+                * (BROKER_MOVES + 2 * BROKER_CHURN),
+                f"(c) {len(failed)} of {n_tickets} tickets failed: "
+                f"{failed[:3]}")
+        lines = {}
+        for name, (sess, d, _) in sessions.items():
+            t0 = time.perf_counter()
+            replay = api.replay_journal(sess.journal, dims=d,
+                                        service_factory=_warm_service,
+                                        device="cpu")
+            self.phase_ms[f"surface (c) {name} cpu replay"] = \
+                (time.perf_counter() - t0) * 1e3
+            host = [t.compact(t.live_ids(), "cpu")
+                    for t in (replay._subs, replay._upds)]
+            if d == 1:
+                estimator, source = "grid", "grid_count"
+                want_est = int(core.grid_count(*host)[0])
+            else:
+                estimator, source = "probe", "probe_count"
+                gen, counts = ddim_lib.select_dimension(*host)
+                want_est = int(counts[gen])
+            sess.degrade = api.DegradePolicy(max_queue_depth=0,
+                                             estimator=estimator)
+            degraded = sess.match_count()
+            sess.degrade = api.DegradePolicy()
+            require(not degraded.exact and degraded.source == source
+                    and degraded.count == want_est,
+                    f"(c) {name}: degraded read {degraded} != {source} "
+                    f"{want_est} on the replay's state")
+            exact = sess.match_count()
+            pairs = sess.pairs()
+            want = replay.pairs()
+            require(exact.exact and exact.count == len(pairs),
+                    f"(c) {name}: healthy read {exact} != |pairs| "
+                    f"{len(pairs)}")
+            require(pairs == want, f"(c) {name}: pairs() differ from the "
+                    f"journal's replay on the CPU ({len(pairs ^ want)} pairs)")
+            lines[name] = (len(pairs), degraded.count)
+        broker.close()
+        torch.cuda.synchronize()
+        launches = {w.__name__: w.launches for w in K.KERNEL_WRAPPERS}
+        require(all(v > 0 for v in launches.values()),
+                f"(c) a sweep kernel was not launched by the broker's "
+                f"sessions: {launches}")
+        self.broker_launches = launches
+        st = broker.stats()
+        per = {name: {key: st["sessions"][name][key] for key in (
+            "flush_p50_us", "flush_p99_us", "accepted", "rejected", "shed",
+            "expired", "failed", "applied", "flushes")}
+            for name in sessions}
+        print(f"phase 14 (c) broker: {BROKER_THREADS} producers, per session "
+              f"{BROKER_THREADS * BROKER_MOVES} moves, "
+              f"{BROKER_THREADS * BROKER_CHURN} registers and unregisters on "
+              f"n=m={BROKER_N}; {n_tickets} tickets resolved in "
+              f"{load_s:.3f} s; (K, degraded estimate) "
+              f"{json.dumps(lines)} == the cpu replay's; launches "
+              f"{json.dumps(launches)}; stats {json.dumps(per)}", flush=True)
+
+    def surface_battery(self):
+        """(d) Every engine of the port's registry for d = 1, 2, 3 on
+        ``cuda`` extents through ``check_engine``: edge cases and seeded
+        workloads; the kernel engines' launch counts must be > 0."""
+        from repro_torch import api
+        from repro_torch.testing import conformance
+
+        torch, K, B = self.torch, self.K, self.B
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        emit = next(w for w in K.KERNEL_WRAPPERS if w.__name__ == "emit_pairs")
+        bitmatch = next(w for w in B.KERNEL_WRAPPERS
+                        if w.__name__ == "bitmatch")
+        emit.launches = bitmatch.launches = 0
+        graded = {}
+        for d in (1, 2, 3):
+            engines = api.engines_for(d)
+            cases = dict(battery_edge_cases(d))
+            for kind, n, m in BATTERY_SEEDED[d]:
+                cases[f"{kind} n={n} m={m}"] = battery_workload(kind, d, n, m,
+                                                                SEED + 60 + d)
+            for case, (lo_s, hi_s, lo_u, hi_u) in cases.items():
+                subs, upds = (self.extents(lo, hi)
+                              for lo, hi in ((lo_s, hi_s), (lo_u, hi_u)))
+                for engine in engines:
+                    mm = conformance.check_engine(engine, subs, upds)
+                    require(mm is None, f"(d) d={d} {case}: {mm and mm.describe()}")
+            graded[d] = (len(engines), len(cases))
+        torch.cuda.synchronize()
+        launches = {emit.__name__: emit.launches,
+                    bitmatch.__name__: bitmatch.launches}
+        require(all(v > 0 for v in launches.values()),
+                f"(d) a kernel engine did not launch its kernel: {launches}")
+        self.battery_launches = launches
+        secs = time.perf_counter() - t0
+        self.phase_ms["surface (d) battery"] = secs * 1e3
+        print(f"phase 14 (d) conformance on the card: (engines, cases) by d "
+              f"{json.dumps(graded)} all conform in {secs:.3f} s; launches "
+              f"{json.dumps(launches)}", flush=True)
+
+    def extents(self, lo, hi):
+        from repro_torch.core.intervals import Extents
+
+        torch = self.torch
+        return Extents(torch.from_numpy(lo).to(self.dev),
+                       torch.from_numpy(hi).to(self.dev))
+
     def report(self, card: str):
         torch = self.torch
         self.rows["flash_attention"]["max_abs_err"] = self.err["flash_attention"]
@@ -1990,12 +2377,86 @@ class Smoke:
               + json.dumps(list(self.gemma_rows.values())))
         print(f"launches on the {SERVE_GEMMA['arch']} serving path: "
               + json.dumps(self.gemma_launches))
+        print("launches in phase 14 (broker sessions; conformance battery): "
+              + json.dumps([self.broker_launches, self.battery_launches]))
         print("timings_ms: " + json.dumps(
             {k: round(v, 3) for k, v in self.phase_ms.items()}))
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
+
+
+def _warm_service(**kwargs):
+    """A DDMService whose (empty) match cache is warm, so that each flush
+    keeps it current by its delta and ``pairs()`` never rebuilds."""
+    from repro_torch.api import DDMService
+
+    svc = DDMService(**kwargs)
+    svc.pairs()
+    return svc
+
+
+def battery_edge_cases(d: int):
+    """The battery's edge cases for d dims: name -> (lo_s, hi_s, lo_u,
+    hi_u) float32 numpy arrays ((n,) for d = 1, (d, n) above): ties on an
+    integer grid, touching endpoints, -0.0, infinite bounds, empty sides,
+    n = m = 1.  Above d = 1 each dimension holds the 1-d case's extents in
+    its own order."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 70 + d)
+    inf = np.inf
+
+    def side(lo, hi):
+        lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+        if d == 1:
+            return lo, hi
+        perms = [rng.permutation(lo.shape[0]) for _ in range(d)]
+        return (np.stack([lo[p] for p in perms]),
+                np.stack([hi[p] for p in perms]))
+
+    def case(subs, upds):
+        return side(*subs) + side(*upds)
+
+    lo_s = rng.integers(0, 12, 40)
+    lo_u = rng.integers(0, 12, 30)
+    return {
+        "ties": case((lo_s, lo_s + rng.integers(0, 4, 40)),
+                     (lo_u, lo_u + rng.integers(0, 3, 30))),
+        "touching": case(([0, 2, 4, 6], [1, 3, 5, 7]),
+                         ([1, 3, 5, 7], [2, 4, 6, 8])),
+        "negative zero": case(([-0.0, -1, 0, -0.0], [0, -0.0, 0, 1]),
+                              ([0, -0.0, -2, 0], [-0.0, 0, -0.0, 3])),
+        "infinite bounds": case(([-inf, -inf, 3, 7], [inf, 5, inf, 9]),
+                                ([-inf, 4, 10, 6], [-1, inf, inf, 6])),
+        "empty subs": case(([], []), ([0, 1], [1, 2])),
+        "empty upds": case(([0, 1], [1, 2]), ([], [])),
+        "n=m=1": case(([3], [4]), ([4], [5])),
+    }
+
+
+def battery_workload(kind: str, d: int, n: int, m: int, seed: int):
+    """A seeded workload of the battery as numpy (lo_s, hi_s, lo_u, hi_u):
+    uniform, clustered (Gaussian hot spots) or tall-thin (dim 0 wide)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    seg = np.float32(8.0 * LENGTH / (n + m))
+    shape = (n + m,) if d == 1 else (d, n + m)
+    if kind == "clustered":
+        centers = rng.uniform(0.0, LENGTH, 8)
+        lo = centers[rng.integers(0, 8, shape)] \
+            + rng.normal(0.0, LENGTH / 400, shape)
+    else:
+        lo = rng.uniform(0.0, LENGTH - seg, shape)
+    lo = lo.astype(np.float32)
+    hi = lo + seg
+    if kind == "tall_thin":
+        lo[0] = rng.uniform(0.0, 0.02 * LENGTH, n + m).astype(np.float32)
+        hi[0] = lo[0] + np.float32(0.98 * LENGTH)
+    return (np.ascontiguousarray(lo[..., :n]), np.ascontiguousarray(hi[..., :n]),
+            np.ascontiguousarray(lo[..., n:]), np.ascontiguousarray(hi[..., n:]))
 
 
 def _live_mask(window):

@@ -16,17 +16,16 @@ Counts are exact int64 tensors.
 """
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import prefix as prefix_lib
 from repro_torch.core import runtime as runtime_lib
 from repro_torch.core.intervals import Extents, intersect_1d
 from repro_torch.core.sweep import (_pad_stream, emission_rank_tables,
                                     encode_endpoints, probe_count,
+                                    resolve_cumsum,
                                     sequential_sbm_pairs_numpy)
 
 
@@ -36,21 +35,24 @@ def _empty_result(max_pairs: int, device):
 
 
 def sbm_enumerate(subs: Extents, upds: Extents, *, max_pairs: int,
-                  num_segments: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+                  num_segments: int = 8, scan_impl: str = "two_level"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All matching (i, j) pairs via the sort-based sweep (1-d extents).
 
     Returns (pairs (max_pairs, 2) int32 padded with (−1, −1), count as a
     0-d int64 tensor).  Deterministic order: subscription emitters by id,
     then update emitters by id, each range ordered by the counterpart's
-    lower-endpoint rank — the JAX package's order.  Requires lo <= hi.
+    lower-endpoint rank — the JAX package's order.  ``scan_impl`` picks
+    the prefix scan of the rank tables (:func:`~repro_torch.core.sweep.
+    resolve_cumsum`); the buffer is the same under every variant.
+    Requires lo <= hi.
     """
+    cumsum_fn = resolve_cumsum(scan_impl, num_segments)
     dev = subs.lo.device
     n, m = subs.size, upds.size
     if n == 0 or m == 0:
         return _empty_result(max_pairs, dev)
     ep = _pad_stream(encode_endpoints(subs, upds), num_segments)
-    cumsum_fn = functools.partial(prefix_lib.cumsum_two_level,
-                                  num_segments=num_segments)
     a_start, a_cnt, b_start, b_cnt, subs_by_lo, upds_by_lo = \
         emission_rank_tables(ep, n, m, cumsum_fn)
 
@@ -78,6 +80,7 @@ def sbm_enumerate(subs: Extents, upds: Extents, *, max_pairs: int,
 
 def sbm_enumerate_planned(subs: Extents, upds: Extents, *,
                           num_segments: int = 8,
+                          scan_impl: str = "two_level",
                           policy: runtime_lib.CapacityPolicy =
                           runtime_lib.DEFAULT_POLICY,
                           recorder: runtime_lib.StatsRecorder | None = None):
@@ -95,11 +98,12 @@ def sbm_enumerate_planned(subs: Extents, upds: Extents, *,
         return (torch.full((0, 2), -1, dtype=torch.int32, device=dev),
                 torch.zeros((), dtype=torch.int64, device=dev), stats)
 
-    k, probe_s = probe_count(subs, upds, num_segments=num_segments)
+    k, probe_s = probe_count(subs, upds, num_segments=num_segments,
+                             scan_impl=scan_impl)
 
     def fn(s, u, *, max_pairs):
         return sbm_enumerate(s, u, max_pairs=max_pairs,
-                             num_segments=num_segments)
+                             num_segments=num_segments, scan_impl=scan_impl)
 
     return runtime_lib.execute_enumeration(
         fn, subs, upds, estimate=k, policy=policy, engine="sweep",

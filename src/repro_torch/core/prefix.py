@@ -2,8 +2,13 @@
 
 * :func:`cumsum_two_level` — the paper's two-level scan: P local scans, a
   master scan over the P partials, then a broadcast-add.
-* :func:`delta_combine_bits` / :func:`delta_scan_exclusive` — Algorithm 6's
-  set monoid on boolean masks or packed bitmask words.
+* :func:`cumsum_blelloch` — the work-efficient tree scan (Blelloch 1989):
+  an up-sweep and a down-sweep of log₂ N levels each.
+* :func:`cumsum_saturating_i32` — an int32 cumsum that pins at 2³¹−1
+  instead of wrapping.
+* :func:`delta_combine_bool` / :func:`delta_combine_bits` /
+  :func:`delta_scan_exclusive` — Algorithm 6's set monoid on boolean masks
+  or packed bitmask words.
 * :func:`pack_bits` / :func:`unpack_bits` — the packed word layout shared
   with the JAX package: bit ``k`` of word ``w`` is element ``32·w + k``;
   :func:`popcount32` counts a word's set bits.
@@ -59,6 +64,57 @@ def cumsum_two_level(x: torch.Tensor, num_segments: int,
     return (local + carry[..., None]).reshape(x.shape)              # step 3
 
 
+def cumsum_blelloch(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis as a tree scan (Blelloch
+    1989): the row is zero-padded to a power of two, an up-sweep leaves
+    each subtree's sum at its right end, a down-sweep turns those sums into
+    the exclusive scan, and adding ``x`` makes it inclusive.  2·log₂ N
+    levels, each one elementwise pass over a strided view; the additions
+    stay in ``x``'s dtype (int32 wraps as the JAX package's tree scan
+    does).  Not ``torch.cumsum``: this is the scan the variant exists to
+    compare."""
+    n = x.shape[-1]
+    size = 1
+    while size < n:
+        size *= 2
+    lead = x.shape[:-1]
+    t = x.new_zeros(lead + (size,))
+    t[..., :n] = x
+    t = t.reshape(-1, size)
+    stride = 1
+    while stride < size:                                 # up-sweep
+        v = t.view(-1, size // (2 * stride), 2 * stride)
+        v[..., 2 * stride - 1] += v[..., stride - 1]
+        stride *= 2
+    t[:, size - 1] = 0
+    while stride > 1:                                    # down-sweep
+        stride //= 2
+        v = t.view(-1, size // (2 * stride), 2 * stride)
+        left = v[..., stride - 1].clone()
+        v[..., stride - 1] = v[..., 2 * stride - 1]
+        v[..., 2 * stride - 1] += left
+    return t[:, :n].reshape(lead + (n,)) + x
+
+
+_INT32_MAX = 2 ** 31 - 1
+_INT32_MIN = -2 ** 31
+
+
+def cumsum_saturating_i32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Inclusive int32 cumsum of *nonnegative* values that saturates at
+    2³¹−1: each prefix is ``min(Σ, 2³¹−1)`` exactly, also where the total
+    passes 2³¹ (the JAX package's contract for offset tables: monotonic,
+    pinned at the sentinel, never wrapped).  The prefix is taken in exact
+    int64 and clamped.
+
+    Negative inputs lie outside that contract (there the JAX package's
+    result depends on its scan tree); the port returns each exact prefix
+    clamped into the int32 range.
+    """
+    exact = torch.cumsum(x.to(torch.int64), dim=dim, dtype=torch.int64)
+    return exact.clamp(_INT32_MIN, _INT32_MAX).to(torch.int32)
+
+
 # --------------------------------------------------------------------------
 # Delta-set monoid (Algorithm 6, set semantics)
 # --------------------------------------------------------------------------
@@ -67,12 +123,17 @@ def cumsum_two_level(x: torch.Tensor, num_segments: int,
 #     A' = (A1 \ D2) ∪ A2      D' = (D1 ∪ D2) \ A2
 # Identity: (∅, ∅).  Works elementwise on boolean masks or bitmask words.
 
-def delta_combine_bits(e1: Tuple[torch.Tensor, torch.Tensor],
+def delta_combine_bool(e1: Tuple[torch.Tensor, torch.Tensor],
                        e2: Tuple[torch.Tensor, torch.Tensor]):
     """Compose two delta sets (boolean masks or int32 bitmask words)."""
     a1, d1 = e1
     a2, d2 = e2
     return (a1 & ~d2) | a2, (d1 | d2) & ~a2
+
+
+# the packed-word name of the same monoid (the combine is elementwise
+# bitwise, so one body serves masks and words)
+delta_combine_bits = delta_combine_bool
 
 
 def delta_scan_exclusive(add: torch.Tensor, rem: torch.Tensor) -> torch.Tensor:

@@ -10,9 +10,12 @@ Pipeline (paper §4):
     counterpart extents is emitted.
 
 For counting semantics the delta-set monoid of Algorithm 6 degenerates to
-±1 integer deltas and the sweep collapses to four prefix sums.  Counts are
-exact int64 tensors: the port behaves like the JAX package with x64
-enabled, never like its saturating int32 mode.
+±1 integer deltas and the sweep collapses to four prefix sums, under any
+of three scans (``scan_impl``, :func:`resolve_cumsum`).  The faithful
+set form (Algorithm 6 with Sadd/Sdel materialized) is
+:func:`segment_delta_sets` / :func:`active_sets_at_segment_starts`.
+Counts are exact int64 tensors: the port behaves like the JAX package
+with x64 enabled, never like its saturating int32 mode.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prefix as prefix_lib
+from repro_torch.core.errors import ValidationError
 from repro_torch.core.intervals import Extents, _np
 
 
@@ -112,41 +116,74 @@ def _pad_stream(ep: EndpointStream, multiple: int) -> EndpointStream:
     )
 
 
-def _two_level(num_segments: int):
-    return functools.partial(prefix_lib.cumsum_two_level,
-                             num_segments=num_segments)
+def resolve_cumsum(scan_impl: str, num_segments: int):
+    """Inclusive int32 cumsum primitive for a named scan backend.
+
+    ``scan_impl``: ``'two_level'`` (paper Fig. 5,
+    :func:`~repro_torch.core.prefix.cumsum_two_level`), ``'blelloch'``
+    (the tree scan, :func:`~repro_torch.core.prefix.cumsum_blelloch`) or
+    ``'xla'`` — the JAX package's name for its framework scan, kept for
+    the surface: in the port it is the framework's own ``torch.cumsum``.
+    Any other value raises :class:`ValidationError`.
+    """
+    if scan_impl == "two_level":
+        return functools.partial(prefix_lib.cumsum_two_level,
+                                 num_segments=num_segments)
+    if scan_impl == "blelloch":
+        return prefix_lib.cumsum_blelloch
+    if scan_impl == "xla":
+        return functools.partial(torch.cumsum, dim=-1, dtype=torch.int32)
+    raise ValidationError(f"unknown scan_impl {scan_impl!r}")
 
 
-def sbm_count(subs: Extents, upds: Extents, *,
-              num_segments: int = 8) -> torch.Tensor:
+def sbm_count(subs: Extents, upds: Extents, *, num_segments: int = 8,
+              scan_impl: str = "two_level") -> torch.Tensor:
     """Parallel SBM (counting form): K = |{(i,j): S_i ∩ U_j ≠ ∅}| as a 0-d
     int64 tensor on the extents' device.
 
-    Per-endpoint emissions fit int32 (each is at most max(n, m)); their sum
-    is taken in int64, so K is exact beyond 2³¹ — the JAX package's
-    behaviour under x64 (without x64 it saturates at 2³¹−1).
+    ``scan_impl`` picks the prefix scan (:func:`resolve_cumsum`); every
+    variant gives the same K.  Per-endpoint emissions fit int32 (each is
+    at most max(n, m)); their sum is taken in int64, so K is exact beyond
+    2³¹ — the JAX package's behaviour under x64 (without x64 it saturates
+    at 2³¹−1).
     """
+    cumsum_fn = resolve_cumsum(scan_impl, num_segments)
     if subs.lo.shape[-1] == 0 or upds.lo.shape[-1] == 0:
         return torch.zeros((), dtype=torch.int64, device=subs.lo.device)
     ep = _pad_stream(encode_endpoints(subs, upds), num_segments)
-    emit = _emission_counts(*_indicator_deltas(ep), _two_level(num_segments))
+    emit = _emission_counts(*_indicator_deltas(ep), cumsum_fn)
     return emit.sum(dtype=torch.int64)
 
 
-def sbm_count_exact(subs: Extents, upds: Extents, *,
-                    num_segments: int = 8) -> int:
+def sbm_count_exact(subs: Extents, upds: Extents, *, num_segments: int = 8,
+                    scan_impl: str = "two_level") -> int:
     """K as a Python int (the count is exact int64 on every path)."""
-    return int(sbm_count(subs, upds, num_segments=num_segments))
+    return int(sbm_count(subs, upds, num_segments=num_segments,
+                         scan_impl=scan_impl))
 
 
-def probe_count(subs: Extents, upds: Extents, *,
-                num_segments: int = 8) -> tuple:
+def probe_count(subs: Extents, upds: Extents, *, num_segments: int = 8,
+                scan_impl: str = "two_level") -> tuple:
     """Plan-aware counting sweep: ``(K, seconds)`` for the runtime planner.
     The exact K seeds :func:`repro_torch.core.runtime.initial_capacity`, so
     the follow-on enumeration needs zero retries."""
     t0 = time.perf_counter()
-    k = sbm_count_exact(subs, upds, num_segments=num_segments)
+    k = sbm_count_exact(subs, upds, num_segments=num_segments,
+                        scan_impl=scan_impl)
     return k, time.perf_counter() - t0
+
+
+def sbm_active_profile(subs: Extents, upds: Extents, *, num_segments: int = 8):
+    """Per-endpoint (active_sub, active_upd) counts *after* each endpoint —
+    the paper's Fig. 4 quantity (|SubSet| as the sweep advances), over the
+    padded stream.  Returns ``(ep, active_sub, active_upd)``, the counts
+    int32 (two-level scans)."""
+    ep = _pad_stream(encode_endpoints(subs, upds), num_segments)
+    sub_lo, sub_up, upd_lo, upd_up = _indicator_deltas(ep)
+    cumsum_fn = resolve_cumsum("two_level", num_segments)
+    active_sub = cumsum_fn(sub_lo) - cumsum_fn(sub_up)
+    active_upd = cumsum_fn(upd_lo) - cumsum_fn(upd_up)
+    return ep, active_sub, active_upd
 
 
 # --------------------------------------------------------------------------
@@ -202,6 +239,64 @@ def emission_rank_tables(ep: EndpointStream, n: int, m: int, cumsum_fn):
     return rank_tables_from_cumsums(
         ep.is_sub, ep.is_upper, ep.owner,
         cumsum_fn(sub_lo), cumsum_fn(upd_lo), n, m)
+
+
+# --------------------------------------------------------------------------
+# Faithful set-form (Algorithm 5 + 6): delta sets + monoid prefix
+# --------------------------------------------------------------------------
+
+def segment_delta_sets(ep: EndpointStream, num_segments: int, n: int, m: int):
+    """Algorithm 6 lines 1-17, vectorized.
+
+    Returns (Sadd, Sdel, Uadd, Udel), each (P, n|m) boolean on the
+    stream's device: Sadd[p] = subs whose *lower* is in segment p and
+    upper is not; Sdel[p] = subs whose *upper* is in segment p and lower
+    is not.  ``ep`` must be padded to a multiple of ``num_segments``
+    (:class:`ValidationError` otherwise).
+    """
+    total = ep.values.shape[0]
+    if total % num_segments:
+        raise ValidationError("stream must be padded to a segment multiple")
+    dev = ep.values.device
+    seg = total // num_segments
+    seg_of = torch.arange(total, dtype=torch.int64, device=dev) // seg
+    segs = torch.arange(num_segments, dtype=torch.int64, device=dev)
+    real = ep.owner >= 0
+    owner = ep.owner.to(torch.int64)
+
+    def segment_of(sel, count):
+        # segment holding each extent's selected endpoint (-1: none);
+        # deselected records land in a spare slot past the end
+        out = torch.full((count + 1,), -1, dtype=torch.int64, device=dev)
+        out.scatter_(0, torch.where(sel, owner, count),
+                     torch.where(sel, seg_of, -1))
+        return out[:count]
+
+    def per_type(side, count):
+        lo_seg = segment_of(side & ~ep.is_upper & real, count)
+        up_seg = segment_of(side & ep.is_upper & real, count)
+        add = (lo_seg[None, :] == segs[:, None]) \
+            & (up_seg[None, :] != segs[:, None])
+        rem = (up_seg[None, :] == segs[:, None]) \
+            & (lo_seg[None, :] != segs[:, None])
+        return add, rem
+
+    sadd, sdel = per_type(ep.is_sub, n)
+    uadd, udel = per_type(~ep.is_sub, m)
+    return sadd, sdel, uadd, udel
+
+
+def active_sets_at_segment_starts(subs: Extents, upds: Extents,
+                                  num_segments: int):
+    """SubSet[p]/UpdSet[p] of Algorithm 6 lines 18-21 (boolean masks):
+    ``(ep, sub_active, upd_active)`` with the active sets *entering* each
+    segment of the padded stream."""
+    n, m = subs.lo.shape[0], upds.lo.shape[0]
+    ep = _pad_stream(encode_endpoints(subs, upds), num_segments)
+    sadd, sdel, uadd, udel = segment_delta_sets(ep, num_segments, n, m)
+    sub_active = prefix_lib.delta_scan_exclusive(sadd, sdel)
+    upd_active = prefix_lib.delta_scan_exclusive(uadd, udel)
+    return ep, sub_active, upd_active
 
 
 # --------------------------------------------------------------------------
@@ -264,3 +359,19 @@ def sequential_sbm_pairs_numpy(subs: Extents, upds: Extents) -> set:
                 upd_set.discard(o)
                 out.update((i, o) for i in sub_set)
     return out
+
+
+def sequential_sbm_pairs_numpy_ddim(subs: Extents, upds: Extents,
+                                    sweep_dim: int = 0) -> set:
+    """Algorithm 4 extended to d dims: the 1-d sweep on ``sweep_dim``, then
+    the paper-§3 projection filter on every other dimension — the host
+    reference of the d-dim engines (any ``sweep_dim`` gives the same set)."""
+    if subs.ndim_space == 1:
+        return sequential_sbm_pairs_numpy(subs, upds)
+    cand = sequential_sbm_pairs_numpy(subs.dim(sweep_dim), upds.dim(sweep_dim))
+    s_lo, s_hi, u_lo, u_hi = (_np(a) for a in (subs.lo, subs.hi,
+                                              upds.lo, upds.hi))
+    others = [d for d in range(subs.ndim_space) if d != sweep_dim]
+    return {(i, j) for i, j in cand
+            if all(s_lo[d, i] <= u_hi[d, j] and u_lo[d, j] <= s_hi[d, i]
+                   for d in others)}

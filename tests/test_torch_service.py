@@ -4,8 +4,9 @@ with the JAX package, on the CPU.
 The same churn scripts (the reference fuzzer's ``random_script``) and the
 same service operations drive both packages, for d = 1, 2 and 3; every
 ``BatchDelta``, rid, count and pair set must be identical, batch by batch.
-The port's engines (1-d and d-dim) are registered into the reference's
-conformance registry for the duration of a test and graded by its battery.
+The engines of the port's own registry (repro_torch.testing.conformance,
+1-d and d-dim) are registered into the reference's conformance registry
+for the duration of a test and graded by its battery.
 """
 import jax
 import numpy as np
@@ -19,11 +20,9 @@ from repro_torch.api import DDMService, ValidationError
 from repro_torch.core import ddim as tddim
 from repro_torch.core import runtime as truntime
 from repro_torch.core import service as tservice
-from repro_torch.core.enumerate import sbm_enumerate
 from repro_torch.core.incremental import IncrementalIndex
-from repro_torch.kernels.bitmatch import sbm_bitmatrix_kernel
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.ops import sbm_enumerate_kernel
+from repro_torch.testing import conformance as tconformance
 from test_conformance import EDGE_CASES
 
 jax.config.update("jax_platform_name", "cpu")
@@ -343,85 +342,23 @@ def _port_sides(subs, upds):
                                         np.asarray(upds.hi), device="cpu"))
 
 
-def _sweep(subs, upds):
-    s, u = _port_sides(subs, upds)
-    return truntime.pairs_via_retry(
-        lambda a, b, max_pairs: sbm_enumerate(a, b, max_pairs=max_pairs), s, u)
-
-
-def _sweep_kernel(subs, upds):
-    s, u = _port_sides(subs, upds)
-    return truntime.pairs_via_retry(
-        lambda a, b, max_pairs: sbm_enumerate_kernel(
-            a, b, max_pairs=max_pairs, block_size=64), s, u)
-
-
-def _index(subs, upds, **kw):
-    idx = IncrementalIndex(dims=1, capacity=4, device="cpu", **kw)
-    adds = {}
-    for side, ext in (("sub", subs), ("upd", upds)):
-        lo = np.asarray(ext.lo, np.float32)
-        if lo.size:
-            adds[side] = (np.arange(lo.size, dtype=np.int64), lo,
-                          np.asarray(ext.hi, np.float32))
-    if adds:
-        idx.apply_batch_arrays(adds=adds, want_delta=False)
-    return idx.all_pairs()
-
-
-def _service(subs, upds):
-    s_lo, s_hi = np.asarray(subs.lo), np.asarray(subs.hi)
-    u_lo, u_hi = np.asarray(upds.lo), np.asarray(upds.hi)
-    dims = subs.ndim_space
-    if dims > 1:                                  # the (b, d) block layout
-        s_lo, s_hi, u_lo, u_hi = s_lo.T, s_hi.T, u_lo.T, u_hi.T
-    svc = DDMService(dims=dims, capacity=4, device="cpu")
-    sids = svc.register("sub", s_lo, s_hi)
-    uids = svc.register("upd", u_lo, u_hi)
-    inv_s = {int(r): i for i, r in enumerate(sids)}
-    inv_u = {int(r): j for j, r in enumerate(uids)}
-    return {(inv_s[a], inv_u[b]) for a, b in svc.pairs()}
-
-
-def _ddim(**kw):
+def _on_port(engine):
+    """A port registry engine as a runner over the reference's extents:
+    the same bounds, as the port's extents on the CPU."""
     def pairs(subs, upds):
-        s, u = _port_sides(subs, upds)
-        return truntime.pairs_via_retry(
-            lambda a, b, max_pairs: tddim.enumerate_matches_ddim(
-                a, b, max_pairs=max_pairs, **kw), s, u)
+        return engine.pairs(*_port_sides(subs, upds))
     return pairs
-
-
-def _bitmatrix_kernel(subs, upds):
-    s, u = _port_sides(subs, upds)
-    return truntime.pairs_via_retry(
-        lambda a, b, max_pairs: sbm_bitmatrix_kernel(a, b,
-                                                     max_pairs=max_pairs),
-        s, u)
-
-
-# name -> (pairs runner, supported dims; None = every d)
-PORT_ENGINES = {
-    "torch_sweep": (_sweep, (1,)),
-    "torch_sweep_kernel": (_sweep_kernel, (1,)),
-    "torch_incremental_flat": (lambda s, u: _index(s, u, index_impl="flat"),
-                               (1,)),
-    "torch_incremental_blocked": (lambda s, u: _index(s, u, block_target=8),
-                                  (1,)),
-    "torch_service": (_service, (1, 2, 3)),
-    "torch_ddim_sweep": (_ddim(method="sweep"), None),
-    "torch_sweep_gen0": (_ddim(method="sweep", generator_dim=0), (2, 3, 4)),
-    "torch_bitmatrix": (_ddim(method="bitmatrix"), None),
-    "torch_bitmatrix_kernel": (_bitmatrix_kernel, None),
-}
 
 
 @pytest.fixture
 def port_engines():
+    """Every engine of the port's registry (its built-ins: the sweeps and
+    the kernel enumeration, the blocked oracle, the bit-matrix engines, the
+    incremental indexes, the service and the facade), registered into the
+    reference's registry as ``torch_<name>`` for the test."""
     engines = [conformance.register(conformance.MatchEngine(
-        name, fn, dims=dims, stateful=name.startswith(("torch_inc",
-                                                       "torch_serv"))))
-        for name, (fn, dims) in PORT_ENGINES.items()]
+        f"torch_{e.name}", _on_port(e), dims=e.dims, stateful=e.stateful))
+        for e in tconformance.all_engines().values()]
     try:
         yield engines
     finally:
