@@ -114,9 +114,12 @@ Phases (any failure exits non-zero and prints no result line):
     ``ops.flash_attention`` (one launch, counted), beside SDPA; row 6e:
     the same shapes in float32 on the float32 kernel (within 2e-5 of its
     plain version), beside SDPA in float32 with TF32 off, its bound at the
-    float32 rate; and row 6f: smollm-360m's prefill shapes in float32 (the
+    float32 rate; row 6f: smollm-360m's prefill shapes in float32 (the
     width the model twin runs) on the same kernel, beside SDPA in float32
-    with TF32 off and ``enable_gqa``.
+    with TF32 off and ``enable_gqa``; and row 6g: granite-moe-3b-a800m's
+    prefill shapes (B = 4, H = 24, Hkv = 8, S = 2048, D = 64, bf16, causal
+    512-blocks) through ``ops.flash_attention``, beside SDPA with
+    ``enable_gqa`` (its launches: phase 15's).
 11. The serving path: smollm-360m at full width and depth (32 layers,
     bfloat16 compute, float32 weights from a seeded generator) behind
     ``ServeEngine`` with 4 slots answers 8 requests of 2048-token prompts,
@@ -165,6 +168,26 @@ Phases (any failure exits non-zero and prints no result line):
     and seeded uniform, clustered and tall-thin workloads of 400 to 2,000
     regions; pass C's and the bit-matrix kernel's launch counts, zeroed
     before, > 0 after.
+15. granite-moe-3b-a800m at full width and depth (32 layers of attention,
+    24/8 heads of 64, and MoE, 40 experts top-8, sort-based dispatch;
+    3,299,182,080 parameters, 881,690,112 active) behind ``ServeEngine``
+    with 4 slots: 8 requests of 2048-token prompts, 16 new tokens each
+    (max_len 2560); the checks of phase 11, flash launches 32 x 2 waves =
+    64 (counts zeroed just before).  Prints each prefill wave's drop
+    fraction (a wave's four prompts form one dispatch group, capacity 2048
+    an expert); then a profiled wave: device time by class (flash, matrix
+    products, the dispatch's sort / gather / scatter kernels, the rest),
+    idle share and device events.  Then a 2-layer full-width float32 twin
+    (TF32 off): a 1024-token prefill and 4 greedy decode steps on the card
+    and on a ``device="cpu"`` twin: equal expert choices at every MoE
+    call, logits and KV caches within 1e-3 relative, equal tokens.
+16. mamba2-2.7b at full width and depth (64 attention-free SSD layers,
+    80 heads of 64, state 128) behind ``ServeEngine`` with 4 slots: 4
+    requests of 2048-token prompts, 16 new tokens: the same checks, flash
+    launches 0; a profiled wave; a 2-layer float32 twin (h and the conv
+    histories within 1e-3 relative); then reduced jamba-1.5-large-398b
+    (the 8-layer hybrid block) and grok-1-314b (softcap 30) card against
+    CPU the same way (64-token prompts, 4 decode steps).
 
 The build prints every kernel's registers, shared memory and spills from
 nvcc's ``-Xptxas -v`` report, and SASS opcode counts (the float32 flash
@@ -178,7 +201,7 @@ port under SRC (another checkout's ``src/``, default this one's), so
 that two commits' float32 kernels are timed in one call on one card.
 The last lines are the ``{"kernels": [...]}`` record, the flash rows at
 gemma2-2b's shapes, the launch counts (d = 1 main path, d-dim service
-path, the two serving paths, phase 14), the phase timings,
+path, the four serving paths, phase 14), the phase timings,
 the card line, and ``{"ok": true, "device": {...}}``.
 Data come from a fixed seed.  Exits 2 without a result when no CUDA device
 is present or the script stands outside the repository.
@@ -234,9 +257,24 @@ SERVE = dict(arch="smollm-360m", slots=4, requests=8, prompt_len=2048,
 SERVE_GEMMA = dict(arch="gemma2-2b", slots=2, requests=2, prompt_len=8192,
                    max_new=8, max_len=8704)
 TWIN = dict(layers=2, prompt_len=1024, steps=4)
+# phases 15 and 16: the MoE and the Mamba-2 serves at full width and depth
+# (granite: 2 waves of 4; mamba2: 1 wave of 4), and their float32 twins
+SERVE_GRANITE = dict(arch="granite-moe-3b-a800m", slots=4, requests=8,
+                     prompt_len=2048, max_new=16, max_len=2560)
+SERVE_MAMBA = dict(arch="mamba2-2.7b", slots=4, requests=4, prompt_len=2048,
+                   max_new=16, max_len=2560)
+# reduced archs held card against CPU (64-token prompts take the blockwise
+# path at their 32-blocks)
+REDUCED_TWINS = ("jamba-1.5-large-398b", "grok-1-314b")
+REDUCED_TWIN = dict(prompt_len=64, steps=4)
+TWIN_TOL = 1e-3                # card vs CPU, relative to the CPU's max |.|
 DECODE_PROFILED = 4            # decode steps under the profiler
 # substrings of cuBLAS / CUTLASS matrix-product kernel names
 MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+# substrings of the MoE dispatch's kernels: sort (and searchsorted), the
+# gathers into the expert bins and the scatters (bins, combine); the
+# embedding lookup's index kernel lands here too
+DISPATCH_NAMES = ("sort", "gather", "scatter", "index")
 # (B, H, Hkv, Sq, Skv, D, block, features): tests/test_kernels_attention.py
 # and the CPU tests' feature grid
 FLASH_CASES = (
@@ -294,6 +332,8 @@ WIDE_FLASH = dict(B=1, H=8, Hkv=8, S=4096, D=512, block=512)
 # row 6f: float32 at smollm-360m's prefill shapes (the width the float32
 # model twin runs), on the float32 kernel
 F32_FLASH = dict(B=4, H=15, Hkv=5, S=2048, D=64, block=512)
+# row 6g: granite-moe-3b-a800m's prefill shapes (24 heads of 64, kv 8)
+GRANITE_FLASH = dict(B=4, H=24, Hkv=8, S=2048, D=64, block=512)
 # (atol, rtol) as |kernel - ref| <= atol + rtol * |ref|;
 # tests/test_kernels_attention.py's bounds
 FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
@@ -481,6 +521,12 @@ def wide_flash_dynamic_smem(d: int) -> int:
 F32_FLASH_SMEM = (3 * 2 * 64 * 36 + 64 * 68) * 4
 
 
+def attention_layers(cfg) -> int:
+    """Layers of ``cfg`` with an attention mixer (the flash kernel's call
+    sites in a prefill that takes the blockwise path)."""
+    return cfg.num_blocks * sum(spec.mixer != "mamba" for spec in cfg.pattern)
+
+
 def require(cond, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
@@ -537,6 +583,8 @@ def main(argv=None) -> int:
     smoke.serve_gemma()
     smoke.model_twin()
     smoke.ddm_surface(card, t_start)
+    smoke.serve_granite()
+    smoke.serve_mamba()
     smoke.report(card)
     return 0
 
@@ -1678,6 +1726,11 @@ class Smoke:
         self.flash_via_ops("flash_attention_d64_f32", F32_FLASH,
                            "smollm-360m prefill, float32", SEED + 22,
                            "runtime", False, torch.float32)
+        self.flash_via_ops("flash_attention_granite", GRANITE_FLASH,
+                           "granite-moe-3b-a800m prefill", SEED + 23,
+                           "instance", False)
+        self.rows["flash_attention_granite"]["name"] = \
+            "flash_attention (D=64, granite-moe-3b-a800m prefill)"
         # softcapped attention is one flex_attention call (a tanh score_mod
         # and a causal or sliding-window block mask), compiled by inductor
         from torch.nn.attention.flex_attention import (create_block_mask,
@@ -1822,10 +1875,11 @@ class Smoke:
         wall = time.perf_counter() - t0
         launches = {w.__name__: w.launches for w in self.wrappers}
         waves = -(-spec["requests"] // spec["slots"])
-        want = cfg.num_layers * waves
+        attn = attention_layers(cfg)
+        want = attn * waves
         require(self.flash.launches == want,
                 f"serve {cfg.name}: flash kernel launched "
-                f"{self.flash.launches} times, expected {cfg.num_layers} "
+                f"{self.flash.launches} times, expected {attn} attention "
                 f"layers x {waves} waves = {want}")
         require(sorted(results) == list(range(spec["requests"])),
                 f"serve {cfg.name}: results for {sorted(results)}")
@@ -1845,7 +1899,8 @@ class Smoke:
         }
         self.phase_ms[f"serve {cfg.name} (engine run)"] = wall * 1e3
         print(f"serve: {cfg.name} full width ({cfg.param_count()} params, "
-              f"{cfg.num_layers} layers), {spec['requests']} requests x "
+              f"{cfg.active_param_count()} active, {cfg.num_layers} layers, "
+              f"{attn} with attention), {spec['requests']} requests x "
               f"{spec['prompt_len']}-token prompts, {waves} waves of "
               f"{spec['slots']}: {tokens} tokens, all < vocab, logits "
               f"finite; flash launches {self.flash.launches}; "
@@ -1859,7 +1914,7 @@ class Smoke:
         model, params, steps, self.serve_numbers, self.serve_launches = \
             self.serve_path(SERVE, SEED + 10)
         self.rows["flash_attention"]["launches"] = self.flash.launches
-        self.serve_profile(model, params, *steps)
+        self.serve_profile(model, params, *steps, SERVE, self.serve_numbers)
 
     def serve_gemma(self):
         """gemma2-2b at full width through ServeEngine: head width 256,
@@ -1895,13 +1950,16 @@ class Smoke:
                 f"{by_window}, {wrapper.launches} in all")
         self.torch.cuda.empty_cache()
 
-    def serve_profile(self, model, params, prefill, decode_step):
+    def serve_profile(self, model, params, prefill, decode_step, spec,
+                      numbers):
         """Where a wave's time goes, after the counted run: one more prefill
-        and DECODE_PROFILED decode steps under ``torch.profiler``; device
-        time by kernel class (flash, matrix products, the rest) against
-        the host clock, so the device's idle share shows.  The profiler's
-        own cost inflates the host clock, so the idle share is an upper
-        bound; the unprofiled step times are the serve phase's."""
+        (``spec``'s slots and prompt length) and DECODE_PROFILED decode
+        steps under ``torch.profiler``; device time by kernel class (flash,
+        matrix products, the MoE dispatch's sort / gather / scatter
+        kernels, the rest) against the host clock, so the device's idle
+        share shows; stored in ``numbers["profile"]``.  The profiler's own
+        cost inflates the host clock, so the idle share is an upper bound;
+        the unprofiled step times are the serve phase's."""
         import numpy as np
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -1910,9 +1968,9 @@ class Smoke:
         cfg = model.cfg
         rng = np.random.default_rng(SEED + 14)
         toks = torch.from_numpy(rng.integers(
-            1, cfg.vocab_size, (SERVE["slots"], SERVE["prompt_len"]))).to(
+            1, cfg.vocab_size, (spec["slots"], spec["prompt_len"]))).to(
                 self.dev)
-        cache = model.init_cache(SERVE["slots"], SERVE["max_len"])
+        cache = model.init_cache(spec["slots"], spec["max_len"])
         out = {}
         state = {}
 
@@ -1921,7 +1979,7 @@ class Smoke:
                 params, {"tokens": toks}, cache)
 
         def run_decode():
-            pos = SERVE["prompt_len"]
+            pos = spec["prompt_len"]
             for _ in range(DECODE_PROFILED):
                 cur = state["logits"][:, -1, :cfg.vocab_size].argmax(-1)[:, None]
                 state["cache"], state["logits"] = decode_step(
@@ -1937,7 +1995,8 @@ class Smoke:
                 fn()
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
-            kinds = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+            kinds = {"flash": 0.0, "matmul": 0.0, "dispatch": 0.0,
+                     "other": 0.0}
             launches = 0
             top = []
             for evt in prof.key_averages():
@@ -1951,6 +2010,7 @@ class Smoke:
                 name = evt.key.lower()
                 kind = "flash" if "flash_attention_fwd" in name else (
                     "matmul" if any(w in name for w in MATMUL_NAMES)
+                    else "dispatch" if any(w in name for w in DISPATCH_NAMES)
                     else "other")
                 kinds[kind] += dev_us / 1e3
                 top.append((dev_us / 1e3, evt.key[:60]))
@@ -1963,67 +2023,208 @@ class Smoke:
                 "top_kernels_ms": [(round(ms / steps, 4), name) for ms, name
                                    in sorted(top, reverse=True)[:4]],
             }
-        require(out["prefill"]["device_ms_per_step"]["flash"] > 0,
-                "serve profile: no flash kernel time in the prefill trace")
-        self.serve_numbers["profile"] = out
-        print("serve profile (one wave: prefill, then "
+        flash_ms = out["prefill"]["device_ms_per_step"]["flash"]
+        require((flash_ms > 0) == (attention_layers(cfg) > 0),
+                f"serve profile {cfg.name}: flash kernel time {flash_ms} ms "
+                f"in the prefill trace, {attention_layers(cfg)} attention "
+                "layers")
+        numbers["profile"] = out
+        print(f"serve profile {cfg.name} (one wave: prefill, then "
               f"{DECODE_PROFILED} decode steps): " + json.dumps(out),
               flush=True)
 
     def model_twin(self):
-        """2-layer full-width float32 model on the card against a CPU twin."""
+        """2-layer full-width float32 smollm-360m on the card against a CPU
+        twin."""
         import dataclasses
 
-        import numpy as np
         from repro_torch.configs import get_config
-        from repro_torch.models import Model
 
-        torch = self.torch
         cfg = dataclasses.replace(get_config(SERVE["arch"]),
                                   num_layers=TWIN["layers"],
-                                  dtype=torch.float32)
+                                  dtype=self.torch.float32)
+        self.twin(cfg, TWIN["prompt_len"], TWIN["steps"], SEED + 12)
+
+    def twin(self, cfg, prompt_len: int, steps: int, seed: int) -> dict:
+        """``cfg`` (float32) on the card and on a ``device="cpu"`` twin with
+        the same weights, TF32 off: one ``prompt_len`` prefill and
+        ``steps`` greedy decode steps.  Last-position logits and every
+        floating cache leaf (K/V; a Mamba layer's h and conv histories)
+        within TWIN_TOL of the CPU's relative to its max |.|, equal greedy
+        tokens, equal expert choices at every MoE layer call, and the flash
+        kernel launched once per attention layer when the prompt takes the
+        blockwise path.  Returns the numbers printed."""
+        import numpy as np
+        from repro_torch.models import Model, moe
+
+        torch = self.torch
         cpu_model, card_model = Model(cfg, device="cpu"), Model(cfg,
                                                                 device=DEVICE)
-        params = cpu_model.init(torch.Generator().manual_seed(SEED + 12))
+        params = cpu_model.init(torch.Generator().manual_seed(seed))
         card_params = _to_device(params, self.dev)
-        rng = np.random.default_rng(SEED + 13)
+        rng = np.random.default_rng(seed + 1)
         toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
-                                             (1, TWIN["prompt_len"])))
-        max_len = TWIN["prompt_len"] + TWIN["steps"] + 1
+                                             (1, prompt_len)))
+        max_len = prompt_len + steps + 1
         runs = {}
         before = self.flash.launches
-        for name, model, p, dev in (("cpu", cpu_model, params, "cpu"),
-                                    ("card", card_model, card_params,
-                                     self.dev)):
-            cache, logits = model.prefill(p, {"tokens": toks.to(dev)},
-                                          model.init_cache(1, max_len))
-            vocab = cfg.vocab_size     # the padded columns are all -1e30
-            out, tokens = [logits[:, -1, :vocab].cpu()], []
-            pos = TWIN["prompt_len"]
-            for _ in range(TWIN["steps"]):
-                cur = logits[:, -1, :vocab].argmax(-1)[:, None]
-                tokens.append(int(cur[0, 0]))
-                cache, logits = model.decode_step(p, cur, cache, pos)
-                out.append(logits[:, -1, :vocab].cpu())
-                pos += 1
-            runs[name] = (out, tokens,
-                          {n: (c.k.cpu(), c.v.cpu()) for n, c in cache.items()})
-        torch.cuda.synchronize()
-        require(self.flash.launches - before == cfg.num_layers,
-                f"twin: flash launches {self.flash.launches - before}")
-        worst = 0.0
-        (c_out, c_tok, c_kv), (g_out, g_tok, g_kv) = runs["cpu"], runs["card"]
-        pairs = list(zip(c_out, g_out)) + [
-            (a, b) for n in c_kv for a, b in zip(c_kv[n], g_kv[n])]
-        for want, got in pairs:
-            rel = float((got - want).abs().max() / want.abs().max())
-            worst = max(worst, rel)
-        require(worst <= 1e-3, f"twin: card vs cpu relative error {worst}")
-        require(c_tok == g_tok, f"twin: greedy tokens {g_tok} != cpu {c_tok}")
-        print(f"model twin: {cfg.num_layers}-layer {cfg.name} float32, "
-              f"{TWIN['prompt_len']}-token prefill + {TWIN['steps']} decode "
-              f"steps: logits and KV caches within {worst:.3g} relative of "
-              f"the cpu twin, greedy tokens {g_tok} equal", flush=True)
+        real_top_k = moe.top_k
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            for name, model, p, dev in (("cpu", cpu_model, params, "cpu"),
+                                        ("card", card_model, card_params,
+                                         self.dev)):
+                choices = []
+
+                def spy(probs, k, choices=choices):
+                    vals, idx = real_top_k(probs, k)
+                    choices.append(idx.cpu())
+                    return vals, idx
+
+                moe.top_k = spy
+                cache, logits = model.prefill(p, {"tokens": toks.to(dev)},
+                                              model.init_cache(1, max_len))
+                vocab = cfg.vocab_size   # the padded columns are all -1e30
+                out, tokens = [logits[:, -1, :vocab].cpu()], []
+                pos = prompt_len
+                for _ in range(steps):
+                    cur = logits[:, -1, :vocab].argmax(-1)[:, None]
+                    tokens.append(int(cur[0, 0]))
+                    cache, logits = model.decode_step(p, cur, cache, pos)
+                    out.append(logits[:, -1, :vocab].cpu())
+                    pos += 1
+                leaves = {f"{n}.{field}": t.cpu()
+                          for n, c in cache.items()
+                          for field, t in zip(c._fields, c)
+                          if t.is_floating_point()}
+                runs[name] = (out, tokens, leaves, choices)
+            torch.cuda.synchronize()
+        finally:
+            moe.top_k = real_top_k
+            torch.backends.cuda.matmul.allow_tf32, \
+                torch.backends.cudnn.allow_tf32 = tf32
+        blockwise = prompt_len > cfg.attn_block_q \
+            and prompt_len % cfg.attn_block_q == 0
+        want = attention_layers(cfg) if blockwise else 0
+        require(self.flash.launches - before == want,
+                f"twin {cfg.name}: flash launches "
+                f"{self.flash.launches - before}, expected {want}")
+        (c_out, c_tok, c_leaves, c_moe), (g_out, g_tok, g_leaves, g_moe) = \
+            runs["cpu"], runs["card"]
+        require(c_leaves.keys() == g_leaves.keys(),
+                f"twin {cfg.name}: cache leaves differ")
+        worst = {"logits": 0.0}
+        pairs = [("logits", a, b) for a, b in zip(c_out, g_out)] + [
+            (n.split(".")[1], c_leaves[n], g_leaves[n]) for n in c_leaves]
+        for kind, want_t, got_t in pairs:
+            rel = float((got_t - want_t).abs().max()
+                        / want_t.abs().max().clamp(min=1e-30))
+            worst[kind] = max(worst.get(kind, 0.0), rel)
+        require(max(worst.values()) <= TWIN_TOL,
+                f"twin {cfg.name}: card vs cpu relative error {worst}")
+        require(c_tok == g_tok,
+                f"twin {cfg.name}: greedy tokens {g_tok} != cpu {c_tok}")
+        require(len(c_moe) == len(g_moe)
+                and all(torch.equal(a, b) for a, b in zip(c_moe, g_moe)),
+                f"twin {cfg.name}: expert choices differ between the card "
+                f"and the cpu ({len(g_moe)} / {len(c_moe)} MoE calls)")
+        numbers = {"max_rel_err": worst, "greedy_tokens": g_tok,
+                   "moe_calls_equal_choices": len(g_moe),
+                   "flash_launches": want}
+        print(f"twin: {cfg.num_layers}-layer {cfg.name} float32 (d_model "
+              f"{cfg.d_model}), {prompt_len}-token prefill + {steps} decode "
+              f"steps, card vs cpu: " + json.dumps(numbers), flush=True)
+        return numbers
+
+    # -- phases 15 and 16: the MoE and Mamba-2 serves -----------------------
+    def serve_granite(self):
+        """Phase 15: granite-moe-3b-a800m at full width and depth through
+        ServeEngine (flash launches 32 layers x 2 waves), the drop fraction
+        of each prefill wave (every MoE call's, read after the run), a
+        profiled wave, then a 2-layer float32 twin (card vs CPU, equal
+        expert choices)."""
+        import dataclasses
+
+        from repro_torch.models import moe
+
+        torch = self.torch
+        torch.cuda.empty_cache()
+        real, drops = moe.moe_layer, []
+
+        def counted(params, x, cfg):
+            out, aux = real(params, x, cfg)
+            if x.shape[1] > 1:          # a prefill's dispatch group
+                drops.append(aux["moe_drop_fraction"])
+            return out, aux
+
+        t0 = time.perf_counter()
+        moe.moe_layer = counted
+        try:
+            model, params, steps, self.granite_numbers, \
+                self.granite_launches = self.serve_path(SERVE_GRANITE,
+                                                        SEED + 30)
+        finally:
+            moe.moe_layer = real
+        cfg = model.cfg
+        waves = -(-SERVE_GRANITE["requests"] // SERVE_GRANITE["slots"])
+        require(len(drops) == waves * cfg.num_layers,
+                f"serve {cfg.name}: {len(drops)} prefill MoE calls")
+        per_wave = torch.stack(drops).view(waves, cfg.num_layers).cpu()
+        self.granite_numbers["prefill_drop_fraction"] = {
+            "mean_per_wave": per_wave.mean(dim=1).tolist(),
+            "max_layer_per_wave": per_wave.max(dim=1).values.tolist()}
+        self.rows["flash_attention_granite"]["launches"] = \
+            self.flash.launches
+        print(f"  {cfg.name} prefill drop fraction (capacity factor "
+              f"{cfg.moe_capacity_factor}, one dispatch group a wave): "
+              + json.dumps(self.granite_numbers["prefill_drop_fraction"]),
+              flush=True)
+        self.serve_profile(model, params, *steps, SERVE_GRANITE,
+                           self.granite_numbers)
+        del model, params, steps
+        torch.cuda.empty_cache()
+        self.granite_numbers["twin"] = self.twin(
+            dataclasses.replace(cfg, num_layers=TWIN["layers"],
+                                dtype=torch.float32),
+            TWIN["prompt_len"], TWIN["steps"], SEED + 31)
+        self.phase_ms["phase 15 (granite-moe-3b-a800m)"] = \
+            (time.perf_counter() - t0) * 1e3
+        print(card_line(), flush=True)
+
+    def serve_mamba(self):
+        """Phase 16: mamba2-2.7b at full width and depth through ServeEngine
+        (no flash launch), a profiled wave, a 2-layer float32 twin (h and
+        the conv histories card vs CPU), then reduced jamba-1.5-large-398b
+        and grok-1-314b card vs CPU."""
+        import dataclasses
+
+        from repro_torch.configs import get_config, reduce_config
+
+        torch = self.torch
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model, params, steps, self.mamba_numbers, self.mamba_launches = \
+            self.serve_path(SERVE_MAMBA, SEED + 40)
+        cfg = model.cfg
+        self.serve_profile(model, params, *steps, SERVE_MAMBA,
+                           self.mamba_numbers)
+        del model, params, steps
+        torch.cuda.empty_cache()
+        self.mamba_numbers["twin"] = self.twin(
+            dataclasses.replace(cfg, num_layers=TWIN["layers"],
+                                dtype=torch.float32),
+            TWIN["prompt_len"], TWIN["steps"], SEED + 41)
+        self.reduced_twins = {
+            arch: self.twin(reduce_config(get_config(arch)),
+                            REDUCED_TWIN["prompt_len"], REDUCED_TWIN["steps"],
+                            SEED + 42 + i)
+            for i, arch in enumerate(REDUCED_TWINS)}
+        self.phase_ms["phase 16 (mamba2-2.7b, reduced twins)"] = \
+            (time.perf_counter() - t0) * 1e3
+        print(card_line(), flush=True)
 
     # -- phase 14: the DDM surface ---------------------------------------
     def ddm_surface(self, card: str, t_start: float):
@@ -2377,6 +2578,10 @@ class Smoke:
               + json.dumps(list(self.gemma_rows.values())))
         print(f"launches on the {SERVE_GEMMA['arch']} serving path: "
               + json.dumps(self.gemma_launches))
+        for spec, launches in ((SERVE_GRANITE, self.granite_launches),
+                               (SERVE_MAMBA, self.mamba_launches)):
+            print(f"launches on the {spec['arch']} serving path: "
+                  + json.dumps(launches))
         print("launches in phase 14 (broker sessions; conformance battery): "
               + json.dumps([self.broker_launches, self.battery_launches]))
         print("timings_ms: " + json.dumps(

@@ -5,11 +5,17 @@ one card.
         --prompt-len 2048 --max-len 2560
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
         --prompt-len 8192 --max-len 8704
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch granite-moe-3b-a800m --prompt-len 2048 --max-len 2560
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+        --prompt-len 2048 --max-len 2560
 
-Prompts longer than ``attn_block_q`` (512 at full width) and a multiple of
-it take the blockwise attention path, the flash kernel's call site; shorter
-ones take the dense path and never launch it.  ``--device cpu`` runs the
-plain versions (reduced configs only, in practice).
+Every arch of ``repro_torch.configs.ARCH_IDS`` is served.  Prompts longer
+than ``attn_block_q`` (512 at full width) and a multiple of it take the
+blockwise attention path, the flash kernel's call site; shorter ones take
+the dense path and never launch it, and mamba2-2.7b, attention-free,
+never does.  ``--device cpu`` runs the plain versions (reduced configs
+only, in practice).
 """
 from __future__ import annotations
 
@@ -43,8 +49,9 @@ def main(argv=None) -> None:
         cfg = reduce_config(cfg)
     model = Model(cfg, device=args.device)
     params = model.init(torch.Generator(args.device).manual_seed(args.seed))
-    print(f"serving {cfg.name} ({cfg.param_count()/1e6:.1f}M params) on "
-          f"{args.device}, {args.slots} slots, max_len {args.max_len}")
+    print(f"serving {cfg.name} ({cfg.param_count()/1e6:.1f}M params, "
+          f"{cfg.active_param_count()/1e6:.1f}M active) on {args.device}, "
+          f"{args.slots} slots, max_len {args.max_len}")
 
     eng = ServeEngine(model, params, num_slots=args.slots,
                       max_len=args.max_len, device=args.device)

@@ -1,15 +1,18 @@
 """Model configuration and the ParamDef system of the port.
 
-The counterpart of the JAX package's ``repro/models/api.py`` for the dense
-serving path: every layer declares its parameters once as ``ParamDef``s
-(shape, logical axes, initializer), and the same declaration drives
-initialization, :meth:`ModelConfig.param_count` and the check of parameters
-carried over from the JAX package (:mod:`repro_torch.convert`).
+The counterpart of the JAX package's ``repro/models/api.py`` for the
+decoder-only serving path (attention, Mamba-2 and MoE layers): every layer
+declares its parameters once as ``ParamDef``s (shape, logical axes,
+initializer), and the same declaration drives initialization,
+:meth:`ModelConfig.param_count`, :meth:`ModelConfig.active_param_count`
+and the check of parameters carried over from the JAX package
+(:mod:`repro_torch.convert`).
 
-``dtype`` (compute) and ``param_dtype`` are ``torch`` dtypes.  The fields of
-the MoE, Mamba, encoder-decoder and frontend paths that the dense path does
-not read are left out, apart from the flags the model checks to refuse
-them; those paths are later slices of the port.
+``dtype`` (compute) and ``param_dtype`` are ``torch`` dtypes.  The fields
+of the encoder-decoder and frontend paths are left out, apart from the
+flags the model checks to refuse them; those paths are a later slice of
+the port.  So are the sharding overrides and the mesh-bound ``moe_impl``
+modes.
 """
 from __future__ import annotations
 
@@ -45,8 +48,18 @@ class ModelConfig:
     attn_softcap: Optional[float] = None
     logit_softcap: Optional[float] = None
     rope_theta: float = 10_000.0
-    # paths of later slices (the model refuses them)
+    # MoE
     num_experts: int = 0
+    num_experts_per_token: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_group_rows: int = 1          # rows merged per dispatch group
+    moe_impl: str = "auto"           # auto | gspmd (ep | cap | ffn: refused)
+    # Mamba-2 (SSD)
+    ssm_state: int = 0
+    mamba_head_dim: int = 64
+    mamba_expand: int = 2
+    mamba_conv: int = 4
+    # paths of later slices (the model refuses them)
     is_encoder_decoder: bool = False
     frontend: Optional[str] = None          # "vision" | "audio"
     # numerics
@@ -57,6 +70,14 @@ class ModelConfig:
     attn_block_q: int = 512
     attn_block_k: int = 512
     vocab_pad_multiple: int = 256
+
+    @property
+    def d_inner(self) -> int:               # mamba inner width
+        return self.mamba_expand * self.d_model
+
+    @property
+    def mamba_heads(self) -> int:
+        return self.d_inner // self.mamba_head_dim
 
     @property
     def padded_vocab(self) -> int:
@@ -74,6 +95,21 @@ class ModelConfig:
         from repro_torch.models import transformer
         return int(sum(np.prod(d.shape)
                        for _, d in iter_leaves(transformer.model_defs(self))))
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: top-k of the experts; every
+        leaf with an ``experts`` axis, the router's too, counts k of E)."""
+        if not self.num_experts:
+            return self.param_count()
+        from repro_torch.models import transformer
+        total = 0
+        for _, d in iter_leaves(transformer.model_defs(self)):
+            size = int(np.prod(d.shape))
+            if "experts" in d.axes:
+                size = size // d.shape[d.axes.index("experts")] \
+                    * self.num_experts_per_token
+            total += size
+        return total
 
 
 @dataclasses.dataclass(frozen=True)

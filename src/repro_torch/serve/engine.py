@@ -1,10 +1,12 @@
 """Serving engine: slot-based wave batching over the model's prefill and
 decode steps.
 
-A pool of ``num_slots`` slots shares one stacked KV cache.  Requests queue
-up; each wave admits up to ``num_slots`` requests whose prompts all have
-the head request's length (length-bucketed: a padded prefix would poison
-the KV cache or the attention window), prefills them together, then
+A pool of ``num_slots`` slots shares one stacked cache (KV caches for
+attention layers, Mamba states for SSD layers; the engine never looks
+inside).  Requests queue up; each wave admits up to ``num_slots`` requests
+whose prompts all have the head request's length (length-bucketed: a
+padded prefix would poison the KV cache, the attention window or the
+Mamba state, so no cache needs padding logic), prefills them together, then
 decodes one batched greedy token per step until every request of the wave
 has its budget or its EOS.  The same scheduling as the JAX package's
 ``repro/serve/engine.py``; here the wave's cache is updated in place.

@@ -1,9 +1,10 @@
 """The port's dense model stack and serving engine against the JAX package.
 
-Reduced smollm-360m and gemma2-2b (``reduce_config``: float32, blocks of
-32; gemma2 puts ``attn_local``, the window, the attention softcap and the
-logit softcap on the path), and a 2-layer reduced gemma2-2b that keeps its
-head width of 256.  The JAX ``Model.init`` parameters are carried
+Reduced smollm-360m, gemma2-2b, minitron-4b and mistral-nemo-12b
+(``reduce_config``: float32, blocks of 32; gemma2 puts ``attn_local``, the
+window, the attention softcap and the logit softcap on the path; the
+other two untied embeddings), and a 2-layer reduced gemma2-2b that keeps
+its head width of 256.  The JAX ``Model.init`` parameters are carried
 over with ``model_params_from_arrays``; token batches are made with numpy
 from a seed.  A 64-token prompt takes the blockwise attention path (the
 flash kernel's call site; its plain version on the CPU), a 16-token prompt
@@ -57,7 +58,13 @@ def _reduced(arch):
         reduce_config(get_config(arch))
 
 
-@pytest.fixture(scope="module", params=ARCH_IDS + (GEMMA_D256,))
+# the dense archs; the MoE and Mamba archs have test_torch_moe.py and
+# test_torch_mamba.py
+DENSE_ARCHS = ("smollm-360m", "gemma2-2b", GEMMA_D256, "minitron-4b",
+               "mistral-nemo-12b")
+
+
+@pytest.fixture(scope="module", params=DENSE_ARCHS)
 def pair(request):
     """(port cfg, port model, port params, jax model, jax params)."""
     jcfg, cfg = _reduced(request.param)
@@ -243,17 +250,25 @@ def test_init_params_distributions():
 
 def test_unported_paths_raise():
     cfg = reduce_config(get_config("smollm-360m"))
-    for bad in (dataclasses.replace(cfg, pattern=(LayerSpec("mamba", "none"),)),
-                dataclasses.replace(cfg, pattern=(LayerSpec("attn", "moe"),)),
-                dataclasses.replace(cfg, pattern=(LayerSpec("attn", "dense",
+    moe_cfg = reduce_config(get_config("granite-moe-3b-a800m"))
+    for bad in (dataclasses.replace(cfg, pattern=(LayerSpec("attn", "dense",
+                                                            True),)),
+                dataclasses.replace(cfg, pattern=(LayerSpec("mamba", "dense",
                                                             True),)),
                 dataclasses.replace(cfg, is_encoder_decoder=True),
                 dataclasses.replace(cfg, frontend="vision"),
-                dataclasses.replace(cfg, num_experts=4)):
+                dataclasses.replace(cfg, frontend="audio"),
+                dataclasses.replace(cfg, pattern=(LayerSpec("rnn", "dense"),)),
+                dataclasses.replace(cfg, pattern=(LayerSpec("attn", "glu"),)),
+                dataclasses.replace(moe_cfg, moe_impl="ep"),
+                dataclasses.replace(moe_cfg, moe_impl="cap"),
+                dataclasses.replace(moe_cfg, moe_impl="ffn")):
         with pytest.raises(ValidationError):
             Model(bad, device="cpu")
-    with pytest.raises(ValidationError):
-        get_config("mamba2-2.7b")
+    for arch in ("phi-3-vision-4.2b", "seamless-m4t-medium"):
+        with pytest.raises(ValidationError):
+            get_config(arch)
+    assert len(ARCH_IDS) == 8
 
 
 def test_params_from_arrays_rejects_a_wrong_tree(pair):
