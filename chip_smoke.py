@@ -94,7 +94,11 @@ Phases (any failure exits non-zero and prints no result line):
    without a window), D = 64, 128 and 256, D = 16 and 96, which the
    wrapper zero-pads to the next built width, and D = 257, 320, 512 and
    593, which run the wide bf16 kernel (every feature at D = 320; the
-   float32 cases all run the float32 kernel).
+   float32 cases all run the float32 kernel); and non-causal: Sq == Skv
+   at 64-blocks with GQA and segments, at 512-blocks with D = 64 and 96,
+   Sq = 1024 / Skv = 2048 and Sq = 2048 / Skv = 1024 at 512-blocks, a
+   window with a global block, and D = 128, 256 (softcap 50) and 320
+   (the wide kernel) with Sq != Skv.
 10. Flash at full width: smollm-360m's prefill shapes (B = 4, H = 15,
     Hkv = 5, S = 2048, D = 64, bfloat16, causal 512-blocks) with a peaked
     softmax (scores of std 4): kernel == plain and dense oracle within the
@@ -119,7 +123,12 @@ Phases (any failure exits non-zero and prints no result line):
     with TF32 off and ``enable_gqa``; and row 6g: granite-moe-3b-a800m's
     prefill shapes (B = 4, H = 24, Hkv = 8, S = 2048, D = 64, bf16, causal
     512-blocks) through ``ops.flash_attention``, beside SDPA with
-    ``enable_gqa`` (its launches: phase 15's).
+    ``enable_gqa`` (its launches: phase 15's).  Rows 6h and 6i:
+    seamless-m4t-medium's prefill shapes, non-causal (B = 4, H = Hkv =
+    16, D = 64, bf16, 512-blocks): the encoder's self-attention (S =
+    2048) and the cross-attention (Sq = 1024, Skv = 2048), each beside
+    its plain version, its bound (every (q, k) pair live) and one
+    non-causal SDPA call (their launches: phase 18's per prefill).
 11. The serving path: smollm-360m at full width and depth (32 layers,
     bfloat16 compute, float32 weights from a seeded generator) behind
     ``ServeEngine`` with 4 slots answers 8 requests of 2048-token prompts,
@@ -188,6 +197,29 @@ Phases (any failure exits non-zero and prints no result line):
     histories within 1e-3 relative); then reduced jamba-1.5-large-398b
     (the 8-layer hybrid block) and grok-1-314b (softcap 30) card against
     CPU the same way (64-token prompts, 4 decode steps).
+17. phi-3-vision-4.2b at full width and depth (32 layers, 32 heads of 96:
+    bf16 flash through the wrapper's zero-padding to 128, row 6c; random
+    float32 weights from a seeded generator, bf16 compute) through
+    ``Model.prefill`` and ``decode_step`` (its serving engine takes token
+    prompts only): 4 sequences of 576 ``prefix_embeds`` and 1472 text
+    tokens (2048 positions), two prefills (cold, warm) with 32 flash
+    launches each, counted at the ``kernels.ops`` call site, then 16
+    greedy decode steps (max_len 2560): tokens below the vocabulary,
+    finite logits; prefill ms, decode ms a step, tokens/s of the warm
+    wave; a profiled prefill and 4 decode steps (device time by class,
+    idle share, the flash kernel's share of the prefill); then a 2-layer
+    float32 twin at full width (1024 positions, 576 of them the prefix)
+    card against CPU within 1e-3 relative, equal greedy tokens.
+18. seamless-m4t-medium at full width and depth (12 encoder layers of
+    bidirectional attention, 12 decoder layers with cross-attention, 16
+    heads of 64) the same way: 4 x 2048 ``frame_embeds`` into the encoder
+    and 4 x 1024-token decoder prompts; 36 flash launches a prefill, 12
+    at each site (encoder non-causal at S = 2048, decoder causal at S =
+    1024, cross-attention non-causal at Sq = 1024, Skv = 2048); the
+    encoder output of ``Model._encode`` (timed) feeds 16 greedy decode
+    steps (max_len 1536), which project the cross K/V at every step;
+    then a 2 + 2-layer float32 twin (2048 frames, 1024 decoder tokens;
+    the encoder output held too).
 
 The build prints every kernel's registers, shared memory and spills from
 nvcc's ``-Xptxas -v`` report, and SASS opcode counts (the float32 flash
@@ -201,7 +233,8 @@ port under SRC (another checkout's ``src/``, default this one's), so
 that two commits' float32 kernels are timed in one call on one card.
 The last lines are the ``{"kernels": [...]}`` record, the flash rows at
 gemma2-2b's shapes, the launch counts (d = 1 main path, d-dim service
-path, the four serving paths, phase 14), the phase timings,
+path, the four serving paths, phase 14, the prefills of phases 17 and
+18), the phase timings,
 the card line, and ``{"ok": true, "device": {...}}``.
 Data come from a fixed seed.  Exits 2 without a result when no CUDA device
 is present or the script stands outside the repository.
@@ -263,6 +296,20 @@ SERVE_GRANITE = dict(arch="granite-moe-3b-a800m", slots=4, requests=8,
                      prompt_len=2048, max_new=16, max_len=2560)
 SERVE_MAMBA = dict(arch="mamba2-2.7b", slots=4, requests=4, prompt_len=2048,
                    max_new=16, max_len=2560)
+# phases 17 and 18: the vision-prefix and the encoder-decoder model at full
+# width and depth through Model.prefill / decode_step (the reference's
+# entry points for them: its serving engine takes token prompts only).
+# phi-3-vision: 4 sequences of 576 prefix embeddings + 1472 text tokens
+# (2048 positions); seamless: 4 x 2048 frame embeddings into the encoder,
+# 4 x 1024-token decoder prompts.  16 greedy decode steps each.
+SERVE_PHI3 = dict(arch="phi-3-vision-4.2b", slots=4, prompt_len=2048,
+                  max_new=16, max_len=2560)
+SERVE_SEAMLESS = dict(arch="seamless-m4t-medium", slots=4, frames=2048,
+                      prompt_len=1024, max_new=16, max_len=1536)
+# their float32 twins: 2 layers (seamless: 2 + 2) at full width; phi-3's
+# 1024 positions hold its 576 prefix embeddings, seamless's 1024 decoder
+# tokens cross-attend to 2048 frames
+ENCDEC_TWIN = dict(layers=2, prompt_len=1024, frames=2048, steps=4)
 # reduced archs held card against CPU (64-token prompts take the blockwise
 # path at their 32-blocks)
 REDUCED_TWINS = ("jamba-1.5-large-398b", "grok-1-314b")
@@ -320,6 +367,22 @@ FLASH_CASES = (
     (1, 2, 1, 512, 1536, 512, 512, {"window": 700, "softcap": 50.0}),
     (1, 4, 2, 128, 256, 257, 64, {"softcap": 30.0, "segments": True}),
     (2, 2, 1, 96, 96, 593, 32, {"window": 40}),
+    # non-causal (an encoder's self-attention, cross-attention): Sq == Skv
+    # at 64-blocks with GQA and segments; at 512-blocks, D = 64 and D = 96
+    # (padded); seamless-m4t-medium's cross-attention (Sq = 1024, Skv =
+    # 2048) and queries longer than the keys (Sq = 2048, Skv = 1024) at
+    # 512-blocks; a window with a global block; D = 128, 256 (softcap) and
+    # 320 (the wide kernel) with Sq != Skv
+    (2, 4, 2, 256, 256, 64, 64, {"causal": False, "segments": True}),
+    (1, 4, 2, 1024, 1024, 64, 512, {"causal": False}),
+    (1, 4, 4, 1024, 1024, 96, 512, {"causal": False}),
+    (1, 4, 4, 1024, 2048, 64, 512, {"causal": False}),
+    (1, 2, 2, 2048, 1024, 64, 512, {"causal": False}),
+    (1, 2, 2, 256, 256, 64, 64, {"causal": False, "window": 64,
+                                 "num_global_blocks": 1}),
+    (1, 4, 2, 128, 256, 128, 64, {"causal": False}),
+    (1, 4, 2, 256, 512, 256, 64, {"causal": False, "softcap": 50.0}),
+    (1, 2, 1, 256, 128, 320, 64, {"causal": False}),
 )
 # row 6c: phi-3-vision's attention widths (src/repro/configs/
 # phi3_vision_4b.py: 32 heads of 96, kv 32) at smollm-360m's prefill batch,
@@ -409,9 +472,10 @@ class SmokeFailure(Exception):
 
 
 def live_pairs(kv_index, kv_count, block: int, sq: int, skv: int,
-               window=None) -> int:
-    """(q, k) pairs of a causal schedule that its token masks leave live,
-    per (batch, head): the work the function needs (q right-aligned)."""
+               window=None, causal: bool = True) -> int:
+    """(q, k) pairs of a schedule that its token masks (causal or not)
+    leave live, per (batch, head): the work the function needs (q
+    right-aligned)."""
     import numpy as np
 
     rows = np.arange(block)[:, None]
@@ -421,7 +485,8 @@ def live_pairs(kv_index, kv_count, block: int, sq: int, skv: int,
         q_pos = skv - sq + i * block + rows
         for kb in kv_index[i, :n]:
             k_pos = kb * block + cols
-            live = k_pos <= q_pos
+            live = k_pos <= q_pos if causal \
+                else np.ones((block, block), bool)
             if window is not None:
                 live &= k_pos > q_pos - window
             total += int(live.sum())
@@ -527,6 +592,39 @@ def attention_layers(cfg) -> int:
     return cfg.num_blocks * sum(spec.mixer != "mamba" for spec in cfg.pattern)
 
 
+def prefill_flash_calls(cfg, seq: int, frames: int = 0) -> dict:
+    """Flash launches of one prefill of ``seq`` decoder positions (and
+    ``frames`` encoder frames), keyed (site, Sq, Skv, causal): attention
+    takes the blockwise path when Sq is above ``attn_block_q`` and Sq, Skv
+    are multiples of the blocks.  Sites: ``decoder`` self-attention at
+    (seq, seq), causal unless ``attn_bidir``; ``cross``-attention at (seq,
+    frames) and the ``encoder``'s self-attention at (frames, frames),
+    non-causal unless causal mixers.  ``_encode`` launches the encoder's
+    again."""
+    bq, bk = cfg.attn_block_q, cfg.attn_block_k
+    calls = {}
+
+    def add(site, sq, skv, causal, n):
+        if cfg.attn_impl != "dense" and sq > bq and sq % bq == 0 \
+                and skv % bk == 0:
+            key = (site, sq, skv, causal)
+            calls[key] = calls.get(key, 0) + n
+
+    for spec in cfg.pattern:
+        if spec.mixer != "mamba":
+            add("decoder", seq, seq, spec.mixer != "attn_bidir",
+                cfg.num_blocks)
+        if spec.cross_attn:
+            add("cross", seq, frames, False, cfg.num_blocks)
+    if cfg.is_encoder_decoder:
+        n_enc = cfg.num_encoder_layers // len(cfg.encoder_pattern)
+        for spec in cfg.encoder_pattern:
+            if spec.mixer != "mamba":
+                add("encoder", frames, frames, spec.mixer != "attn_bidir",
+                    n_enc)
+    return calls
+
+
 def require(cond, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
@@ -579,12 +677,15 @@ def main(argv=None) -> int:
     smoke.bitmatch_timing()
     smoke.flash_battery()
     smoke.flash_full()
+    smoke.flash_encdec_rows()
     smoke.serve()
     smoke.serve_gemma()
     smoke.model_twin()
     smoke.ddm_surface(card, t_start)
     smoke.serve_granite()
     smoke.serve_mamba()
+    smoke.serve_phi3()
+    smoke.serve_seamless()
     smoke.report(card)
     return 0
 
@@ -1549,7 +1650,8 @@ class Smoke:
         return tuple(x.to(self.dev, dtype) for x in (q, k, v))
 
     def flash_check(self, what, q, k, v, seg, block, window=None,
-                    softcap=None, num_global_blocks=0, tols=None):
+                    softcap=None, num_global_blocks=0, tols=None,
+                    causal=True):
         """Kernel against the plain replay of the same schedule and, on the
         same inputs, the dense oracle, within every (atol, rtol) of ``tols``
         (by default FLASH_TOL of q's dtype); returns (the kernel's output,
@@ -1558,17 +1660,17 @@ class Smoke:
         sq, skv, d = q.shape[2], k.shape[2], q.shape[3]
         qseg = None if seg is None else seg[:, skv - sq:].contiguous()
         idx, cnt, _ = self.ops.build_block_structure(
-            sq, skv, block_q=block, block_k=block, window=window,
-            num_global_blocks=num_global_blocks)
+            sq, skv, block_q=block, block_k=block, causal=causal,
+            window=window, num_global_blocks=num_global_blocks)
         # the schedule stays on the host: the wrapper checks and uploads it
         args = (q, k, v, torch.from_numpy(idx), torch.from_numpy(cnt), qseg,
                 seg)
-        kw = dict(scale=d ** -0.5, causal=True, window=window,
+        kw = dict(scale=d ** -0.5, causal=causal, window=window,
                   softcap=softcap, block_q=block, block_k=block,
                   q_offset=skv - sq)
         got = self.flash(*args, **kw)
         want = self.ref.ref_flash_attention(*args, **kw)
-        dense = self.ref.ref_attention(q, k, v, window=window,
+        dense = self.ref.ref_attention(q, k, v, causal=causal, window=window,
                                        softcap=softcap, q_segments=qseg,
                                        kv_segments=seg)
         torch.cuda.synchronize()
@@ -1591,7 +1693,7 @@ class Smoke:
     def flash_battery(self):
         torch = self.torch
         gen = torch.Generator().manual_seed(SEED + 8)
-        worst = {}
+        worst, noncausal = {}, {}
         for dtype in (torch.float32, torch.bfloat16):
             bf16 = dtype == torch.bfloat16
             for B, H, Hkv, Sq, Skv, D, blk, feats in FLASH_CASES:
@@ -1612,47 +1714,59 @@ class Smoke:
                     what, q, k, v, seg, blk, window=feats.get("window"),
                     softcap=feats.get("softcap"),
                     num_global_blocks=feats.get("num_global_blocks", 0),
-                    tols=tols)
+                    tols=tols, causal=feats.get("causal", True))
                 worst[key] = max(worst.get(key, 0.0), err)
+                if not feats.get("causal", True):
+                    noncausal[key] = max(noncausal.get(key, 0.0), err)
         print(f"flash battery: {len(FLASH_CASES)} cases x 2 dtypes, kernel "
               f"== plain == dense oracle (bf16: scores of std "
               f"{FLASH_FULL_Q_GAIN}, also within flash_full_tol); max "
-              f"|kernel - plain| {worst}", flush=True)
+              f"|kernel - plain| {worst}, of the "
+              f"{sum(not f.get('causal', True) for *_, f in FLASH_CASES)} "
+              f"non-causal cases {noncausal}", flush=True)
 
     def flash_row(self, tag, B, H, Hkv, S, D, blk, seed, window=None,
-                  softcap=None, whole_call=False, dtype=None):
+                  softcap=None, whole_call=False, dtype=None, causal=True,
+                  skv=None):
         """One full-width shape (bf16 unless ``dtype``, scores of std
-        FLASH_FULL_Q_GAIN): kernel == plain and dense oracle within
-        ``flash_full_tol`` (float32: FLASH_TOL), then the kernel's device
-        time, the plain time and the bound over the live (q, k) pairs at
-        the dtype's rate (bf16 tensor cores, float32 CUDA cores).  With
-        ``whole_call`` the row's time is the whole wrapper call by CUDA
-        events (a padded width's copies in and out included), the flash
-        kernel's own device time printed beside it.  Returns (row,
-        (q, k, v), |kernel - plain|, the kernel's output)."""
+        FLASH_FULL_Q_GAIN; Sq = S, Skv = ``skv`` or S; causal unless
+        ``causal`` is False, then without a window): kernel == plain and
+        dense oracle within ``flash_full_tol`` (float32: FLASH_TOL), then
+        the kernel's device time, the plain time and the bound over the
+        live (q, k) pairs at the dtype's rate (bf16 tensor cores, float32
+        CUDA cores).  With ``whole_call`` the row's time is the whole
+        wrapper call by CUDA events (a padded width's copies in and out
+        included), the flash kernel's own device time printed beside it.
+        Returns (row, (q, k, v), |kernel - plain|, the kernel's output)."""
         torch = self.torch
         dtype = dtype or torch.bfloat16
         bf16 = dtype == torch.bfloat16
+        skv = skv or S
         gen = torch.Generator().manual_seed(seed)
-        q, k, v = self.flash_inputs(B, H, Hkv, S, S, D, dtype, gen,
+        q, k, v = self.flash_inputs(B, H, Hkv, S, skv, D, dtype, gen,
                                     q_gain=FLASH_FULL_Q_GAIN)
         tol = flash_full_tol(v) if bf16 else FLASH_TOL["float32"]
         got, err = self.flash_check(f"full width {tag}", q, k, v, None, blk,
                                     window=window, softcap=softcap,
-                                    tols=(tol,))
-        idx, cnt, _ = self.ops.build_block_structure(S, S, block_q=blk,
-                                                     block_k=blk,
-                                                     window=window)
+                                    tols=(tol,), causal=causal)
+        idx, cnt, _ = self.ops.build_block_structure(
+            S, skv, block_q=blk, block_k=blk, causal=causal, window=window)
         args = (q, k, v, torch.from_numpy(idx), torch.from_numpy(cnt))
-        kw = dict(scale=D ** -0.5, causal=True, window=window,
-                  softcap=softcap, block_q=blk, block_k=blk, q_offset=0)
-        pairs = live_pairs(idx, cnt, blk, S, S, window)
-        w = S if window is None else min(window, S)
-        want = w * (w + 1) // 2 + (S - w) * w      # sum_i min(i + 1, w)
+        kw = dict(scale=D ** -0.5, causal=causal, window=window,
+                  softcap=softcap, block_q=blk, block_k=blk,
+                  q_offset=skv - S)
+        pairs = live_pairs(idx, cnt, blk, S, skv, window, causal)
+        if causal:
+            w = S if window is None else min(window, S)
+            want = w * (w + 1) // 2 + (S - w) * w  # sum_i min(i + 1, w)
+        else:
+            require(window is None, f"flash {tag}: a non-causal row has no "
+                    "window")
+            want = S * skv
         require(pairs == want, f"flash {tag}: {pairs} live pairs, the token "
                 f"mask leaves {want}")
         ops = 4 * D * pairs * B * H
-        nbytes = q.element_size() * (2 * q.numel() + 2 * B * Hkv * S * D) \
+        nbytes = q.element_size() * (2 * q.numel() + 2 * B * Hkv * skv * D) \
             + 4 * (idx.size + cnt.size)
         ops_ms = ops / (BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S) * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1951,39 +2065,41 @@ class Smoke:
         self.torch.cuda.empty_cache()
 
     def serve_profile(self, model, params, prefill, decode_step, spec,
-                      numbers):
+                      numbers, batch=None, enc_out=None):
         """Where a wave's time goes, after the counted run: one more prefill
-        (``spec``'s slots and prompt length) and DECODE_PROFILED decode
-        steps under ``torch.profiler``; device time by kernel class (flash,
-        matrix products, the MoE dispatch's sort / gather / scatter
-        kernels, the rest) against the host clock, so the device's idle
-        share shows; stored in ``numbers["profile"]``.  The profiler's own
-        cost inflates the host clock, so the idle share is an upper bound;
-        the unprofiled step times are the serve phase's."""
+        (``spec``'s slots and prompt length; ``batch`` if given, a vision
+        prefix or encoder frames with it) and DECODE_PROFILED decode steps
+        (given ``enc_out``) under ``torch.profiler``; device time by kernel
+        class (flash, matrix products, the MoE dispatch's sort / gather /
+        scatter kernels, the rest) against the host clock, so the device's
+        idle share shows; stored in ``numbers["profile"]``.  The profiler's
+        own cost inflates the host clock, so the idle share is an upper
+        bound; the unprofiled step times are the serve phase's."""
         import numpy as np
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
         cfg = model.cfg
-        rng = np.random.default_rng(SEED + 14)
-        toks = torch.from_numpy(rng.integers(
-            1, cfg.vocab_size, (spec["slots"], spec["prompt_len"]))).to(
-                self.dev)
+        if batch is None:
+            rng = np.random.default_rng(SEED + 14)
+            batch = {"tokens": torch.from_numpy(rng.integers(
+                1, cfg.vocab_size, (spec["slots"], spec["prompt_len"]))).to(
+                    self.dev)}
         cache = model.init_cache(spec["slots"], spec["max_len"])
+        extra = () if enc_out is None else (enc_out,)
         out = {}
         state = {}
 
         def run_prefill():
-            state["cache"], state["logits"] = prefill(
-                params, {"tokens": toks}, cache)
+            state["cache"], state["logits"] = prefill(params, batch, cache)
 
         def run_decode():
             pos = spec["prompt_len"]
             for _ in range(DECODE_PROFILED):
                 cur = state["logits"][:, -1, :cfg.vocab_size].argmax(-1)[:, None]
                 state["cache"], state["logits"] = decode_step(
-                    params, cur, state["cache"], pos)
+                    params, cur, state["cache"], pos, *extra)
                 pos += 1
 
         for phase, fn, steps in (("prefill", run_prefill, 1),
@@ -2045,15 +2161,20 @@ class Smoke:
                                   dtype=self.torch.float32)
         self.twin(cfg, TWIN["prompt_len"], TWIN["steps"], SEED + 12)
 
-    def twin(self, cfg, prompt_len: int, steps: int, seed: int) -> dict:
+    def twin(self, cfg, prompt_len: int, steps: int, seed: int,
+             frames: int = 0) -> dict:
         """``cfg`` (float32) on the card and on a ``device="cpu"`` twin with
-        the same weights, TF32 off: one ``prompt_len`` prefill and
-        ``steps`` greedy decode steps.  Last-position logits and every
-        floating cache leaf (K/V; a Mamba layer's h and conv histories)
-        within TWIN_TOL of the CPU's relative to its max |.|, equal greedy
-        tokens, equal expert choices at every MoE layer call, and the flash
-        kernel launched once per attention layer when the prompt takes the
-        blockwise path.  Returns the numbers printed."""
+        the same weights, TF32 off: one prefill of ``prompt_len`` positions
+        (a vision frontend's prefix embeddings among them; an
+        encoder-decoder model's decoder tokens, with ``frames`` frame
+        embeddings into the encoder) and ``steps`` greedy decode steps
+        (given ``_encode``'s output).  Last-position logits, every floating
+        cache leaf (K/V; a Mamba layer's h and conv histories) and the
+        encoder output within TWIN_TOL of the CPU's relative to its max
+        |.|, equal greedy tokens, equal expert choices at every MoE layer
+        call, and the flash kernel launched as ``prefill_flash_calls``
+        says (and once more per encoder layer for ``_encode``).  Returns
+        the numbers printed."""
         import numpy as np
         from repro_torch.models import Model, moe
 
@@ -2063,8 +2184,17 @@ class Smoke:
         params = cpu_model.init(torch.Generator().manual_seed(seed))
         card_params = _to_device(params, self.dev)
         rng = np.random.default_rng(seed + 1)
-        toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
-                                             (1, prompt_len)))
+        gen = torch.Generator().manual_seed(seed + 2)
+        text = prompt_len - (cfg.num_prefix_tokens if cfg.frontend == "vision"
+                             else 0)
+        inputs = {"tokens": torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                                          (1, text)))}
+        if cfg.frontend == "vision":
+            inputs["prefix_embeds"] = torch.randn(
+                (1, cfg.num_prefix_tokens, cfg.d_model), generator=gen)
+        if cfg.is_encoder_decoder:
+            inputs["frame_embeds"] = torch.randn((1, frames, cfg.d_model),
+                                                 generator=gen)
         max_len = prompt_len + steps + 1
         runs = {}
         before = self.flash.launches
@@ -2085,30 +2215,35 @@ class Smoke:
                     return vals, idx
 
                 moe.top_k = spy
-                cache, logits = model.prefill(p, {"tokens": toks.to(dev)},
+                batch = {k: t.to(dev) for k, t in inputs.items()}
+                cache, logits = model.prefill(p, batch,
                                               model.init_cache(1, max_len))
+                enc = (model._encode(p, batch),) if cfg.is_encoder_decoder \
+                    else ()
                 vocab = cfg.vocab_size   # the padded columns are all -1e30
                 out, tokens = [logits[:, -1, :vocab].cpu()], []
                 pos = prompt_len
                 for _ in range(steps):
                     cur = logits[:, -1, :vocab].argmax(-1)[:, None]
                     tokens.append(int(cur[0, 0]))
-                    cache, logits = model.decode_step(p, cur, cache, pos)
+                    cache, logits = model.decode_step(p, cur, cache, pos,
+                                                      *enc)
                     out.append(logits[:, -1, :vocab].cpu())
                     pos += 1
                 leaves = {f"{n}.{field}": t.cpu()
                           for n, c in cache.items()
                           for field, t in zip(c._fields, c)
                           if t.is_floating_point()}
+                leaves.update({"encoder.enc_out": t.cpu() for t in enc})
                 runs[name] = (out, tokens, leaves, choices)
             torch.cuda.synchronize()
         finally:
             moe.top_k = real_top_k
             torch.backends.cuda.matmul.allow_tf32, \
                 torch.backends.cudnn.allow_tf32 = tf32
-        blockwise = prompt_len > cfg.attn_block_q \
-            and prompt_len % cfg.attn_block_q == 0
-        want = attention_layers(cfg) if blockwise else 0
+        calls = prefill_flash_calls(cfg, prompt_len, frames)
+        want = sum(calls.values()) + sum(
+            n for key, n in calls.items() if key[0] == "encoder")
         require(self.flash.launches - before == want,
                 f"twin {cfg.name}: flash launches "
                 f"{self.flash.launches - before}, expected {want}")
@@ -2135,8 +2270,10 @@ class Smoke:
                    "moe_calls_equal_choices": len(g_moe),
                    "flash_launches": want}
         print(f"twin: {cfg.num_layers}-layer {cfg.name} float32 (d_model "
-              f"{cfg.d_model}), {prompt_len}-token prefill + {steps} decode "
-              f"steps, card vs cpu: " + json.dumps(numbers), flush=True)
+              f"{cfg.d_model}), {prompt_len}-position prefill"
+              + (f" ({frames} frames)" if frames else "")
+              + f" + {steps} decode steps, card vs cpu: "
+              + json.dumps(numbers), flush=True)
         return numbers
 
     # -- phases 15 and 16: the MoE and Mamba-2 serves -----------------------
@@ -2223,6 +2360,262 @@ class Smoke:
                             SEED + 42 + i)
             for i, arch in enumerate(REDUCED_TWINS)}
         self.phase_ms["phase 16 (mamba2-2.7b, reduced twins)"] = \
+            (time.perf_counter() - t0) * 1e3
+        print(card_line(), flush=True)
+
+    # -- phases 17 and 18: the vision-prefix and encoder-decoder models ----
+    def flash_encdec_rows(self):
+        """Rows 6h and 6i: the flash kernel at seamless-m4t-medium's
+        prefill shapes, non-causal (bf16, 512-blocks): the encoder's
+        self-attention (Sq = Skv = 2048) and the decoder's cross-attention
+        (Sq = 1024, Skv = 2048), each == plain and dense oracle, timed
+        beside its plain version, its bound (every (q, k) pair live) and
+        one non-causal SDPA call; launches: phase 18's per prefill."""
+        from repro_torch.configs import get_config
+
+        torch = self.torch
+        F = torch.nn.functional
+        cfg = get_config(SERVE_SEAMLESS["arch"])
+        B, frames, seq = (SERVE_SEAMLESS[k] for k in ("slots", "frames",
+                                                      "prompt_len"))
+        H, Hkv, D, blk = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
+            cfg.attn_block_q
+        for key, label, sq, skv, seed in (
+                ("flash_attention_encoder", "encoder self-attention", frames,
+                 frames, SEED + 50),
+                ("flash_attention_cross", "cross-attention", seq, frames,
+                 SEED + 51)):
+            row, (q, k, v), err, got = self.flash_row(
+                f"{cfg.name} {label}: B={B} H={H}/{Hkv} Sq={sq} Skv={skv} "
+                f"D={D} bf16 block {blk} non-causal", B, H, Hkv, sq, D, blk,
+                seed, causal=False, skv=skv)
+
+            def library(q=q, k=k, v=v):
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=False, enable_gqa=H != Hkv)
+
+            lib_err = float((library().float() - got.float()).abs().max())
+            require(lib_err <= 5e-2, f"flash {label}: kernel vs "
+                    f"scaled_dot_product_attention max |diff| {lib_err}")
+            row.update(name=f"flash_attention (D={D}, non-causal, {label}, "
+                            f"{cfg.name} prefill)",
+                       max_abs_err=err, library_ms=self.time_ms(library, 20))
+            self.rows[key] = row
+            print(f"  sdpa (is_causal=False; the same function): "
+                  f"{row['library_ms']:.4f} ms, max |kernel - sdpa| "
+                  f"{lib_err:.4g}; {card_line()}", flush=True)
+            del q, k, v, got, library
+
+    def model_inputs(self, cfg, spec: dict, seed: int) -> dict:
+        """The batch of phases 17 and 18 on the card, from a seeded
+        generator: tokens below the vocabulary, and standard normal
+        ``prefix_embeds`` (vision: ``num_prefix_tokens`` of the
+        ``prompt_len`` positions) or ``frame_embeds`` (an encoder's
+        ``frames``) in the compute dtype."""
+        torch = self.torch
+        gen = torch.Generator(DEVICE).manual_seed(seed)
+        B, seq = spec["slots"], spec["prompt_len"]
+        batch = {}
+        if cfg.frontend == "vision":
+            batch["prefix_embeds"] = torch.randn(
+                (B, cfg.num_prefix_tokens, cfg.d_model), generator=gen,
+                device=self.dev).to(cfg.dtype)
+            seq -= cfg.num_prefix_tokens
+        if cfg.is_encoder_decoder:
+            batch["frame_embeds"] = torch.randn(
+                (B, spec["frames"], cfg.d_model), generator=gen,
+                device=self.dev).to(cfg.dtype)
+        batch["tokens"] = torch.randint(1, cfg.vocab_size, (B, seq),
+                                        generator=gen, device=self.dev)
+        return batch
+
+    def drive_model(self, spec: dict, seed: int):
+        """``spec['arch']`` at full width and depth (random float32 weights
+        from a seeded generator, bf16 compute) through ``Model.prefill``
+        and ``decode_step``: two prefills of ``model_inputs`` (cold, warm),
+        each counted at the ``kernels.ops`` call site by (Sq, Skv, causal)
+        and held to ``prefill_flash_calls`` (those wrapper calls timed by
+        CUDA events and summed: a padded width's copies with the kernel,
+        and any wait for the host inside a call), every wrapper's count
+        zeroed
+        just before the first and read after the second; an
+        encoder-decoder model's ``_encode`` (timed); ``max_new`` greedy
+        decode steps (given its output): every token below the vocabulary,
+        every logit finite.  Then a profiled prefill and DECODE_PROFILED
+        decode steps, and the flash kernel's share of the prefill's device
+        time.  Returns (numbers, launches, flash launches per prefill by
+        site)."""
+        from repro_torch.configs import get_config
+        from repro_torch.models import Model
+
+        torch = self.torch
+        ops, wrapper = self.ops, self.flash
+        cfg = get_config(spec["arch"])
+        model = Model(cfg, device=DEVICE)
+        params = self.timed(f"{cfg.name} init weights", lambda: model.init(
+            torch.Generator(DEVICE).manual_seed(seed)))
+        batch = self.model_inputs(cfg, spec, seed + 1)
+        cache = model.init_cache(spec["slots"], spec["max_len"])
+        frames = spec.get("frames", 0)
+        want = prefill_flash_calls(cfg, spec["prompt_len"], frames)
+        vocab = cfg.vocab_size
+        by_call, events = {}, []
+
+        def counted(q, k, *args, causal=True, **kw):
+            before = wrapper.launches
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = wrapper(q, k, *args, causal=causal, **kw)
+            end.record()
+            events.append((start, end))
+            key = (q.shape[2], k.shape[2], causal)
+            by_call[key] = by_call.get(key, 0) + wrapper.launches - before
+            return out
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        prefill_ms, calls_ms = [], []
+        for w in self.wrappers:
+            w.launches = 0
+        ops.flash_attention_kernel = counted
+        try:
+            for _ in range(2):
+                by_call.clear()
+                events.clear()
+                (cache, logits), ms = timed(
+                    lambda: model.prefill(params, batch, cache))
+                prefill_ms.append(ms)
+                calls_ms.append(sum(a.elapsed_time(b) for a, b in events))
+                got = {key: by_call.get(key[1:], 0) for key in want}
+                require(got == want and sum(by_call.values())
+                        == sum(want.values()),
+                        f"{cfg.name}: flash launches a prefill {by_call}, "
+                        f"expected {want}")
+                require(bool(torch.isfinite(logits[..., :vocab]).all()),
+                        f"{cfg.name}: non-finite prefill logits")
+        finally:
+            ops.flash_attention_kernel = wrapper
+        launches = {w.__name__: w.launches for w in self.wrappers}
+        enc_out, encode_ms = None, 0.0
+        if cfg.is_encoder_decoder:
+            enc_out, encode_ms = timed(lambda: model._encode(params, batch))
+            require(tuple(enc_out.shape) == (spec["slots"], frames,
+                                              cfg.d_model)
+                    and bool(torch.isfinite(enc_out).all()),
+                    f"{cfg.name}: encoder output {tuple(enc_out.shape)}")
+        extra = () if enc_out is None else (enc_out,)
+        decode_ms, tokens = [], []
+        pos = spec["prompt_len"]
+        for _ in range(spec["max_new"]):
+            cur = logits[:, -1, :vocab].argmax(-1)[:, None]
+            tokens.append(cur[:, 0].cpu())
+            (cache, logits), ms = timed(
+                lambda: model.decode_step(params, cur, cache, pos, *extra))
+            decode_ms.append(ms)
+            require(bool(torch.isfinite(logits[..., :vocab]).all()),
+                    f"{cfg.name}: non-finite logits at position {pos}")
+            pos += 1
+        tokens = torch.stack(tokens, dim=1)
+        require(tokens.shape == (spec["slots"], spec["max_new"])
+                and bool(((tokens >= 0) & (tokens < vocab)).all()),
+                f"{cfg.name}: greedy tokens {tokens.tolist()}")
+        steps = decode_ms[1:]
+        wave_ms = prefill_ms[1] + encode_ms + sum(decode_ms)
+        numbers = {
+            "prefill_ms": prefill_ms, "encode_ms": encode_ms,
+            # CUDA events around each wrapper call of a prefill, summed: a
+            # padded width's copies in and out with the kernel, and any time
+            # the card waits for the host inside a call (a host-bound
+            # prefill's events read above its kernels' device time)
+            "flash_calls_device_ms_per_prefill": calls_ms,
+            "decode_ms_per_step_mean": sum(steps) / len(steps),
+            "decode_steps": len(decode_ms),
+            "new_tokens": tokens.numel(),
+            "tokens_per_s": tokens.numel() / wave_ms * 1e3,
+            "flash_launches_per_prefill": {
+                f"{site} Sq={sq} Skv={skv} causal={c}": n
+                for (site, sq, skv, c), n in want.items()},
+        }
+        print(f"{cfg.name}: full width ({cfg.param_count()} params, "
+              f"{cfg.num_layers} layers"
+              + (f" + {cfg.num_encoder_layers} encoder layers"
+                 if cfg.is_encoder_decoder else "")
+              + f"), {spec['slots']} x {spec['prompt_len']} positions"
+              + (f" ({cfg.num_prefix_tokens} prefix embeddings)"
+                 if cfg.frontend == "vision" else "")
+              + (f", {frames} frames" if frames else "")
+              + f", {spec['max_new']} greedy steps: tokens < vocab, logits "
+              f"finite; " + json.dumps(numbers), flush=True)
+        print(f"  first tokens: {tokens[0, :8].tolist()}; {card_line()}",
+              flush=True)
+        self.serve_profile(model, params, model.prefill, model.decode_step,
+                           spec, numbers, batch=batch, enc_out=enc_out)
+        prof = numbers["profile"]["prefill"]["device_ms_per_step"]
+        numbers["flash_share_of_prefill_device_time"] = \
+            prof["flash"] / sum(prof.values())
+        print(f"  flash share of the profiled prefill's device time: "
+              f"{numbers['flash_share_of_prefill_device_time']:.4f} "
+              f"({prof['flash']:.3f} of {sum(prof.values()):.3f} ms)",
+              flush=True)
+        del model, params, batch, cache, logits, enc_out
+        torch.cuda.empty_cache()
+        return numbers, launches, want
+
+    def serve_phi3(self):
+        """Phase 17: phi-3-vision-4.2b at full width and depth (32 heads of
+        96: the bf16 flash kernel through the wrapper's zero-padding to
+        128, row 6c), 32 flash launches a prefill, then a 2-layer float32
+        twin (card vs CPU)."""
+        import dataclasses
+
+        from repro_torch.configs import get_config
+
+        torch = self.torch
+        t0 = time.perf_counter()
+        self.phi3_numbers, self.phi3_launches, calls = self.drive_model(
+            SERVE_PHI3, SEED + 60)
+        self.rows["flash_attention_d96"]["launches"] = sum(calls.values())
+        cfg = get_config(SERVE_PHI3["arch"])
+        self.phi3_numbers["twin"] = self.twin(
+            dataclasses.replace(cfg, num_layers=ENCDEC_TWIN["layers"],
+                                dtype=torch.float32),
+            ENCDEC_TWIN["prompt_len"], ENCDEC_TWIN["steps"], SEED + 61)
+        self.phase_ms["phase 17 (phi-3-vision-4.2b)"] = \
+            (time.perf_counter() - t0) * 1e3
+        print(card_line(), flush=True)
+
+    def serve_seamless(self):
+        """Phase 18: seamless-m4t-medium at full width and depth (12
+        encoder + 12 decoder layers, 16 heads of 64): 36 flash launches a
+        prefill, 12 at each site (encoder non-causal, decoder causal,
+        cross-attention non-causal at Sq = 1024, Skv = 2048), then a 2 + 2
+        layer float32 twin (card vs CPU)."""
+        import dataclasses
+
+        from repro_torch.configs import get_config
+
+        torch = self.torch
+        t0 = time.perf_counter()
+        self.seamless_numbers, self.seamless_launches, calls = \
+            self.drive_model(SERVE_SEAMLESS, SEED + 70)
+        for key, site in (("flash_attention_encoder", "encoder"),
+                          ("flash_attention_cross", "cross")):
+            self.rows[key]["launches"] = sum(
+                n for k, n in calls.items() if k[0] == site)
+        cfg = get_config(SERVE_SEAMLESS["arch"])
+        self.seamless_numbers["twin"] = self.twin(
+            dataclasses.replace(cfg, num_layers=ENCDEC_TWIN["layers"],
+                                num_encoder_layers=ENCDEC_TWIN["layers"],
+                                dtype=torch.float32),
+            ENCDEC_TWIN["prompt_len"], ENCDEC_TWIN["steps"], SEED + 71,
+            frames=ENCDEC_TWIN["frames"])
+        self.phase_ms["phase 18 (seamless-m4t-medium)"] = \
             (time.perf_counter() - t0) * 1e3
         print(card_line(), flush=True)
 
@@ -2581,6 +2974,10 @@ class Smoke:
         for spec, launches in ((SERVE_GRANITE, self.granite_launches),
                                (SERVE_MAMBA, self.mamba_launches)):
             print(f"launches on the {spec['arch']} serving path: "
+                  + json.dumps(launches))
+        for spec, launches in ((SERVE_PHI3, self.phi3_launches),
+                               (SERVE_SEAMLESS, self.seamless_launches)):
+            print(f"launches in the {spec['arch']} prefills (two): "
                   + json.dumps(launches))
         print("launches in phase 14 (broker sessions; conformance battery): "
               + json.dumps([self.broker_launches, self.battery_launches]))

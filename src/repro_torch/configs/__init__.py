@@ -1,15 +1,15 @@
-"""Architecture registry of the port: the decoder-only configs.
+"""Architecture and shape registry of the port: the ten configs.
 
 The port's own copies of the JAX package's config data
-(``repro/configs``), with ``torch`` dtypes, and of ``reduce_config`` (the
-CPU-test variant: same family and pattern, tiny dims).  The two archs
-that need the encoder-decoder or frontend paths (phi-3-vision-4.2b,
-seamless-m4t-medium) are a later slice: ``get_config`` raises for them.
+(``repro/configs``), with ``torch`` dtypes, of ``reduce_config`` (the
+CPU-test variant: same family and pattern, tiny dims) and of
+``batch_shapes`` (the inputs of one batch, shapes and dtypes only).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Dict
 
 import torch
 
@@ -23,6 +23,8 @@ _MODULES = {
     "mistral-nemo-12b": "mistral_nemo_12b",
     "smollm-360m": "smollm_360m",
     "minitron-4b": "minitron_4b",
+    "phi-3-vision-4.2b": "phi3_vision_4b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "jamba-1.5-large-398b": "jamba_1p5_large",
     "mamba2-2.7b": "mamba2_2p7b",
 }
@@ -31,8 +33,7 @@ ARCH_IDS = tuple(_MODULES)
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULES:
-        raise ValidationError(f"unknown or not yet ported arch {arch!r}; "
-                              f"choices: {ARCH_IDS}")
+        raise ValidationError(f"unknown arch {arch!r}; choices: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}").CONFIG
 
 
@@ -41,6 +42,9 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
     g = max(cfg.num_heads // max(cfg.num_kv_heads, 1), 1)
     kv = 1 if cfg.num_kv_heads == 1 else 2
     reps = 2 if len(cfg.pattern) <= 2 else 1
+    enc_layers = 0
+    if cfg.is_encoder_decoder:
+        enc_layers = len(cfg.encoder_pattern) * 2
     return dataclasses.replace(
         cfg,
         num_layers=len(cfg.pattern) * reps,
@@ -58,9 +62,48 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         moe_capacity_factor=8.0,
         ssm_state=16 if cfg.ssm_state else 0,
         mamba_head_dim=8,
+        num_encoder_layers=enc_layers,
+        num_prefix_tokens=4 if cfg.frontend else 0,
         dtype=torch.float32,
         param_dtype=torch.float32,
         attn_block_q=32,
         attn_block_k=32,
         vocab_pad_multiple=64,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeDef:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeDef] = {
+    "train_4k": ShapeDef("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeDef("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeDef("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeDef("long_500k", 524_288, 1, "decode"),
+}
+
+
+def batch_shapes(cfg: ModelConfig, shape: ShapeDef) -> Dict[str, tuple]:
+    """(shape, dtype) of each input of one training or prefill batch: a
+    vision frontend's ``prefix_embeds`` take ``num_prefix_tokens`` of the
+    sequence from the tokens; an audio frontend's ``frame_embeds`` are as
+    long as the sequence; ``labels`` for training."""
+    b, s = shape.global_batch, shape.seq_len
+    embeds = torch.bfloat16 if cfg.dtype == torch.bfloat16 else torch.float32
+    out: Dict[str, tuple] = {}
+    s_text = s
+    if cfg.frontend == "vision":
+        s_text = s - cfg.num_prefix_tokens
+        out["prefix_embeds"] = ((b, cfg.num_prefix_tokens, cfg.d_model),
+                                embeds)
+    if cfg.frontend == "audio":
+        out["frame_embeds"] = ((b, s, cfg.d_model), embeds)
+    out["tokens"] = ((b, s_text), torch.int32)
+    if shape.kind == "train":
+        out["labels"] = ((b, s), torch.int32)
+    return out

@@ -10,7 +10,10 @@ one card.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
         --prompt-len 2048 --max-len 2560
 
-Every arch of ``repro_torch.configs.ARCH_IDS`` is served.  Prompts longer
+Every arch of ``repro_torch.configs.ARCH_IDS`` is served but the two whose
+prefill needs more than tokens (phi-3-vision-4.2b's image prefix,
+seamless-m4t-medium's encoder frames), which raise ``ValidationError``
+before any weight is made.  Prompts longer
 than ``attn_block_q`` (512 at full width) and a multiple of it take the
 blockwise attention path, the flash kernel's call site; shorter ones take
 the dense path and never launch it, and mamba2-2.7b, attention-free,
@@ -28,7 +31,7 @@ import torch
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.models.transformer import Model
-from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.engine import Request, ServeEngine, check_servable
 
 
 def main(argv=None) -> None:
@@ -47,6 +50,7 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
+    check_servable(cfg)
     model = Model(cfg, device=args.device)
     params = model.init(torch.Generator(args.device).manual_seed(args.seed))
     print(f"serving {cfg.name} ({cfg.param_count()/1e6:.1f}M params, "

@@ -1,18 +1,17 @@
 """Model configuration and the ParamDef system of the port.
 
 The counterpart of the JAX package's ``repro/models/api.py`` for the
-decoder-only serving path (attention, Mamba-2 and MoE layers): every layer
-declares its parameters once as ``ParamDef``s (shape, logical axes,
-initializer), and the same declaration drives initialization,
+serving path (attention, Mamba-2 and MoE layers, cross-attention, the
+encoder stack and the vision / audio frontends): every layer declares its
+parameters once as ``ParamDef``s (shape, logical axes, initializer), and
+the same declaration drives initialization,
 :meth:`ModelConfig.param_count`, :meth:`ModelConfig.active_param_count`
 and the check of parameters carried over from the JAX package
 (:mod:`repro_torch.convert`).
 
-``dtype`` (compute) and ``param_dtype`` are ``torch`` dtypes.  The fields
-of the encoder-decoder and frontend paths are left out, apart from the
-flags the model checks to refuse them; those paths are a later slice of
-the port.  So are the sharding overrides and the mesh-bound ``moe_impl``
-modes.
+``dtype`` (compute) and ``param_dtype`` are ``torch`` dtypes.  The
+sharding overrides and ``remat`` are left out (no mesh, no training), and
+the mesh-bound ``moe_impl`` modes raise.
 """
 from __future__ import annotations
 
@@ -59,14 +58,19 @@ class ModelConfig:
     mamba_head_dim: int = 64
     mamba_expand: int = 2
     mamba_conv: int = 4
-    # paths of later slices (the model refuses them)
+    # encoder-decoder
     is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    encoder_pattern: Tuple[LayerSpec, ...] = ()
+    # multimodal frontend stub
     frontend: Optional[str] = None          # "vision" | "audio"
+    num_prefix_tokens: int = 0
     # numerics
     norm_eps: float = 1.0e-6
     tie_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16     # compute dtype
     param_dtype: torch.dtype = torch.float32
+    attn_impl: str = "blockwise"            # dense | blockwise
     attn_block_q: int = 512
     attn_block_k: int = 512
     vocab_pad_multiple: int = 256

@@ -7,7 +7,9 @@ flash kernel (:mod:`repro_torch.kernels.flash_attention`, CUDA) runs it on
 the card; on CPU tensors the kernel's wrapper takes its plain version, which
 replays the same online softmax.  In the JAX package this branch is a pure
 JAX double ``lax.scan`` computing what its Pallas kernel computes; here it
-*is* the kernel's call site.
+*is* the kernel's call site.  Cross-attention (encoder-decoder models)
+takes K/V from the encoder output (:func:`make_cross_kv`) through the same
+call, non-causal, with Sq != Skv.
 
 Decode reads the whole cache with a position mask, in plain torch, as the
 JAX package does outside any kernel.  The caches are updated in place (the
@@ -15,7 +17,7 @@ JAX package returns new arrays and donates the old ones).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,7 +28,9 @@ from repro_torch.models.common import rope
 NEG_INF = -1.0e30
 
 
-def attn_defs(cfg: ModelConfig):
+def attn_defs(cfg: ModelConfig, cross: bool = False):
+    """The projections of one attention sub-layer; a cross-attention
+    sub-layer (``cross``) has the same shapes."""
     h, kv, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
     return {
         "wq": ParamDef((d, h, hd), ("embed", "heads", "head_dim"), "normal"),
@@ -88,14 +92,19 @@ def dense_attention(q, k, v, *, scale, causal, window, softcap,
 
 def blockwise_attention(q, k, v, *, scale, causal, window, softcap,
                         block_q: int, block_k: int,
+                        num_global_blocks: int = 0,
                         q_segments=None, kv_segments=None):
     """Interest-managed blockwise attention on the block-sparse flash kernel.
 
     :func:`repro_torch.kernels.ops.flash_attention` builds the static block
-    schedule by interval matching over interest extents and runs the kernel
-    over it (its plain version on CPU tensors); unmatched KV blocks are
-    never touched.  q is right-aligned in the KV window; the model calls it
-    with Sq == Skv.  Shapes that are not multiples of the blocks take
+    schedule by interval matching over interest extents (the first
+    ``num_global_blocks`` query blocks see every KV block) and runs the
+    kernel over it (its plain version on CPU tensors); unmatched KV blocks
+    are never touched.  q is right-aligned in the KV window.  The model
+    calls it with Sq == Skv for self-attention, causal or not, and with
+    Sq != Skv, non-causal, for cross-attention; there the alignment plays
+    no part (the JAX package's pure-JAX path masks tokens with q at 0).
+    Shapes that are not multiples of the blocks take
     :func:`dense_attention`.
     """
     sq, skv = q.shape[2], k.shape[2]
@@ -110,7 +119,8 @@ def blockwise_attention(q, k, v, *, scale, causal, window, softcap,
     return flash_attention(
         q.contiguous(), k.contiguous(), v.contiguous(), scale=scale,
         causal=causal, window=window, softcap=softcap or None,
-        q_segments=q_segments, kv_segments=kv_segments, block_q=block_q,
+        q_segments=q_segments, kv_segments=kv_segments,
+        num_global_blocks=num_global_blocks, block_q=block_q,
         block_k=block_k)
 
 
@@ -149,29 +159,40 @@ def attention_layer(params, x, cfg: ModelConfig, *,
                     causal: bool = True, window: Optional[int] = None,
                     positions: Optional[torch.Tensor] = None,
                     segments: Optional[torch.Tensor] = None,
-                    cache: Optional[KVCache] = None):
+                    kv_override: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None,
+                    cache: Optional[KVCache] = None,
+                    num_global_blocks: int = 0):
     """Full attention sub-layer (projections + core + output).
 
     * forward/prefill: pass ``positions`` (B, S); returns (out, cache|None).
     * decode: pass ``cache`` and x of shape (B, 1, D); this token's K/V go
       to position ``cache.length``.
+    * cross-attention: pass ``kv_override`` = the encoder's (k, v) heads
+      (:func:`make_cross_kv`); q gets no rope, and no cache is read or
+      written.
 
     A prefill writes the whole prefix into ``cache.k`` / ``cache.v`` and a
     decode step one position, in place; the returned cache holds the same
-    tensors and the new length.
+    tensors and the new length.  ``cfg.attn_impl == "dense"`` takes
+    :func:`dense_attention` at every length.
     """
     s = x.shape[1]
     scale = cfg.head_dim ** -0.5
     dt = cfg.dtype
 
     q = _project(x, params["wq"], dt)                      # (B, S, H, hd)
-    k = _project(x, params["wk"], dt)
-    v = _project(x, params["wv"], dt)
-    if positions is not None:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-    k = k.transpose(1, 2).contiguous()                     # (B, Hkv, S, hd)
-    v = v.transpose(1, 2).contiguous()
+    if kv_override is None:
+        k = _project(x, params["wk"], dt)
+        v = _project(x, params["wv"], dt)
+        if positions is not None:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        k = k.transpose(1, 2).contiguous()                 # (B, Hkv, S, hd)
+        v = v.transpose(1, 2).contiguous()
+    else:
+        k, v = kv_override
+        cache = None
     q = q.transpose(1, 2).contiguous()                     # (B, H, S, hd)
 
     new_cache = None
@@ -191,7 +212,7 @@ def attention_layer(params, x, cfg: ModelConfig, *,
         new_cache = KVCache(cache.k, cache.v,
                             torch.tensor(s, dtype=torch.int32))
 
-    if s <= cfg.attn_block_q:
+    if cfg.attn_impl == "dense" or s <= cfg.attn_block_q:
         o = dense_attention(q, k, v, scale=scale, causal=causal,
                             window=window, softcap=cfg.attn_softcap,
                             q_segments=segments, kv_segments=segments)
@@ -199,6 +220,15 @@ def attention_layer(params, x, cfg: ModelConfig, *,
         o = blockwise_attention(
             q, k, v, scale=scale, causal=causal, window=window,
             softcap=cfg.attn_softcap, block_q=cfg.attn_block_q,
-            block_k=cfg.attn_block_k, q_segments=segments,
-            kv_segments=segments)
+            block_k=cfg.attn_block_k, num_global_blocks=num_global_blocks,
+            q_segments=segments, kv_segments=segments)
     return _output(o, params["wo"], dt), new_cache
+
+
+def make_cross_kv(params, enc_out: torch.Tensor, cfg: ModelConfig):
+    """Cross-attention K/V (B, Hkv, S_enc, hd) from the encoder output
+    (B, S_enc, d), through the sub-layer's ``wk`` / ``wv``; no rope."""
+    dt = cfg.dtype
+    k = _project(enc_out, params["wk"], dt).transpose(1, 2).contiguous()
+    v = _project(enc_out, params["wv"], dt).transpose(1, 2).contiguous()
+    return k, v

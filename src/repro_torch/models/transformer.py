@@ -1,4 +1,4 @@
-"""The decoder-only pattern-block transformer: forward, prefill and decode.
+"""The pattern-block transformer: forward, prefill and decode.
 
 A model is ``num_blocks`` repetitions of a *pattern block* (a tuple of
 LayerSpecs); parameters are stacked on a leading ``layers`` axis, as in the
@@ -6,10 +6,14 @@ JAX package, and a Python loop over that axis replaces its ``lax.scan``.
 Per-layer state (KV caches, Mamba states) is stacked the same way and
 updated in place.
 
-Mixers: ``attn``, ``attn_local``, ``attn_bidir`` and ``mamba``; MLPs:
-``dense``, ``moe`` and ``none``.  Cross-attention, encoder-decoder models,
-frontends and the ``moe_impl`` modes that need a mesh raise
-:class:`ValidationError`: they are later slices of the port.
+Mixers: ``attn``, ``attn_local``, ``attn_bidir`` and ``mamba``, any of
+them followed by cross-attention (``cross_attn``); MLPs: ``dense``,
+``moe`` and ``none``.  An encoder-decoder model runs its encoder stack
+(``encoder_pattern``) over ``frame_embeds`` and its decoder
+cross-attends to the encoder output; a ``vision`` frontend prepends
+projected ``prefix_embeds`` to the token embeddings, an ``audio`` one
+projects the frames.  The ``moe_impl`` modes that need a mesh raise
+:class:`ValidationError`.
 """
 from __future__ import annotations
 
@@ -22,8 +26,8 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.api import (LayerSpec, ModelConfig, init_params,
-                                    stack_defs)
+from repro_torch.models.api import (LayerSpec, ModelConfig, ParamDef,
+                                    init_params, iter_leaves, stack_defs)
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (embed_defs, embed_tokens, rmsnorm,
                                        rmsnorm_defs, unembed)
@@ -31,21 +35,28 @@ from repro_torch.models.mamba import MambaState
 
 MIXERS = ("attn", "attn_local", "attn_bidir", "mamba")
 MLPS = ("dense", "moe", "none")
+FRONTENDS = (None, "vision", "audio")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise :class:`ValidationError` for what the port does not run."""
-    for spec in cfg.pattern:
-        if spec.mixer not in MIXERS or spec.mlp not in MLPS \
-                or spec.cross_attn:
+    specs = cfg.pattern + (cfg.encoder_pattern if cfg.is_encoder_decoder
+                           else ())
+    for spec in specs:
+        if spec.mixer not in MIXERS or spec.mlp not in MLPS:
             raise ValidationError(
                 f"{cfg.name}: layer {spec} is not ported (mixers {MIXERS}, "
-                f"MLPs {MLPS}; cross-attention is a later slice)")
-    if cfg.is_encoder_decoder or cfg.frontend is not None:
+                f"MLPs {MLPS})")
+    if cfg.frontend not in FRONTENDS:
+        raise ValidationError(f"{cfg.name}: frontend {cfg.frontend!r} is "
+                              f"not one of {FRONTENDS}")
+    if cfg.is_encoder_decoder and (
+            not cfg.encoder_pattern
+            or cfg.num_encoder_layers % len(cfg.encoder_pattern)):
         raise ValidationError(
-            f"{cfg.name}: encoder-decoder models and frontends are not "
-            "ported")
-    if any(spec.mlp == "moe" for spec in cfg.pattern):
+            f"{cfg.name}: {cfg.num_encoder_layers} encoder layers are not "
+            f"whole repetitions of the encoder pattern {cfg.encoder_pattern}")
+    if any(spec.mlp == "moe" for spec in specs):
         moe_lib.select_moe_mode(cfg)
 
 
@@ -55,6 +66,9 @@ def _sublayer_defs(cfg: ModelConfig, spec: LayerSpec):
         d["mixer"] = mamba_lib.mamba_defs(cfg)
     else:
         d["mixer"] = attn_lib.attn_defs(cfg)
+    if spec.cross_attn:
+        d["norm_cross"] = rmsnorm_defs(cfg.d_model)
+        d["cross"] = attn_lib.attn_defs(cfg, cross=True)
     if spec.mlp == "dense":
         d["norm_mlp"] = rmsnorm_defs(cfg.d_model)
         d["mlp"] = mlp_lib.mlp_defs(cfg)
@@ -70,20 +84,32 @@ def block_defs(cfg: ModelConfig, pattern: Tuple[LayerSpec, ...]):
 
 def model_defs(cfg: ModelConfig):
     check_supported(cfg)
-    return {
+    defs: Dict[str, Any] = {
         "embed": embed_defs(cfg),
         "final_norm": rmsnorm_defs(cfg.d_model),
         "blocks": stack_defs(block_defs(cfg, cfg.pattern), cfg.num_blocks),
     }
+    if cfg.is_encoder_decoder:
+        defs["enc_blocks"] = stack_defs(
+            block_defs(cfg, cfg.encoder_pattern),
+            cfg.num_encoder_layers // len(cfg.encoder_pattern))
+        defs["enc_final_norm"] = rmsnorm_defs(cfg.d_model)
+    if cfg.frontend is not None:
+        defs["frontend_proj"] = ParamDef(
+            (cfg.d_model, cfg.d_model), ("embed", None), "normal")
+    return defs
 
 
-def _apply_block(cfg: ModelConfig, params_block, x, positions, segments,
-                 caches=None):
+def _apply_block(cfg: ModelConfig, pattern: Tuple[LayerSpec, ...],
+                 params_block, x, positions, segments, caches=None,
+                 enc_out=None):
     """One pattern block; returns (x, new caches of the block, aux (2,)
-    float32: the block's summed MoE [aux loss, z-loss])."""
+    float32: the block's summed MoE [aux loss, z-loss]).  A layer with
+    ``cross_attn`` attends, after its mixer, to ``enc_out`` (B, S_enc, d),
+    non-causal; its K/V are projected from ``enc_out`` at every call."""
     aux = torch.zeros(2, dtype=torch.float32, device=x.device)
     new_caches: Dict[str, Any] = {}
-    for i, spec in enumerate(cfg.pattern):
+    for i, spec in enumerate(pattern):
         sub = params_block[f"layer{i}"]
         h = rmsnorm(sub["norm_mixer"], x, cfg.norm_eps)
         cache_i = None if caches is None else caches[f"layer{i}"]
@@ -98,6 +124,15 @@ def _apply_block(cfg: ModelConfig, params_block, x, positions, segments,
         if nc is not None:
             new_caches[f"layer{i}"] = nc
         x = x + o
+        if spec.cross_attn:
+            if enc_out is None:
+                raise ValidationError(f"{cfg.name}: cross-attention needs "
+                                      "the encoder output (enc_out)")
+            h = rmsnorm(sub["norm_cross"], x, cfg.norm_eps)
+            kv = attn_lib.make_cross_kv(sub["cross"], enc_out, cfg)
+            o, _ = attn_lib.attention_layer(sub["cross"], h, cfg,
+                                            causal=False, kv_override=kv)
+            x = x + o
         if spec.mlp == "dense":
             h = rmsnorm(sub["norm_mlp"], x, cfg.norm_eps)
             x = x + mlp_lib.mlp(sub["mlp"], h, cfg)
@@ -118,19 +153,22 @@ def _index(tree, bi: int):
     return tree[bi]
 
 
-def _run_stack(cfg: ModelConfig, stacked_params, x, positions, segments,
-               stacked_caches=None):
-    """Run every block in order; returns (x, the stacked caches, aux (2,)
-    summed over the blocks).  Attention writes K/V into its block's cache
-    views itself, and its new length is stored back here; a Mamba layer's
-    new state (h and the three conv histories) is copied into its block's
-    rows of the stacked float32 state."""
+def _run_stack(cfg: ModelConfig, pattern: Tuple[LayerSpec, ...],
+               stacked_params, x, positions, segments, stacked_caches=None,
+               enc_out=None):
+    """Run every block of ``pattern`` (the decoder's or the encoder's) in
+    order; returns (x, the stacked caches, aux (2,) summed over the
+    blocks).  Attention writes K/V into its block's cache views itself,
+    and its new length is stored back here; a Mamba layer's new state (h
+    and the three conv histories) is copied into its block's rows of the
+    stacked float32 state."""
     aux = torch.zeros(2, dtype=torch.float32, device=x.device)
-    for bi in range(cfg.num_blocks):
+    num_blocks = next(iter_leaves(stacked_params))[1].shape[0]
+    for bi in range(num_blocks):
         caches = None if stacked_caches is None \
             else _index(stacked_caches, bi)
-        x, new, a = _apply_block(cfg, _index(stacked_params, bi), x,
-                                 positions, segments, caches)
+        x, new, a = _apply_block(cfg, pattern, _index(stacked_params, bi), x,
+                                 positions, segments, caches, enc_out)
         aux = aux + a
         for name, nc in new.items():
             if isinstance(nc, KVCache):
@@ -161,31 +199,67 @@ class Model:
         return init_params(self.defs(), self.cfg.param_dtype, generator,
                            device=self.device)
 
-    def _embed_inputs(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        x = embed_tokens(params["embed"], tokens, cfg)
-        return x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
+    def _scaled(self, x: torch.Tensor) -> torch.Tensor:
+        return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.cfg.dtype,
                                 device=x.device)
 
     @staticmethod
-    def _positions(tokens: torch.Tensor) -> torch.Tensor:
-        return torch.arange(tokens.shape[1], device=tokens.device) \
-            .expand(tokens.shape)
+    def _batch_input(batch, name: str) -> torch.Tensor:
+        if name not in batch:
+            raise ValidationError(f"the batch needs {name!r}")
+        return batch[name]
+
+    def _embed_inputs(self, params, batch) -> torch.Tensor:
+        """(B, S, d) inputs of the decoder stack, scaled by √d_model: the
+        token embeddings, after the projected ``prefix_embeds`` (B, P, d)
+        for a ``vision`` frontend (S = P + tokens)."""
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], batch["tokens"], cfg)
+        if cfg.frontend == "vision":
+            pe = self._batch_input(batch, "prefix_embeds").to(cfg.dtype)
+            x = torch.cat([pe @ params["frontend_proj"].to(cfg.dtype), x],
+                          dim=1)
+        return self._scaled(x)
+
+    @staticmethod
+    def _positions(x: torch.Tensor) -> torch.Tensor:
+        return torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+
+    @torch.no_grad()
+    def _encode(self, params, batch) -> torch.Tensor:
+        """The encoder output (B, S_enc, d) of an encoder-decoder model:
+        ``batch["frame_embeds"]`` (B, S_enc, d), projected by
+        ``frontend_proj`` for an ``audio`` frontend (not scaled), through
+        the encoder stack at rope positions 0..S_enc-1 and
+        ``enc_final_norm``."""
+        cfg = self.cfg
+        x = self._batch_input(batch, "frame_embeds").to(cfg.dtype)
+        if cfg.frontend == "audio":
+            x = x @ params["frontend_proj"].to(cfg.dtype)
+        x, _, _ = _run_stack(cfg, cfg.encoder_pattern, params["enc_blocks"],
+                             x, self._positions(x), None)
+        return rmsnorm(params["enc_final_norm"], x, cfg.norm_eps)
+
+    def _encoder_output(self, params, batch):
+        return self._encode(params, batch) if self.cfg.is_encoder_decoder \
+            else None
 
     @torch.no_grad()
     def forward_with_aux(self, params, batch):
         """(logits (B, S, padded_vocab) float32, aux (2,) float32: the MoE
-        [aux loss, z-loss] summed over the layers, zeros without MoE) of a
-        token batch (``batch["tokens"]`` (B, S); optional ``positions``,
-        ``segments``)."""
+        [aux loss, z-loss] summed over the decoder's layers, zeros without
+        MoE) of a batch: ``tokens`` (B, S_text); ``prefix_embeds`` for a
+        vision frontend (S = P + S_text), ``frame_embeds`` for an
+        encoder-decoder model; optional ``positions``, ``segments``."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = self._embed_inputs(params, tokens)
+        x = self._embed_inputs(params, batch)
         positions = batch.get("positions")
         if positions is None:
-            positions = self._positions(tokens)
-        x, _, aux = _run_stack(cfg, params["blocks"], x, positions,
-                               batch.get("segments"))
+            positions = self._positions(x)
+        enc_out = self._encoder_output(params, batch)
+        x, _, aux = _run_stack(cfg, cfg.pattern, params["blocks"], x,
+                               positions, batch.get("segments"),
+                               enc_out=enc_out)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return unembed(params["embed"], x, cfg), aux
 
@@ -214,25 +288,33 @@ class Model:
 
     @torch.no_grad()
     def prefill(self, params, batch, cache):
-        """Fill the caches from a token prefix (in place); returns (cache,
-        last-position logits (B, 1, padded_vocab))."""
+        """Fill the caches from a prefix (in place: the vision prefix and
+        the tokens; an encoder-decoder model encodes ``frame_embeds``
+        inside, and its decode steps take :meth:`_encode`'s output);
+        returns (cache, last-position logits (B, 1, padded_vocab))."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = self._embed_inputs(params, tokens)
-        x, cache, _ = _run_stack(cfg, params["blocks"], x,
-                                 self._positions(tokens), None, cache)
+        x = self._embed_inputs(params, batch)
+        x, cache, _ = _run_stack(cfg, cfg.pattern, params["blocks"], x,
+                                 self._positions(x), None, cache,
+                                 self._encoder_output(params, batch))
         x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
         return cache, unembed(params["embed"], x, cfg)
 
     @torch.no_grad()
-    def decode_step(self, params, token: torch.Tensor, cache, pos: int):
+    def decode_step(self, params, token: torch.Tensor, cache, pos: int,
+                    enc_out=None):
         """One decode step (cache updated in place).  token: (B, 1) int;
-        pos: its position.  Returns (cache, logits (B, 1, padded_vocab))."""
+        pos: its position; ``enc_out``: :meth:`_encode`'s output, which an
+        encoder-decoder model needs (its cross K/V are projected from it
+        at every step).  Returns (cache, logits (B, 1, padded_vocab))."""
         cfg = self.cfg
-        x = self._embed_inputs(params, token)
+        if cfg.is_encoder_decoder and enc_out is None:
+            raise ValidationError(f"{cfg.name}: an encoder-decoder decode "
+                                  "step needs enc_out")
+        x = self._scaled(embed_tokens(params["embed"], token, cfg))
         positions = torch.full(token.shape, int(pos), dtype=torch.int64,
                                device=token.device)
-        x, cache, _ = _run_stack(cfg, params["blocks"], x, positions, None,
-                                 cache)
+        x, cache, _ = _run_stack(cfg, cfg.pattern, params["blocks"], x,
+                                 positions, None, cache, enc_out)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return cache, unembed(params["embed"], x, cfg)

@@ -10,6 +10,11 @@ Mamba state, so no cache needs padding logic), prefills them together, then
 decodes one batched greedy token per step until every request of the wave
 has its budget or its EOS.  The same scheduling as the JAX package's
 ``repro/serve/engine.py``; here the wave's cache is updated in place.
+
+Prompts are token lists only, as in the JAX engine: a model with a
+frontend (vision prefix, audio frames) or an encoder is refused (see
+:func:`check_servable`); drive it through ``Model.prefill`` /
+``decode_step``.
 """
 from __future__ import annotations
 
@@ -21,7 +26,18 @@ import numpy as np
 import torch
 
 from repro_torch.core.errors import ValidationError
+from repro_torch.models.api import ModelConfig
 from repro_torch.models.transformer import Model
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise :class:`ValidationError` for a config whose prefill needs more
+    than tokens (a frontend's embeddings, an encoder's frames)."""
+    if cfg.frontend is not None or cfg.is_encoder_decoder:
+        raise ValidationError(
+            f"{cfg.name}: the engine serves token prompts only (frontend "
+            f"{cfg.frontend!r}, encoder-decoder {cfg.is_encoder_decoder}); "
+            "call Model.prefill / decode_step")
 
 
 @dataclasses.dataclass
@@ -48,6 +64,7 @@ class ServeEngine:
         if torch.device(device).type != model.device.type:
             raise ValidationError(f"engine on {device}, model on "
                                   f"{model.device}")
+        check_servable(model.cfg)
         self.model = model
         self.params = params
         self.num_slots = num_slots

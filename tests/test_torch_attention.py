@@ -8,8 +8,13 @@ interpret mode and with the JAX model's ``blockwise_attention`` (float32,
 within 2e-5, the bound of ``tests/test_kernels_attention.py``); the port's
 ``ref_attention`` must agree with the JAX dense oracle.  The feature grid is
 the one ``chip_smoke.py`` runs on the card: GQA, MQA, windows, softcap,
-segments, ``q_offset > 0``, global blocks, D = 64, 128 and 256.
+segments, ``q_offset > 0``, global blocks, D = 64, 128 and 256, causal and
+not (non-causal at Sq == Skv, as an encoder's self-attention, and at
+Sq != Skv either way, as cross-attention).  The model's
+``attention_layer`` (dense and blockwise, global blocks, cross-attention
+through ``kv_override``) is held against the JAX layer.
 """
+import dataclasses
 import itertools
 
 import jax
@@ -20,7 +25,13 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels.ref import ref_attention as jax_ref_attention
+from repro.models.attention import attention_layer as jax_attention_layer
 from repro.models.attention import blockwise_attention as jax_blockwise
+from repro.models.attention import make_cross_kv as jax_make_cross_kv
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduce_config as jax_reduce_config
+from repro.parallel.sharding import Sharder
+from repro_torch.configs import get_config, reduce_config
 from repro_torch.core.errors import ValidationError
 from repro_torch.kernels.flash_attention import (RT_MAX_HEAD_DIM,
                                                  _pad_head_dim,
@@ -28,7 +39,8 @@ from repro_torch.kernels.flash_attention import (RT_MAX_HEAD_DIM,
                                                  flash_route)
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.models.attention import blockwise_attention
+from repro_torch.models.attention import (attention_layer,
+                                          blockwise_attention, make_cross_kv)
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -68,6 +80,17 @@ CASES = {
     "d256": (1, 4, 2, 128, 128, 256, 64, {}),
     "d256_all": (2, 4, 2, 128, 128, 256, 32,
                  {"window": 40, "softcap": 50.0, "segments": True}),
+    # non-causal: an encoder's self-attention (Sq == Skv, with GQA,
+    # segments and softcap), cross-attention (Sq < Skv, and queries longer
+    # than the keys), a window with a global block
+    "bidir": (1, 2, 2, 256, 256, 64, 64, {"causal": False}),
+    "bidir_gqa_seg": (2, 4, 2, 128, 128, 64, 32,
+                      {"causal": False, "segments": True, "softcap": 30.0}),
+    "cross_kv_longer": (1, 4, 2, 128, 256, 64, 64, {"causal": False}),
+    "cross_q_longer": (1, 2, 2, 256, 128, 64, 64, {"causal": False}),
+    "bidir_global": (1, 2, 2, 256, 256, 64, 64,
+                     {"causal": False, "window": 64,
+                      "num_global_blocks": 1}),
 }
 
 
@@ -75,7 +98,7 @@ def _case(name):
     B, H, Hkv, Sq, Skv, D, blk, feats = CASES[name]
     q, k, v = _qkv(len(name), B, H, Hkv, Sq, Skv, D)
     seg = _segments(7, B, Skv) if feats.get("segments") else None
-    kw = dict(causal=True, window=feats.get("window"),
+    kw = dict(causal=feats.get("causal", True), window=feats.get("window"),
               softcap=feats.get("softcap"),
               num_global_blocks=feats.get("num_global_blocks", 0),
               block_q=blk, block_k=blk)
@@ -132,13 +155,20 @@ def test_plain_flash_equals_pallas_interpret(name):
 
 @pytest.mark.parametrize("name", ["mha", "gqa2", "gqa4_d128", "mqa5",
                                   "window100", "softcap", "segments",
-                                  "block32_all", "d256", "d256_all"])
+                                  "global", "block32_all", "d256", "d256_all",
+                                  "bidir", "bidir_gqa_seg", "cross_kv_longer",
+                                  "cross_q_longer", "bidir_global"])
 def test_blockwise_attention_equals_jax(name):
+    """The model's blockwise path against the JAX one.  The JAX path masks
+    tokens with q at position 0 where its schedule right-aligns q; they
+    agree where neither causality nor a window plays a part at Sq != Skv,
+    which is where the model calls it (cross-attention)."""
     (q, k, v), seg, kw = _case(name)
     d = q.shape[-1]
-    args = dict(scale=d ** -0.5, causal=True, window=kw["window"],
+    args = dict(scale=d ** -0.5, causal=kw["causal"], window=kw["window"],
                 softcap=kw["softcap"], block_q=kw["block_q"],
-                block_k=kw["block_k"])
+                block_k=kw["block_k"],
+                num_global_blocks=kw["num_global_blocks"])
     want = jax_blockwise(_j(q), _j(k), _j(v), q_segments=_j(seg),
                          kv_segments=_j(seg), **args)
     got = blockwise_attention(_t(q), _t(k), _t(v), q_segments=_t(seg),
@@ -151,7 +181,8 @@ def test_ref_attention_equals_jax_ref(name):
     (q, k, v), seg, kw = _case(name)
     sq = q.shape[2]
     qseg = None if seg is None else seg[:, -sq:]
-    args = dict(causal=True, window=kw["window"], softcap=kw["softcap"])
+    args = dict(causal=kw["causal"], window=kw["window"],
+                softcap=kw["softcap"])
     want = jax_ref_attention(_j(q), _j(k), _j(v), q_segments=_j(qseg),
                              kv_segments=_j(seg), **args)
     got = tref.ref_attention(_t(q), _t(k), _t(v), q_segments=_t(qseg),
@@ -330,3 +361,51 @@ def test_wrapper_validates_and_counts_no_plain_run():
         flash_attention_kernel(q.to("meta"), k.to("meta"),
                                       k.to("meta"), idx.to("meta"),
                                       cnt.to("meta"), block_q=32, block_k=32)
+
+
+@pytest.mark.parametrize("impl,causal,globals_,cross", [
+    ("dense", True, 0, False), ("blockwise", True, 1, False),
+    ("dense", False, 0, True), ("blockwise", False, 0, True),
+    ("blockwise", False, 0, False)])
+def test_attention_layer_equals_jax(impl, causal, globals_, cross,
+                                    monkeypatch):
+    """The whole sub-layer (projections, rope, core, output) at 64
+    positions, past the 32-blocks of a reduced config: ``attn_impl``
+    "dense" takes the dense path at every length (the flash call site is
+    never reached), "blockwise" the flash call site, with
+    ``num_global_blocks``; cross-attention takes K/V from a 96-position
+    encoder output through ``make_cross_kv``."""
+    jcfg = dataclasses.replace(jax_reduce_config(jax_get_config(
+        "smollm-360m")), attn_impl=impl)
+    cfg = dataclasses.replace(reduce_config(get_config("smollm-360m")),
+                              attn_impl=impl)
+    rng = np.random.default_rng(len(impl) + 2 * causal + globals_)
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    params = {name: (rng.standard_normal(shape) / np.sqrt(shape[0]))
+              .astype(np.float32) for name, shape in (
+                  ("wq", (d, h, hd)), ("wk", (d, kv, hd)),
+                  ("wv", (d, kv, hd)), ("wo", (h, hd, d)))}
+    x = rng.standard_normal((2, 64, d)).astype(np.float32)
+    enc = rng.standard_normal((2, 96, d)).astype(np.float32)
+    positions = np.broadcast_to(np.arange(64), (2, 64))
+    jparams = {name: jnp.asarray(a) for name, a in params.items()}
+    tparams = {name: torch.from_numpy(a) for name, a in params.items()}
+    kw = dict(causal=causal, num_global_blocks=globals_)
+    if cross:
+        jkw = dict(kv_override=jax_make_cross_kv(jparams, jnp.asarray(enc),
+                                                 jcfg, Sharder()))
+        tkw = dict(kv_override=make_cross_kv(tparams, _t(enc), cfg))
+        assert tkw["kv_override"][0].shape == (2, kv, 96, hd)
+    else:
+        jkw = dict(positions=jnp.asarray(positions))
+        tkw = dict(positions=torch.from_numpy(positions.copy()))
+    calls = []
+    real = tref.ref_flash_attention
+    monkeypatch.setattr(tref, "ref_flash_attention",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    want, _ = jax_attention_layer(jparams, jnp.asarray(x), jcfg, Sharder(),
+                                  **kw, **jkw)
+    got, cache = attention_layer(tparams, _t(x), cfg, **kw, **tkw)
+    assert cache is None and got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert len(calls) == (impl == "blockwise")

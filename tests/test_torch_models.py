@@ -249,16 +249,14 @@ def test_init_params_distributions():
 
 
 def test_unported_paths_raise():
+    """What the port still refuses: unknown mixers and MLPs, the mesh-bound
+    MoE modes, token-only serving of a model with a frontend or an encoder
+    (engine and launcher, before any weight is made), and a
+    cross-attention layer run without an encoder output.  All ten archs
+    are registered."""
     cfg = reduce_config(get_config("smollm-360m"))
     moe_cfg = reduce_config(get_config("granite-moe-3b-a800m"))
-    for bad in (dataclasses.replace(cfg, pattern=(LayerSpec("attn", "dense",
-                                                            True),)),
-                dataclasses.replace(cfg, pattern=(LayerSpec("mamba", "dense",
-                                                            True),)),
-                dataclasses.replace(cfg, is_encoder_decoder=True),
-                dataclasses.replace(cfg, frontend="vision"),
-                dataclasses.replace(cfg, frontend="audio"),
-                dataclasses.replace(cfg, pattern=(LayerSpec("rnn", "dense"),)),
+    for bad in (dataclasses.replace(cfg, pattern=(LayerSpec("rnn", "dense"),)),
                 dataclasses.replace(cfg, pattern=(LayerSpec("attn", "glu"),)),
                 dataclasses.replace(moe_cfg, moe_impl="ep"),
                 dataclasses.replace(moe_cfg, moe_impl="cap"),
@@ -266,9 +264,22 @@ def test_unported_paths_raise():
         with pytest.raises(ValidationError):
             Model(bad, device="cpu")
     for arch in ("phi-3-vision-4.2b", "seamless-m4t-medium"):
-        with pytest.raises(ValidationError):
-            get_config(arch)
-    assert len(ARCH_IDS) == 8
+        small = reduce_config(get_config(arch))
+        model = Model(small, device="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        with pytest.raises(ValidationError, match="token prompts"):
+            ServeEngine(model, params, num_slots=1, max_len=32, device="cpu")
+        with pytest.raises(ValidationError, match="token prompts"):
+            serve_launcher.main(["--arch", arch, "--reduced", "--device",
+                                 "cpu"])
+    cross = dataclasses.replace(cfg, pattern=(LayerSpec("attn", "dense",
+                                                        True),))
+    model = Model(cross, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(ValidationError, match="enc_out"):
+        model.forward(params, {"tokens": torch.zeros((1, 8),
+                                                     dtype=torch.int64)})
+    assert len(ARCH_IDS) == 10
 
 
 def test_params_from_arrays_rejects_a_wrong_tree(pair):
