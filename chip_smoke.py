@@ -221,6 +221,35 @@ Phases (any failure exits non-zero and prints no result line):
     then a 2 + 2-layer float32 twin (2048 frames, 1024 decoder tokens;
     the encoder output held too).
 
+19. Training.  (a) The flash kernel under autograd at smollm-360m's
+    training microbatch (B = 4, H = 15, Hkv = 5, S = 4096, D = 64, bf16,
+    causal 512-blocks, ``SyntheticLM`` segments): through
+    ``ops.flash_attention`` with grad required (``FlashAttentionFunction``,
+    one launch), its output == the plain version within
+    ``flash_full_tol``; dq, dk, dv for a seeded upstream gradient == autograd
+    through the float32 torch twin on the card; the forward kernel's device
+    time, the backward's (``flash_attention_vjp``) and its peak memory,
+    and one ``scaled_dot_product_attention`` forward and forward plus
+    backward (``is_causal``, ``enable_gqa``, no segment mask: not the same
+    function, the yardstick); the bound over the pairs the causal and
+    document masks leave live.  (b) smollm-360m at full width and depth
+    (361,821,120 parameters) through ``TrainLoop``: B = 8, S = 4096, two
+    microbatches, 8 steps, cosine schedule to 3e-4, bf16 moments, remat,
+    async checkpoints at steps 4 and 8; every loss and grad_norm finite,
+    grad_norm > 0; flash launches (every count zeroed just before) exactly
+    32 layers x 2 microbatches x 2 (the forward and remat's recompute) x 8
+    steps; a fresh loop resumes from the step-4 checkpoint to step 8 and
+    repeats the first run's losses; cold and warm step ms, tokens/s, peak
+    memory and ``train_mfu``; one more step under ``torch.profiler``
+    (device time by class: flash forward, attention backward, products,
+    elementwise, optimizer, the rest; idle share).  (c) A 2-layer
+    full-width float32 twin (TF32 off, B = 2, S = 1024: the float32
+    kernel): one step's loss, every gradient leaf and the parameters after
+    one AdamW step (float32 moments) on the card == a ``device="cpu"``
+    twin within 1e-3 relative.  (d) Reduced granite-moe-3b-a800m,
+    mamba2-2.7b and seamless-m4t-medium the same way (equal expert
+    choices; seamless's encoder gradients nonzero).
+
 The build prints every kernel's registers, shared memory and spills from
 nvcc's ``-Xptxas -v`` report, and SASS opcode counts (the float32 flash
 kernel must hold FFMA and cp.async and no tensor-core instruction).
@@ -234,7 +263,7 @@ that two commits' float32 kernels are timed in one call on one card.
 The last lines are the ``{"kernels": [...]}`` record, the flash rows at
 gemma2-2b's shapes, the launch counts (d = 1 main path, d-dim service
 path, the four serving paths, phase 14, the prefills of phases 17 and
-18), the phase timings,
+18, the training run of phase 19), the phase timings,
 the card line, and ``{"ok": true, "device": {...}}``.
 Data come from a fixed seed.  Exits 2 without a result when no CUDA device
 is present or the script stands outside the repository.
@@ -242,6 +271,7 @@ is present or the script stands outside the repository.
 from __future__ import annotations
 
 import json
+import math
 import os
 import pathlib
 import re
@@ -314,7 +344,17 @@ ENCDEC_TWIN = dict(layers=2, prompt_len=1024, frames=2048, steps=4)
 # path at their 32-blocks)
 REDUCED_TWINS = ("jamba-1.5-large-398b", "grok-1-314b")
 REDUCED_TWIN = dict(prompt_len=64, steps=4)
+# phase 19: training.  smollm-360m at full width and depth, two microbatches
+# of 4 x 4096 tokens a step; the flash row at one microbatch's shapes
+TRAIN = dict(arch="smollm-360m", batch=8, seq=4096, microbatches=2,
+             steps=8, ckpt_every=4, peak_lr=3e-4, params=361_821_120)
+TRAIN_FLASH = dict(B=4, H=15, Hkv=5, S=4096, D=64, block=512)
+TRAIN_TWIN = dict(layers=2, batch=2, seq=1024)
+TRAIN_REDUCED = ("granite-moe-3b-a800m", "mamba2-2.7b",
+                 "seamless-m4t-medium")
+TRAIN_REDUCED_SEQ = 128
 TWIN_TOL = 1e-3                # card vs CPU, relative to the CPU's max |.|
+TWIN_LR = 1e-3                 # the training twins' one AdamW step
 DECODE_PROFILED = 4            # decode steps under the profiler
 # substrings of cuBLAS / CUTLASS matrix-product kernel names
 MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
@@ -625,6 +665,27 @@ def prefill_flash_calls(cfg, seq: int, frames: int = 0) -> dict:
     return calls
 
 
+def train_flash_calls(cfg, seq: int, frames: int = 0,
+                      microbatches: int = 1) -> int:
+    """Flash launches of one training step: every attention call of the
+    forward (``prefill_flash_calls``; the encoder once), per microbatch,
+    and again in the backward pass's recomputation with ``cfg.remat``."""
+    per_pass = sum(prefill_flash_calls(cfg, seq, frames).values())
+    return per_pass * microbatches * (2 if cfg.remat else 1)
+
+
+def doc_pairs(segments) -> int:
+    """(q, k) pairs a causal mask over packed documents leaves live: the
+    sum over the rows' documents of n (n + 1) / 2."""
+    import numpy as np
+
+    total = 0
+    for row in segments.cpu().numpy():
+        n = np.unique(row, return_counts=True)[1].astype(np.int64)
+        total += int((n * (n + 1) // 2).sum())
+    return total
+
+
 def require(cond, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
@@ -686,6 +747,7 @@ def main(argv=None) -> int:
     smoke.serve_mamba()
     smoke.serve_phi3()
     smoke.serve_seamless()
+    smoke.train()
     smoke.report(card)
     return 0
 
@@ -2957,6 +3019,579 @@ class Smoke:
         return Extents(torch.from_numpy(lo).to(self.dev),
                        torch.from_numpy(hi).to(self.dev))
 
+    # -- phase 19: training ----------------------------------------------
+    def train(self):
+        """Phase 19: (a) the flash kernel under autograd at smollm-360m's
+        training microbatch, (b) smollm-360m trained at full width and
+        depth through ``TrainLoop`` (resumed from its step-4 checkpoint, a
+        profiled step), (c) a 2-layer full-width float32 twin and (d)
+        reduced granite-moe, mamba2 and seamless twins, card vs CPU."""
+        torch = self.torch
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        self.train_flash_row()
+        self.phase_ms["phase 19 (a) flash row"] = \
+            (time.perf_counter() - t0) * 1e3
+        self.train_numbers = self.train_smollm()
+        self.rows["flash_attention_train"]["launches"] = \
+            self.train_numbers["flash_launches"] // TRAIN["steps"]
+        t1 = time.perf_counter()
+        self.train_numbers["twins"] = self.train_twins()
+        self.phase_ms["phase 19 (c, d) twins"] = \
+            (time.perf_counter() - t1) * 1e3
+        self.phase_ms["phase 19 (training)"] = \
+            (time.perf_counter() - t0) * 1e3
+        print(card_line(), flush=True)
+
+    def train_flash_row(self):
+        """(a): ``ops.flash_attention`` with grad required at one training
+        microbatch's shapes (``SyntheticLM`` segments): one launch, output
+        == plain within ``flash_full_tol``, dq / dk / dv == autograd
+        through the plain version (the replay oracle, code apart from
+        ``flash_vjp``'s) and through the twin; forward and backward times,
+        the backward's peak memory, and one compiled ``flex_attention``
+        (causal and document block mask: the same function) forward and
+        forward + backward."""
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+
+        from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+        from repro_torch.kernels.flash_vjp import (blockwise_attention_twin,
+                                                   flash_attention_vjp)
+
+        torch = self.torch
+        c = TRAIN_FLASH
+        B, H, Hkv, S, D, blk = c["B"], c["H"], c["Hkv"], c["S"], c["D"], \
+            c["block"]
+        gen = torch.Generator().manual_seed(SEED + 90)
+        q, k, v = self.flash_inputs(B, H, Hkv, S, S, D, torch.bfloat16, gen,
+                                    q_gain=FLASH_FULL_Q_GAIN)
+        seg = SyntheticLM(SyntheticConfig(vocab_size=49_152, seq_len=S,
+                                          global_batch=B, seed=SEED + 91),
+                          device=DEVICE).batch(0)["segments"]
+        dout = torch.randn((B, H, S, D), generator=gen).to(self.dev,
+                                                            torch.bfloat16)
+        idx, cnt, _ = self.ops.build_block_structure(
+            S, S, block_q=blk, block_k=blk, causal=True)
+        sched = (torch.from_numpy(idx), torch.from_numpy(cnt))
+        opts = dict(scale=D ** -0.5, causal=True, window=None, softcap=None,
+                    block_q=blk, block_k=blk, q_offset=0)
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        before = self.flash.launches
+        out = self.ops.flash_attention(q, k, v, scale=D ** -0.5,
+                                       q_segments=seg, kv_segments=seg,
+                                       block_q=blk, block_k=blk)
+        torch.cuda.synchronize()
+        require(self.flash.launches - before == 1 and out.requires_grad,
+                f"train flash: {self.flash.launches - before} launches, "
+                f"grad_fn {out.grad_fn}")
+        plain = self.ref.ref_flash_attention(q.detach(), k.detach(),
+                                             v.detach(), *sched, seg, seg,
+                                             **opts)
+        tol = flash_full_tol(v.detach())
+        diff = (out.detach().float() - plain.float()).abs()
+        err = float(diff.max())
+        require(bool((diff <= tol[0] + tol[1] * plain.float().abs()).all()),
+                f"train flash: kernel != plain (max |diff| {err})")
+        del plain, diff
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = torch.autograd.grad(out, (q, k, v), dout)
+        torch.cuda.synchronize()
+        vjp_peak = torch.cuda.max_memory_allocated() - base
+        # autograd through the plain version (code apart from flash_vjp's)
+        # and through the twin (whose VJP the backward is)
+        grad_err = {}
+        for against, fn in (("plain", self.ref.ref_flash_attention),
+                            ("twin", blockwise_attention_twin)):
+            o = fn(q, k, v, *sched, seg, seg, **opts)
+            want = torch.autograd.grad(o, (q, k, v), dout.to(o.dtype))
+            del o
+            for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+                rel = float((got.float() - w.float()).abs().max()
+                            / w.float().abs().max())
+                grad_err[f"{name} vs {against}"] = rel
+                require(got.dtype == torch.bfloat16 and rel <= 1e-2,
+                        f"train flash: {name} != autograd through the "
+                        f"{against} (relative {rel}, dtype {got.dtype})")
+            del want
+        del grads
+        qd, kd, vd = q.detach(), k.detach(), v.detach()
+        kernel_ms = self.time_ms(
+            lambda: self.flash(qd, kd, vd, *sched, seg, seg, **opts), 10,
+            "flash_attention_fwd")
+        backward_ms = self.time_ms(
+            lambda: flash_attention_vjp(qd, kd, vd, dout, *sched, seg, seg,
+                                        **opts), 3)
+        plain_ms = self.time_ms(
+            lambda: self.ref.ref_flash_attention(qd, kd, vd, *sched, seg,
+                                                 seg, **opts), 2)
+        # the same function in one library call: flex_attention (compiled)
+        # with a causal and document block mask
+        flex = torch.compile(flex_attention, dynamic=False)
+        seg_d = seg.to(self.dev)
+
+        def documents(b, h, q_idx, kv_idx):
+            return (q_idx >= kv_idx) & (seg_d[b, q_idx] == seg_d[b, kv_idx])
+
+        mask = create_block_mask(documents, B, None, S, S, device=self.dev)
+
+        def library(q=qd, k=kd, v=vd):
+            return flex(q, k, v, block_mask=mask, scale=D ** -0.5,
+                        enable_gqa=True)
+
+        lib_err = float((library().float() - out.detach().float()).abs()
+                        .max())
+        require(lib_err <= 5e-2, f"train flash: kernel vs flex_attention "
+                f"max |diff| {lib_err}")
+        library_ms = self.time_ms(library, 10)
+
+        def library_fwd_bwd():
+            o = flex(q, k, v, block_mask=mask, scale=D ** -0.5,
+                     enable_gqa=True)
+            return torch.autograd.grad(o, (q, k, v), dout)
+
+        library_fwd_bwd_ms = self.time_ms(library_fwd_bwd, 5)
+        pairs = doc_pairs(seg) * H
+        flops = 4 * D * pairs
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel()) \
+            + 4 * (2 * seg.numel() + idx.size + cnt.size)
+        ops_ms = flops / BF16_OPS_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {
+            "name": "flash_attention (training forward under autograd, "
+                    "smollm-360m microbatch B=4 S=4096 with segments)",
+            "route": "cuda", "source": SOURCES["flash_attention"],
+            "replaces": REPLACES["flash_attention"], "launches": None,
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms,
+            "backward_ms": backward_ms,
+            "library_fwd_bwd_ms": library_fwd_bwd_ms,
+        }
+        self.rows["flash_attention_train"] = row
+        print(f"train flash (B={B} H={H}/{Hkv} S={S} D={D} bf16, causal "
+              f"{blk}-blocks, {int(seg.max()) + 1} documents in row 0): one "
+              f"launch under autograd, == plain within {tol[0]:.4g} + "
+              f"{tol[1]:.4g} |ref| (max |diff| {err:.4g}); dq/dk/dv vs "
+              f"autograd through the plain version and the twin (relative "
+              f"to max): {json.dumps(grad_err)}; "
+              f"forward kernel {kernel_ms:.4f} ms "
+              f"({self.timing_source.get('flash_attention_fwd')}), backward "
+              f"(flash_attention_vjp, float32 torch) {backward_ms:.3f} ms, "
+              f"its peak memory {vjp_peak / 2**30:.3f} GiB above the inputs; "
+              f"plain forward {plain_ms:.3f} ms; {pairs} live (q, k) pairs "
+              f"(causal and document masks), bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}); flex_attention (compiled; causal and "
+              f"document block mask, enable_gqa; the same function; max "
+              f"|kernel - flex| {lib_err:.4g}) forward {library_ms:.4f} ms, "
+              f"forward + backward {library_fwd_bwd_ms:.4f} ms", flush=True)
+        print(card_line(), flush=True)
+
+    def train_smollm(self) -> dict:
+        """(b): smollm-360m at full width and depth through ``TrainLoop``,
+        then a fresh loop resumed from the step-4 checkpoint, then one
+        profiled step.  Returns the numbers printed."""
+        import shutil
+        import tempfile
+
+        from repro_torch.configs import get_config
+        from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+        from repro_torch.models import Model
+        from repro_torch.models.api import iter_leaves
+        from repro_torch.train.loop import TrainLoop, TrainLoopConfig
+        from repro_torch.train.optimizer import AdamW, cosine_schedule
+
+        torch = self.torch
+        t = TRAIN
+        cfg = get_config(t["arch"])
+        require(cfg.param_count() == t["params"] and cfg.remat,
+                f"train: {cfg.name} has {cfg.param_count()} parameters, "
+                f"remat {cfg.remat}")
+        model = Model(cfg, device=DEVICE)
+        data = SyntheticLM(SyntheticConfig(
+            vocab_size=cfg.vocab_size, seq_len=t["seq"],
+            global_batch=t["batch"], seed=SEED + 92), device=DEVICE)
+        per_step = train_flash_calls(cfg, t["seq"],
+                                     microbatches=t["microbatches"])
+        (ROOT / "build").mkdir(exist_ok=True)
+        root = pathlib.Path(tempfile.mkdtemp(prefix="train_ckpt_",
+                                             dir=ROOT / "build"))
+
+        def loop_for(directory, records):
+            return TrainLoop(
+                model,
+                AdamW(cosine_schedule(t["peak_lr"], max(t["steps"] // 10, 1),
+                                      t["steps"])),
+                data,
+                TrainLoopConfig(total_steps=t["steps"],
+                                checkpoint_every=t["ckpt_every"],
+                                checkpoint_dir=str(directory), log_every=1,
+                                microbatches=t["microbatches"]),
+                metrics_hook=lambda step, rec: records.append(rec))
+
+        try:
+            records = []
+            loop = loop_for(root / "run", records)
+            for w in self.wrappers:
+                w.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state = loop.run(SEED + 93)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            self.phase_ms["phase 19 (b) training run"] = run_s * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            launches = {w.__name__: w.launches for w in self.wrappers}
+            loop.close()
+            saved = sorted(p.name for p in (root / "run").iterdir())
+            require(saved == ["step_00000004", "step_00000008"],
+                    f"train: checkpoints {saved}")
+            want = per_step * t["steps"]
+            require(launches["flash_attention_kernel"] == want
+                    and sum(launches.values()) == want,
+                    f"train: launches {launches}, expected {want} flash "
+                    f"launches ({per_step} a step) and no other")
+            losses = [r["loss"] for r in records]
+            norms = [r["grad_norm"] for r in records]
+            require(len(records) == t["steps"]
+                    and all(math.isfinite(x) for x in losses + norms)
+                    and all(x > 0 for x in norms),
+                    f"train: losses {losses}, grad norms {norms}")
+            # a fresh loop resumes from the step-4 checkpoint
+            shutil.copytree(root / "run" / "step_00000004",
+                            root / "resume" / "step_00000004")
+            resumed = []
+            loop2 = loop_for(root / "resume", resumed)
+            self.flash.launches = 0
+            t1 = time.perf_counter()
+            state2 = loop2.run(SEED + 93)
+            loop2.close()
+            self.phase_ms["phase 19 (b) resumed run"] = \
+                (time.perf_counter() - t1) * 1e3
+            require(self.flash.launches == per_step * (t["steps"] - 4)
+                    and [r["step"] for r in resumed] == [4, 5, 6, 7],
+                    f"train resume: steps {[r['step'] for r in resumed]}, "
+                    f"{self.flash.launches} flash launches")
+            # resumed == uninterrupted, bitwise: losses, parameters, both
+            # moments and the optimizer's step counter
+            resume_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                             for a, b in zip(resumed, records[4:]))
+            trees = {"params": (state.params, state2.params),
+                     "m": (state.opt_state.m, state2.opt_state.m),
+                     "v": (state.opt_state.v, state2.opt_state.v)}
+            diffs = {part: max(float((a.float() - b.float()).abs().max())
+                               for (_, a), (_, b)
+                               in zip(iter_leaves(x), iter_leaves(y)))
+                     for part, (x, y) in trees.items()}
+            param_diff = diffs["params"]
+            opt_steps = (int(state.opt_state.step),
+                         int(state2.opt_state.step))
+            require([r["loss"] for r in resumed] == losses[4:]
+                    and max(diffs.values()) == 0
+                    and opt_steps == (t["steps"], t["steps"])
+                    and state2.step == t["steps"],
+                    f"train resume: losses {[r['loss'] for r in resumed]} "
+                    f"!= {losses[4:]} (relative {resume_rel}), max |diff| "
+                    f"{diffs}, optimizer steps {opt_steps}, loop step "
+                    f"{state2.step}")
+            del state
+            t1 = time.perf_counter()
+            profile = self.train_profile(loop2, state2, data)
+            self.phase_ms["phase 19 (b) profiled step"] = \
+                (time.perf_counter() - t1) * 1e3
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        tokens = t["batch"] * t["seq"]
+        steps_ms = [r["time_s"] * 1e3 for r in records]
+        warm_ms = sorted(steps_ms[1:])[len(steps_ms[1:]) // 2]
+        S, D, H, L = t["seq"], cfg.head_dim, cfg.num_heads, cfg.num_layers
+        attn_flops = 3 * 4 * D * (S * (S + 1) // 2) * H * L * t["batch"]
+        model_flops = 6 * t["params"] * tokens + attn_flops
+        numbers = {
+            "arch": cfg.name, "params": cfg.param_count(),
+            "batch": t["batch"], "seq": S,
+            "microbatches": t["microbatches"], "steps": t["steps"],
+            "losses": losses, "grad_norms": norms,
+            "step_ms": steps_ms, "cold_step_ms": steps_ms[0],
+            "warm_step_ms_median": warm_ms,
+            "tokens_per_s_warm": tokens / warm_ms * 1e3,
+            "run_s": run_s, "peak_memory_bytes": peak,
+            "model_tflop_per_step": model_flops / 1e12,
+            "train_mfu": model_flops / (warm_ms / 1e3) / BF16_OPS_PER_S,
+            "flash_launches_per_step": per_step,
+            "flash_launches": launches["flash_attention_kernel"],
+            "resumed_losses": [r["loss"] for r in resumed],
+            "resume_max_rel_loss_diff": resume_rel,
+            "resume_max_abs_param_diff": param_diff,
+            "resume_max_abs_moment_diff": max(diffs["m"], diffs["v"]),
+            "profile": profile,
+        }
+        self.train_launches = launches
+        print(f"train {cfg.name} at full width and depth "
+              f"({cfg.param_count()} parameters; B={t['batch']} x "
+              f"S={S}, {t['microbatches']} microbatches, remat, bf16 "
+              f"moments, async checkpoints at 4 and 8): cold step "
+              f"{steps_ms[0]:.1f} ms, warm step (median) {warm_ms:.1f} ms, "
+              f"{numbers['tokens_per_s_warm']:.1f} tokens/s, peak memory "
+              f"{peak / 2**30:.3f} GiB, train_mfu {numbers['train_mfu']:.4f} "
+              f"({numbers['model_tflop_per_step']:.2f} TFLOP a step over "
+              f"989 TFLOP/s); flash launches {numbers['flash_launches']} "
+              f"({per_step} a step); resumed from step 4: losses, params "
+              f"and moments bitwise equal to the uninterrupted run's",
+              flush=True)
+        print("train numbers: " + json.dumps(numbers), flush=True)
+        print(card_line(), flush=True)
+        return numbers
+
+    def train_profile(self, loop, state, data) -> dict:
+        """One more training step under ``torch.profiler``: device time by
+        class (the flash forward kernel; the attention backward, i.e. every
+        kernel ``flash_attention_vjp`` launches; the optimizer's; matrix
+        products; PyTorch's elementwise kernels; the rest) against the
+        host clock, and the idle share (an upper bound: the profiler's
+        cost inflates the host clock)."""
+        import bisect
+        import importlib
+
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        from repro_torch.train import loop as loop_lib
+
+        # the module (the package's ``flash_attention`` is a function)
+        fa = importlib.import_module("repro_torch.kernels.flash_attention")
+
+        torch = self.torch
+        real = {"vjp": fa.flash_attention_vjp, "update": loop.opt.update,
+                "apply": loop_lib.apply_updates}
+
+        def labelled(label, fn):
+            def run(*a, **k):
+                with record_function(label):
+                    return fn(*a, **k)
+            return run
+
+        batch = data.batch(TRAIN["steps"])
+        torch.cuda.synchronize()
+        fa.flash_attention_vjp = labelled("smoke/attention_backward",
+                                          real["vjp"])
+        # AdamW is a frozen dataclass: its update is shadowed on the instance
+        object.__setattr__(loop.opt, "update",
+                           labelled("smoke/optimizer", real["update"]))
+        loop_lib.apply_updates = labelled("smoke/optimizer", real["apply"])
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                loop.train_step(state.params, state.opt_state, batch)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            exit_s = time.perf_counter() - t0 - wall_ms / 1e3
+        finally:
+            fa.flash_attention_vjp = real["vjp"]
+            object.__delattr__(loop.opt, "update")
+            loop_lib.apply_updates = real["apply"]
+        # the raw trace (building the profiler's event tree for the
+        # ~130,000 kernels of a step takes minutes): device events are
+        # kernels, copies and fills, and the ranges' device annotations
+        # ("smoke/..."), which span the kernels their range launched on the
+        # one stream; a kernel is attributed to the range whose annotation
+        # holds its start, else classed by name
+        t_parse = time.perf_counter()
+        raw = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+        spans = {"attention_backward": [], "optimizer": []}
+        for e in raw:
+            if e.name().startswith("smoke/"):
+                spans[e.name().split("/")[1]].append(
+                    (e.start_ns(), e.start_ns() + e.duration_ns()))
+        for v in spans.values():
+            v.sort()
+        kinds = dict.fromkeys(("flash_forward", "attention_backward",
+                               "products", "elementwise", "optimizer",
+                               "rest"), 0.0)
+        rest = {}
+        busy = events = 0
+        for e in raw:
+            key = e.name()
+            if key.startswith("smoke/"):
+                continue
+            ms = e.duration_ns() / 1e6
+            busy += ms
+            events += 1
+            name = key.lower()
+            kind = "flash_forward" if "flash_attention_fwd" in name else None
+            start = e.start_ns()
+            for label, v in spans.items():
+                i = bisect.bisect_right(v, (start, float("inf"))) - 1
+                if kind is None and i >= 0 and v[i][0] <= start <= v[i][1]:
+                    kind = label
+            kind = kind or ("products" if any(w in name for w in MATMUL_NAMES)
+                            else "elementwise" if "elementwise" in name
+                            else "rest")
+            kinds[kind] += ms
+            if kind == "rest":
+                rest[key[:50]] = rest.get(key[:50], 0.0) + ms
+        out = {"wall_ms": wall_ms, "device_ms": kinds,
+               "device_busy_ms": busy, "device_idle_share": 1 - busy / wall_ms,
+               "device_events": events,
+               "ranges": {k: len(v) for k, v in spans.items()},
+               "profiler_exit_s": exit_s,
+               "trace_read_s": time.perf_counter() - t_parse,
+               "torch": torch.__version__,
+               "top_rest_kernels_ms": sorted(
+                   ((round(ms, 3), name) for name, ms in rest.items()),
+                   reverse=True)[:6]}
+        require(kinds["flash_forward"] > 0 and kinds["attention_backward"] > 0
+                and kinds["optimizer"] > 0,
+                f"train profile: a class saw no device time {kinds}")
+        print("train profile (one step): " + json.dumps(out), flush=True)
+        return out
+
+    def train_twins(self) -> dict:
+        """(c) and (d): one training step card vs CPU twin."""
+        import dataclasses
+
+        from repro_torch.configs import get_config, reduce_config
+
+        cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                                  num_layers=TRAIN_TWIN["layers"],
+                                  dtype=self.torch.float32)
+        t0 = time.perf_counter()
+        out = {cfg.name: self.train_twin(cfg, TRAIN_TWIN["batch"],
+                                         TRAIN_TWIN["seq"], SEED + 94)}
+        self.phase_ms["phase 19 (c) full-width twin"] = \
+            (time.perf_counter() - t0) * 1e3
+        for i, arch in enumerate(TRAIN_REDUCED):
+            rcfg = reduce_config(get_config(arch))
+            out[f"{arch} (reduced)"] = self.train_twin(
+                rcfg, 2, TRAIN_REDUCED_SEQ, SEED + 95 + i)
+        return out
+
+    def train_twin(self, cfg, batch: int, seq: int, seed: int) -> dict:
+        """One training step of ``cfg`` (float32, TF32 off) on the card and
+        on a ``device="cpu"`` twin from the same parameters and batch: the
+        loss and every gradient leaf within TWIN_TOL of the CPU's,
+        relative to each leaf's max |.|; the parameters after one AdamW
+        step (float32 moments) within TWIN_TOL · lr of the CPU's, beyond
+        one float32 rounding of the parameter, wherever that step is
+        lr · sign(g) to 1e-3 and the sign is sure.  A first step from zero
+        moments moves a parameter by lr · g / (|g| + eps / c) (c the clip
+        scale) plus the weight decay, so a gradient whose sign the
+        card-vs-CPU difference can flip moves it 2 lr apart, and one near
+        eps / c moves it by a share of lr that the gradient's error sets,
+        with no fault present: the entries kept have |g| above twice the
+        leaf's gradient difference and |g| · c ≥ 1e3 · eps.  Equal expert
+        choices at every MoE call; every gradient leaf nonzero (an
+        encoder's too); flash launches as ``train_flash_calls`` says."""
+        import numpy as np
+
+        from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+        from repro_torch.models import Model, moe
+        from repro_torch.models.api import iter_leaves
+        from repro_torch.train.loop import value_and_grad
+        from repro_torch.train.optimizer import (AdamW, apply_updates,
+                                                 constant_schedule, tree_map)
+
+        torch = self.torch
+        cpu_model, card_model = Model(cfg, device="cpu"), Model(cfg,
+                                                                device=DEVICE)
+        params = cpu_model.init(torch.Generator().manual_seed(seed))
+        inputs = SyntheticLM(SyntheticConfig(
+            vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+            seed=seed), device="cpu").batch(0)
+        gen = torch.Generator().manual_seed(seed + 1)
+        if cfg.frontend == "vision":
+            inputs["tokens"] = inputs["tokens"][:, cfg.num_prefix_tokens:]
+            inputs["labels"][:, :cfg.num_prefix_tokens] = -1
+            inputs["prefix_embeds"] = torch.randn(
+                (batch, cfg.num_prefix_tokens, cfg.d_model), generator=gen)
+        if cfg.is_encoder_decoder:
+            inputs["frame_embeds"] = torch.randn((batch, seq, cfg.d_model),
+                                                 generator=gen)
+        runs = {}
+        opt = AdamW(constant_schedule(TWIN_LR), moment_dtype=torch.float32)
+        real_top_k = moe.top_k
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            for name, model, dev in (("cpu", cpu_model, "cpu"),
+                                     ("card", card_model, self.dev)):
+                choices = []
+
+                def spy(probs, k, choices=choices):
+                    vals, idx = real_top_k(probs, k)
+                    choices.append(idx.cpu())
+                    return vals, idx
+
+                moe.top_k = spy
+                # copies: the step writes into them
+                p = tree_map(lambda t: t.to(dev, copy=True), params)
+                b = {k: v.to(dev) for k, v in inputs.items()}
+                before = self.flash.launches
+                (loss, _), grads = value_and_grad(model, p, b)
+                launched = self.flash.launches - before
+                up, _, om = opt.update(grads, opt.init(p), p)
+                apply_updates(p, up)
+                runs[name] = (float(loss),
+                              {k: g.cpu() for k, g in iter_leaves(grads)},
+                              {k: t.cpu() for k, t in iter_leaves(p)},
+                              choices, launched, float(om["grad_norm"]))
+            torch.cuda.synchronize()
+        finally:
+            moe.top_k = real_top_k
+            torch.backends.cuda.matmul.allow_tf32, \
+                torch.backends.cudnn.allow_tf32 = tf32
+        (c_loss, c_g, c_p, c_moe, c_n, c_norm), \
+            (g_loss, g_g, g_p, g_moe, g_n, _) = runs["cpu"], runs["card"]
+        frames = seq if cfg.is_encoder_decoder else 0
+        want = train_flash_calls(cfg, seq, frames)
+        require(g_n == want and c_n == 0,
+                f"train twin {cfg.name}: flash launches card {g_n} cpu "
+                f"{c_n}, expected {want} on the card")
+        worst = {"loss": abs(g_loss - c_loss) / abs(c_loss), "grads": 0.0,
+                 "params_in_lr": 0.0}
+        unsure = total = 0
+        worst_leaf = None
+        clip = min(1.0, opt.clip_norm / (c_norm + 1.0e-9))
+        for path, w in c_g.items():
+            gdiff = (g_g[path] - w).abs()
+            worst["grads"] = max(worst["grads"], float(
+                gdiff.max() / w.abs().max().clamp(min=1e-30)))
+            sure = (w.abs() > 2 * gdiff.max()) \
+                & (w.abs() * clip >= 1e3 * opt.eps)
+            unsure += int(sure.numel() - sure.sum())
+            total += sure.numel()
+            rounding = torch.finfo(torch.float32).eps * c_p[path].abs()
+            excess = ((g_p[path] - c_p[path]).abs() - rounding)[sure]
+            if excess.numel() and float(excess.max()) / TWIN_LR \
+                    > worst["params_in_lr"]:
+                worst["params_in_lr"] = float(excess.max()) / TWIN_LR
+                worst_leaf = path
+        zero = [path for path, g in c_g.items() if float(g.abs().max()) == 0]
+        require(max(worst.values()) <= TWIN_TOL and not zero,
+                f"train twin {cfg.name}: card vs cpu relative error {worst} "
+                f"(params: {worst_leaf}), zero gradient leaves {zero[:4]}")
+        require(len(c_moe) == len(g_moe)
+                and all(torch.equal(a, b) for a, b in zip(c_moe, g_moe)),
+                f"train twin {cfg.name}: expert choices differ "
+                f"({len(g_moe)} / {len(c_moe)} MoE calls)")
+        numbers = {"max_rel_err": worst, "params_worst_leaf": worst_leaf,
+                   "loss": g_loss,
+                   "params_unheld_share": unsure / total,
+                   "moe_calls_equal_choices": len(g_moe),
+                   "flash_launches": g_n,
+                   "encoder_leaves_nonzero": sum(
+                       1 for p in c_g if p.startswith("enc_"))}
+        print(f"train twin: {cfg.num_layers}-layer {cfg.name} float32 "
+              f"(d_model {cfg.d_model}), B={batch} S={seq}, one step card "
+              f"vs cpu: " + json.dumps(numbers), flush=True)
+        return numbers
+
     def report(self, card: str):
         torch = self.torch
         self.rows["flash_attention"]["max_abs_err"] = self.err["flash_attention"]
@@ -2981,6 +3616,8 @@ class Smoke:
                   + json.dumps(launches))
         print("launches in phase 14 (broker sessions; conformance battery): "
               + json.dumps([self.broker_launches, self.battery_launches]))
+        print(f"launches on the {TRAIN['arch']} training run (phase 19, "
+              f"{TRAIN['steps']} steps): " + json.dumps(self.train_launches))
         print("timings_ms: " + json.dumps(
             {k: round(v, 3) for k, v in self.phase_ms.items()}))
         print(card)

@@ -2,14 +2,22 @@
 
 The port's own copies of the JAX package's config data
 (``repro/configs``), with ``torch`` dtypes, of ``reduce_config`` (the
-CPU-test variant: same family and pattern, tiny dims) and of
-``batch_shapes`` (the inputs of one batch, shapes and dtypes only).
+CPU-test variant: same family and pattern, tiny dims), of
+``batch_shapes`` (the inputs of one batch, shapes and dtypes only), of
+``shape_applicable``, ``make_batch`` (a concrete synthetic batch) and
+``input_specs`` (allocation-free stand-ins on the ``meta`` device).
+
+``make_batch`` seeds each input from a stable digest of its name
+(``zlib.crc32``): the JAX package folds Python's per-process salted
+``hash(name)`` into its key, so its batches change from process to
+process; the port's do not.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict
+import zlib
+from typing import Dict, Tuple
 
 import torch
 
@@ -66,6 +74,7 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         num_prefix_tokens=4 if cfg.frontend else 0,
         dtype=torch.float32,
         param_dtype=torch.float32,
+        remat=False,
         attn_block_q=32,
         attn_block_k=32,
         vocab_pad_multiple=64,
@@ -87,6 +96,16 @@ SHAPES: Dict[str, ShapeDef] = {
     "long_500k": ShapeDef("long_500k", 524_288, 1, "decode"),
 }
 
+# long_500k needs sub-quadratic sequence mixing: only the SSM and the hybrid
+# arch qualify; the 8 pure full-attention archs skip it (DESIGN.md §5)
+_LONG_OK = {"mamba2-2.7b", "jamba-1.5-large-398b"}
+
+
+def shape_applicable(arch: str, shape: str) -> Tuple[bool, str]:
+    if shape == "long_500k" and arch not in _LONG_OK:
+        return False, "quadratic full attention at 512k ctx (DESIGN.md §5)"
+    return True, ""
+
 
 def batch_shapes(cfg: ModelConfig, shape: ShapeDef) -> Dict[str, tuple]:
     """(shape, dtype) of each input of one training or prefill batch: a
@@ -107,3 +126,34 @@ def batch_shapes(cfg: ModelConfig, shape: ShapeDef) -> Dict[str, tuple]:
     if shape.kind == "train":
         out["labels"] = ((b, s), torch.int32)
     return out
+
+
+def make_batch(generator: torch.Generator, cfg: ModelConfig, shape: ShapeDef):
+    """A concrete synthetic batch on ``generator``'s device: token inputs
+    uniform in [0, vocab), embeddings standard normal in their dtype; a
+    vision frontend's ``labels`` are -1 over the image prefix (no loss
+    there).  One 31-bit seed is drawn from ``generator``; each input's
+    own generator takes it XOR the ``zlib.crc32`` of its name."""
+    base = int(torch.randint(0, 2 ** 31, (), generator=generator,
+                             device=generator.device))
+    batch = {}
+    for name, (shp, dt) in batch_shapes(cfg, shape).items():
+        gen = torch.Generator(generator.device).manual_seed(
+            base ^ zlib.crc32(name.encode()))
+        if dt == torch.int32:
+            batch[name] = torch.randint(0, cfg.vocab_size, shp, generator=gen,
+                                        dtype=torch.int32,
+                                        device=generator.device)
+        else:
+            batch[name] = torch.randn(shp, generator=gen, dtype=torch.float32,
+                                      device=generator.device).to(dt)
+    if "labels" in batch and cfg.frontend == "vision":
+        batch["labels"][:, :cfg.num_prefix_tokens] = -1
+    return batch
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeDef) -> Dict[str, torch.Tensor]:
+    """Allocation-free stand-ins of one batch's inputs: tensors of the
+    right shape and dtype on the ``meta`` device."""
+    return {name: torch.empty(shp, dtype=dt, device="meta")
+            for name, (shp, dt) in batch_shapes(cfg, shape).items()}

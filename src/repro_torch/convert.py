@@ -11,6 +11,9 @@
 * :func:`model_params_from_arrays` — a JAX ``Model.init`` parameter tree
   (nested dicts of arrays, stacked on the leading ``layers`` axis) → the
   port's parameter dict for the same config.
+* :func:`adam_state_from_arrays` — a JAX ``AdamState`` (step, m, v as
+  trees of arrays) → the port's
+  :class:`~repro_torch.train.optimizer.AdamState` for the same config.
 
 Everything crosses as numpy arrays and lists, so nothing here imports the
 JAX package.
@@ -28,6 +31,7 @@ from repro_torch.core.intervals import Extents
 from repro_torch.core.service import DDMService, _RegionTable
 from repro_torch.models.api import ModelConfig, iter_leaves
 from repro_torch.models.transformer import model_defs
+from repro_torch.train.optimizer import AdamState
 
 
 class RegionTableState(NamedTuple):
@@ -97,16 +101,18 @@ def extents_from_arrays(lo, hi, *, device="cuda") -> Extents:
         torch.from_numpy(np.array(hi, np.float32)).to(device)).validate()
 
 
-def model_params_from_arrays(tree, cfg: ModelConfig, *, device="cuda"):
+def model_params_from_arrays(tree, cfg: ModelConfig, *, device="cuda",
+                             dtype=None):
     """The port's parameters from a JAX-layout parameter tree.
 
     ``tree`` is a nested dict of array-likes with the structure and names
     of ``model_defs(cfg)`` (as the JAX package's ``Model.init`` makes it:
     ``embed``, ``final_norm``, ``blocks`` stacked on a leading ``layers``
     axis).  Every leaf must have its ParamDef's shape; it becomes a tensor
-    of ``cfg.param_dtype`` on ``device``.  Raises :class:`ValidationError`
-    on a missing, extra or misshapen leaf.
+    of ``dtype`` (default ``cfg.param_dtype``) on ``device``.  Raises
+    :class:`ValidationError` on a missing, extra or misshapen leaf.
     """
+    dtype = cfg.param_dtype if dtype is None else dtype
     given = dict(iter_leaves(tree))
     defs = dict(iter_leaves(model_defs(cfg)))
     if given.keys() != defs.keys():
@@ -125,5 +131,19 @@ def model_params_from_arrays(tree, cfg: ModelConfig, *, device="cuda"):
         for key in parents:
             node = node.setdefault(key, {})
         node[leaf] = torch.from_numpy(np.array(arr, np.float32)).to(
-            device=device, dtype=cfg.param_dtype)
+            device=device, dtype=dtype)
     return out
+
+
+def adam_state_from_arrays(step, m, v, cfg: ModelConfig, *, device="cuda",
+                           moment_dtype=torch.bfloat16) -> AdamState:
+    """The port's optimizer state from a JAX ``AdamState``'s fields:
+    ``step`` (a 0-d integer) and the moment trees ``m``, ``v`` (the
+    parameters' structure, array-likes that numpy reads as float32).  The
+    moments become tensors of ``moment_dtype`` on ``device``, the step a
+    0-d int32 host tensor."""
+    def tree(t):
+        return model_params_from_arrays(t, cfg, device=device,
+                                        dtype=moment_dtype)
+    return AdamState(torch.tensor(int(np.asarray(step)), dtype=torch.int32),
+                     tree(m), tree(v))

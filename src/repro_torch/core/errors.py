@@ -49,6 +49,11 @@ class KernelError(DDMError, RuntimeError):
     a CUDA error (``cudaGetLastError() != 0``)."""
 
 
+class CheckpointError(DDMError, RuntimeError):
+    """An asynchronous checkpoint write failed (raised, with the write's
+    exception as its cause, by the next ``save`` or ``wait``)."""
+
+
 __all__ = [
     "DDMError",
     "ValidationError",
@@ -57,4 +62,5 @@ __all__ = [
     "OverloadError",
     "DeadlineExceeded",
     "KernelError",
+    "CheckpointError",
 ]

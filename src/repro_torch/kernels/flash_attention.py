@@ -32,6 +32,13 @@ Above ``RT_MAX_HEAD_DIM`` the wrapper raises :class:`ValidationError`: the
 port's domain, which its tests pin (the wide bf16 kernel's tiles must fit a
 block's shared memory).
 
+Under autograd, :class:`FlashAttentionFunction` runs this launch as its
+forward, on every route, and as its backward the VJP of the differentiable
+plain-torch twin of the JAX package's ``blockwise_attention``, recomputed
+from the saved q, k and v in float32 over the same schedule
+(:mod:`repro_torch.kernels.flash_vjp`); the Pallas kernel has no backward
+either, so no backward kernel is ported.
+
 Like the other wrappers it:
 
 * takes the plain version (:func:`repro_torch.kernels.ref.ref_flash_attention`)
@@ -54,6 +61,7 @@ import torch
 from repro_torch.core.errors import ValidationError
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_lib
+from repro_torch.kernels.flash_vjp import flash_attention_vjp
 
 HEAD_DIMS_ON_CARD = (64, 128, 256)     # the bf16 tensor-core instances
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -201,6 +209,39 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_kernel.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """:func:`flash_attention_kernel` under autograd.
+
+    ``apply(q, k, v, kv_index, kv_count, q_segments, kv_segments, scale,
+    causal, window, softcap, block_q, block_k, q_offset)``: the forward is
+    the wrapper's call (the kernel launch for CUDA tensors, on whichever
+    route :func:`flash_route` picks; the plain version for CPU ones), the
+    backward :func:`repro_torch.kernels.flash_vjp.flash_attention_vjp`,
+    which recomputes the attention from the saved q, k, v and the schedule
+    (no forward activations are kept).  Gradients flow to q, k and v only.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_index, kv_count, q_segments, kv_segments,
+                scale, causal, window, softcap, block_q, block_k, q_offset):
+        opts = dict(scale=scale, causal=causal, window=window,
+                    softcap=softcap, block_q=block_q, block_k=block_k,
+                    q_offset=q_offset)
+        out = flash_attention_kernel(q, k, v, kv_index, kv_count, q_segments,
+                                     kv_segments, **opts)
+        ctx.save_for_backward(q, k, v, q_segments, kv_segments)
+        ctx.schedule = (kv_index, kv_count)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_segments, kv_segments = ctx.saved_tensors
+        dq, dk, dv = flash_attention_vjp(q, k, v, dout, *ctx.schedule,
+                                         q_segments, kv_segments, **ctx.opts)
+        return (dq, dk, dv) + (None,) * 11
 
 #: the kernel wrappers of this module
 KERNEL_WRAPPERS = (flash_attention_kernel,)

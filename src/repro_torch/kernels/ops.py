@@ -4,7 +4,9 @@ Encoding, sorting and padding are plain torch; the sweeps themselves run on
 the kernels of :mod:`repro_torch.kernels.sbm_sweep` for CUDA tensors and
 on their plain versions for CPU tensors.  :func:`flash_attention` builds
 the block schedule on the host (:func:`build_block_structure`, numpy) and
-runs :mod:`repro_torch.kernels.flash_attention` over it.
+runs :mod:`repro_torch.kernels.flash_attention` over it, under autograd
+through its ``FlashAttentionFunction`` when a CUDA q, k or v requires
+grad.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from repro_torch.core import prefix as prefix_lib
 from repro_torch.core.errors import ValidationError
 from repro_torch.core.intervals import Extents
 from repro_torch.core.sweep import _indicator_deltas, _pad_stream, encode_endpoints
-from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.flash_attention import (FlashAttentionFunction,
+                                                 flash_attention_kernel)
 from repro_torch.kernels import sbm_sweep as sweep_kernels
 
 COUNT_BLOCK = 2048
@@ -252,10 +255,24 @@ def flash_attention(
     (diagonal causality, window edges, document boundaries).  q is
     right-aligned in the KV window (``q_offset = Skv - Sq``).  ``scale``
     defaults to ``D ** -0.5``.
+
+    When autograd records the call and q, k or v is a CUDA tensor that
+    requires grad, the launch runs inside
+    :class:`~repro_torch.kernels.flash_attention.FlashAttentionFunction`
+    (its backward recomputes the attention in float32 over the same
+    schedule); otherwise it is the wrapper's call, which on CPU tensors is
+    the plain version, differentiable as it stands.
     """
     sq, skv = q.shape[2], k.shape[2]
     kv_index, kv_count = _host_schedule(sq, skv, block_q, block_k, causal,
                                         window, num_global_blocks)
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)   # as the wrapper, from the true D
+    if torch.is_grad_enabled() and q.device.type == "cuda" \
+            and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFunction.apply(
+            q, k, v, kv_index, kv_count, q_segments, kv_segments, scale,
+            causal, window, softcap, block_q, block_k, skv - sq)
     return flash_attention_kernel(
         q, k, v, kv_index, kv_count, q_segments, kv_segments, scale=scale,
         causal=causal, window=window, softcap=softcap, block_q=block_q,

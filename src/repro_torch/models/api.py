@@ -1,7 +1,7 @@
 """Model configuration and the ParamDef system of the port.
 
-The counterpart of the JAX package's ``repro/models/api.py`` for the
-serving path (attention, Mamba-2 and MoE layers, cross-attention, the
+The counterpart of the JAX package's ``repro/models/api.py`` for serving
+and training (attention, Mamba-2 and MoE layers, cross-attention, the
 encoder stack and the vision / audio frontends): every layer declares its
 parameters once as ``ParamDef``s (shape, logical axes, initializer), and
 the same declaration drives initialization,
@@ -9,9 +9,11 @@ the same declaration drives initialization,
 and the check of parameters carried over from the JAX package
 (:mod:`repro_torch.convert`).
 
-``dtype`` (compute) and ``param_dtype`` are ``torch`` dtypes.  The
-sharding overrides and ``remat`` are left out (no mesh, no training), and
-the mesh-bound ``moe_impl`` modes raise.
+``dtype`` (compute) and ``param_dtype`` are ``torch`` dtypes.  ``remat``
+recomputes each pattern block in the backward pass
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).  The
+sharding overrides are left out (no mesh), and the mesh-bound
+``moe_impl`` modes raise.
 """
 from __future__ import annotations
 
@@ -70,6 +72,7 @@ class ModelConfig:
     tie_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16     # compute dtype
     param_dtype: torch.dtype = torch.float32
+    remat: bool = True                      # recompute blocks in backward
     attn_impl: str = "blockwise"            # dense | blockwise
     attn_block_q: int = 512
     attn_block_k: int = 512

@@ -99,11 +99,15 @@ def _ssd_chunked(xh, dt, a_log, bmat, cmat, h0):
     cs = torch.cumsum(loga.reshape(b, nc, L, hm), dim=2)     # (B,nc,L,Hm)
 
     # intra-chunk (quadratic, causal-masked), heads leading the (L, L) pair:
-    # decay[b,c,h,l,m] = exp(cs[l] - cs[m]) for m <= l, else 0
+    # decay[b,c,h,l,m] = exp(cs[l] - cs[m]) for m <= l, else 0.  The mask
+    # goes in before the exp (exp(-inf) = 0): above the diagonal
+    # cs[l] - cs[m] > 0 may overflow to inf, and a mask after the exp
+    # would turn its zero gradient into 0 * inf = NaN in the backward pass
+    # (the JAX package masks after the exp; the forward values are equal)
     cs_h = cs.transpose(2, 3)                                # (B,nc,Hm,L)
-    decay = torch.exp(cs_h[..., :, None] - cs_h[..., None, :])
     causal = torch.ones((L, L), dtype=torch.bool, device=xh.device).tril()
-    decay = torch.where(causal, decay, 0.0)                  # (B,nc,Hm,L,L)
+    decay = torch.exp(torch.where(
+        causal, cs_h[..., :, None] - cs_h[..., None, :], float("-inf")))
     g = cm @ bm.transpose(-1, -2)                            # (B,nc,L,L)
     w = g[:, :, None] * decay                                # (B,nc,Hm,L,L)
     y_intra = w @ dtx.permute(0, 1, 3, 2, 4)                 # (B,nc,Hm,L,P)
@@ -157,7 +161,7 @@ def mamba_layer(params, x: torch.Tensor, cfg: ModelConfig, *,
     dt_soft = F.softplus(dt_raw.float() + params["dt_bias"].float())
 
     h0 = state.h if state is not None else torch.zeros(
-        (b, hm, n, p), dtype=torch.float32, device=x.device)
+        (b, hm, n, p), dtype=dt_soft.dtype, device=x.device)
 
     if s == 1:
         # decode: the exact single-step recurrence

@@ -1,10 +1,12 @@
-"""The pattern-block transformer: forward, prefill and decode.
+"""The pattern-block transformer: forward, loss, prefill and decode.
 
 A model is ``num_blocks`` repetitions of a *pattern block* (a tuple of
 LayerSpecs); parameters are stacked on a leading ``layers`` axis, as in the
 JAX package, and a Python loop over that axis replaces its ``lax.scan``.
 Per-layer state (KV caches, Mamba states) is stacked the same way and
-updated in place.
+updated in place.  ``forward_with_aux`` and :meth:`Model.loss` carry
+gradients (with ``cfg.remat`` each block is recomputed in the backward
+pass); ``prefill`` and ``decode_step`` run without autograd.
 
 Mixers: ``attn``, ``attn_local``, ``attn_bidir`` and ``mamba``, any of
 them followed by cross-attention (``cross_attn``); MLPs: ``dense``,
@@ -17,9 +19,11 @@ projects the frames.  The ``moe_impl`` modes that need a mesh raise
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.errors import ValidationError
 from repro_torch.models import attention as attn_lib
@@ -29,8 +33,9 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.api import (LayerSpec, ModelConfig, ParamDef,
                                     init_params, iter_leaves, stack_defs)
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import (embed_defs, embed_tokens, rmsnorm,
-                                       rmsnorm_defs, unembed)
+from repro_torch.models.common import (cross_entropy, embed_defs,
+                                       embed_tokens, rmsnorm, rmsnorm_defs,
+                                       unembed)
 from repro_torch.models.mamba import MambaState
 
 MIXERS = ("attn", "attn_local", "attn_bidir", "mamba")
@@ -153,6 +158,11 @@ def _index(tree, bi: int):
     return tree[bi]
 
 
+def _needs_grad(x: torch.Tensor, stacked_params) -> bool:
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        leaf.requires_grad for _, leaf in iter_leaves(stacked_params)))
+
+
 def _run_stack(cfg: ModelConfig, pattern: Tuple[LayerSpec, ...],
                stacked_params, x, positions, segments, stacked_caches=None,
                enc_out=None):
@@ -161,14 +171,22 @@ def _run_stack(cfg: ModelConfig, pattern: Tuple[LayerSpec, ...],
     blocks).  Attention writes K/V into its block's cache views itself,
     and its new length is stored back here; a Mamba layer's new state (h
     and the three conv histories) is copied into its block's rows of the
-    stacked float32 state."""
+    stacked float32 state.  With ``cfg.remat``, when autograd records the
+    stack (training: no caches), each block runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward pass, as
+    ``jax.checkpoint`` does in the JAX package."""
     aux = torch.zeros(2, dtype=torch.float32, device=x.device)
     num_blocks = next(iter_leaves(stacked_params))[1].shape[0]
+    block_fn = _apply_block
+    if cfg.remat and stacked_caches is None \
+            and _needs_grad(x, stacked_params):
+        block_fn = functools.partial(torch.utils.checkpoint.checkpoint,
+                                     _apply_block, use_reentrant=False)
     for bi in range(num_blocks):
         caches = None if stacked_caches is None \
             else _index(stacked_caches, bi)
-        x, new, a = _apply_block(cfg, pattern, _index(stacked_params, bi), x,
-                                 positions, segments, caches, enc_out)
+        x, new, a = block_fn(cfg, pattern, _index(stacked_params, bi), x,
+                             positions, segments, caches, enc_out)
         aux = aux + a
         for name, nc in new.items():
             if isinstance(nc, KVCache):
@@ -225,7 +243,6 @@ class Model:
     def _positions(x: torch.Tensor) -> torch.Tensor:
         return torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
 
-    @torch.no_grad()
     def _encode(self, params, batch) -> torch.Tensor:
         """The encoder output (B, S_enc, d) of an encoder-decoder model:
         ``batch["frame_embeds"]`` (B, S_enc, d), projected by
@@ -244,7 +261,6 @@ class Model:
         return self._encode(params, batch) if self.cfg.is_encoder_decoder \
             else None
 
-    @torch.no_grad()
     def forward_with_aux(self, params, batch):
         """(logits (B, S, padded_vocab) float32, aux (2,) float32: the MoE
         [aux loss, z-loss] summed over the decoder's layers, zeros without
@@ -266,6 +282,16 @@ class Model:
     def forward(self, params, batch) -> torch.Tensor:
         """The logits of :meth:`forward_with_aux`."""
         return self.forward_with_aux(params, batch)[0]
+
+    def loss(self, params, batch):
+        """(total, {"ce", "moe_aux", "moe_z"}) of a batch with ``labels``
+        (B, S), -1 where no loss is taken: the mean next-token cross
+        entropy plus 0.01 x the MoE aux loss and 0.001 x its z-loss (0-d
+        float32 tensors), as the JAX ``Model.loss``."""
+        logits, aux = self.forward_with_aux(params, batch)
+        ce = cross_entropy(logits, self._batch_input(batch, "labels"))
+        total = ce + 0.01 * aux[0] + 0.001 * aux[1]
+        return total, {"ce": ce, "moe_aux": aux[0], "moe_z": aux[1]}
 
     def init_cache(self, batch: int, max_len: int):
         """Stacked per-block caches on the model's device: KV caches in the

@@ -22,6 +22,7 @@ from repro_torch.core.errors import ValidationError
 from repro_torch.core.incremental import IncrementalIndex
 from repro_torch.core.service import DDMService
 from repro_torch.data import ddm_workload
+from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.kernels import bitmatch as tbitmatch
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -63,7 +64,7 @@ def test_entry_points_default_to_the_card():
                intervals.make_clustered_workload,
                intervals.make_tall_thin_workload, ddm_workload,
                extents_from_arrays, Model, init_params, ServeEngine,
-               model_params_from_arrays):
+               model_params_from_arrays, SyntheticLM):
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn
     assert DDMService().device == torch.device("cuda")
@@ -600,3 +601,49 @@ def test_kernels_match_plain_versions_on_the_card():
         flash_attention_kernel(q64, q64, q64, idx.cuda(), cnt.cuda(),
                                block_q=32, block_k=32)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_flash_function_on_the_card():
+    """On the card: ``ops.flash_attention`` with grad required launches the
+    kernel once (bf16 instance, padded and float32 routes), its output is
+    the kernel's, and dq, dk, dv equal autograd through the twin on the
+    card within float32 rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build the kernels)")
+    from repro_torch.kernels.flash_vjp import blockwise_attention_twin
+
+    for dtype, d in ((torch.bfloat16, 64), (torch.bfloat16, 96),
+                     (torch.float32, 64)):
+        rng = np.random.default_rng(0)
+        q, k, v, do = (rng.standard_normal(s).astype(np.float32) for s in
+                       ((2, 6, 1024, d), (2, 2, 1024, d), (2, 2, 1024, d),
+                        (2, 6, 1024, d)))
+        segs = np.sort(rng.integers(0, 3, (2, 1024)), axis=1).astype(np.int32)
+        tq, tk, tv = (torch.from_numpy(a).cuda().to(dtype).requires_grad_()
+                      for a in (q, k, v))
+        tseg = torch.from_numpy(segs).cuda()
+        before = flash_attention_kernel.launches
+        out = tops.flash_attention(tq, tk, tv, scale=d ** -0.5, block_q=512,
+                                   block_k=512, q_segments=tseg,
+                                   kv_segments=tseg)
+        assert flash_attention_kernel.launches == before + 1
+        with torch.no_grad():
+            kernel = tops.flash_attention(tq, tk, tv, scale=d ** -0.5,
+                                          block_q=512, block_k=512,
+                                          q_segments=tseg, kv_segments=tseg)
+        assert torch.equal(out.detach(), kernel)
+        dout = torch.from_numpy(do).cuda().to(dtype)
+        grads = torch.autograd.grad(out, (tq, tk, tv), dout)
+        index, count = tops._host_schedule(1024, 1024, 512, 512, True,
+                                           None, 0)
+        twin = blockwise_attention_twin(
+            tq, tk, tv, index, count, tseg, tseg, scale=d ** -0.5,
+            causal=True, window=None, softcap=None, block_q=512,
+            block_k=512)
+        want = torch.autograd.grad(twin, (tq, tk, tv), dout.float())
+        for got, w in zip(grads, want):
+            assert got.dtype == dtype
+            err = float((got.float() - w.float()).abs().max()
+                        / w.float().abs().max())
+            assert err <= (1e-2 if dtype == torch.bfloat16 else 1e-5), err
