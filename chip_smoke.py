@@ -249,6 +249,26 @@ Phases (any failure exits non-zero and prints no result line):
     twin within 1e-3 relative.  (d) Reduced granite-moe-3b-a800m,
     mamba2-2.7b and seamless-m4t-medium the same way (equal expert
     choices; seamless's encoder gradients nonzero).
+20. The sharded engines (``repro_torch.core.*_sharded`` over a
+    ``launch.mesh.make_host_mesh`` of the whole world) in two worlds:
+    (a) one rank on NCCL, in this process (its CPU tensors on gloo), and
+    (b) 4 spawned ranks on gloo, all on cuda:0 (NCCL refuses two ranks on
+    one device; the kernels are built before the spawn).  Every rank:
+    ``sbm_count_sharded`` and ``rank_count_sharded`` at full size A equal
+    the single-device ``sbm_count_kernel`` and ``rank_count``;
+    ``sbm_enumerate_sharded`` there with max_pairs = K has the pair set of
+    ``sbm_enumerate``, and with 65,536 pairs a shard leaves holes and
+    keeps every other row; ``bf_count_sharded`` at phase 14's cell equals
+    K; ``bitmatrix_sharded`` at bit-matrix cell (a) equals
+    ``bitmatrix_words`` bit for bit and ``bitmatrix_count``; K = 65,536²
+    past 2**31 exact; each engine on CPU tensors in the same world (its
+    plain twin) equals the card's, row for row (bf_count on the first
+    10,000 regions a side).  Passes A and B launch once per rank per
+    count, the bit-matrix kernel once per rank per call (counts zeroed
+    just before, read just after).  Warm medians of 5 calls per engine and
+    rank beside the single-device engines' (world (a)); in (b) the ranks
+    share one card, so those times measure the collectives and the
+    padding, not scaling.
 
 The build prints every kernel's registers, shared memory and spills from
 nvcc's ``-Xptxas -v`` report, and SASS opcode counts (the float32 flash
@@ -260,10 +280,12 @@ the last line, by the card's name and power limit.
 alone (each beside SDPA in float32 with TF32 off and its bound), on the
 port under SRC (another checkout's ``src/``, default this one's), so
 that two commits' float32 kernels are timed in one call on one card.
-The last lines are the ``{"kernels": [...]}`` record, the flash rows at
+The last lines are the ``{"kernels": [...]}`` record (each row's
+``sharded_launches``: its launches in phase 20), the flash rows at
 gemma2-2b's shapes, the launch counts (d = 1 main path, d-dim service
 path, the four serving paths, phase 14, the prefills of phases 17 and
-18, the training run of phase 19), the phase timings,
+18, the training run of phase 19, the sharded path of phase 20), the
+phase timings,
 the card line, and ``{"ok": true, "device": {...}}``.
 Data come from a fixed seed.  Exits 2 without a result when no CUDA device
 is present or the script stands outside the repository.
@@ -498,6 +520,17 @@ BROKER_CHURN = 100
 BATTERY_SEEDED = {1: (("uniform", 1000, 1000), ("clustered", 600, 400)),
                   2: (("uniform", 500, 500), ("tall_thin", 300, 300)),
                   3: (("uniform", 400, 300), ("tall_thin", 200, 200))}
+# phase 20: the sharded engines in (a) a world of 1 on NCCL (its CPU
+# tensors on gloo) and (b) SHARDED_WORLD gloo ranks sharing cuda:0; warm
+# medians of SHARDED_REPS calls; a max_pairs_per_shard that cuts at full
+# size A; bf_count's CPU twin on the first BF_TWIN_N regions a side of its
+# cell; K = n * m past 2**31 on WIDE_SHARDED identical extents
+SHARDED_WORLD = 4
+SHARDED_REPS = 5
+SHARDED_CAP = 65_536
+BF_TWIN_N = 10_000
+WIDE_SHARDED = (65_536, 65_536)
+SHARDED_TIMEOUT_S = 300        # a collective waiting longer fails the rank
 DEVICE = "cuda"
 # the sweep kernels' names in a profile (the rebuild trace sums each)
 SWEEP_KERNELS = ("block_sums_kernel", "emission_kernel",
@@ -748,6 +781,7 @@ def main(argv=None) -> int:
     smoke.serve_phi3()
     smoke.serve_seamless()
     smoke.train()
+    smoke.sharded(card)
     smoke.report(card)
     return 0
 
@@ -900,10 +934,11 @@ class Smoke:
         self.same("emit_pairs", got, want, f"pass C {what} ({place} masks)")
         return (time.perf_counter() - t0) * 1e3
 
-    def pair_keys(self, pairs, m):
+    @staticmethod
+    def pair_keys(pairs, m):
+        """The sorted keys i * m + j of a pair buffer's valid rows."""
         keep = pairs[:, 0] >= 0
-        key = pairs[keep, 0].to(self.torch.int64) * m + pairs[keep, 1]
-        return self.torch.sort(key).values
+        return (pairs[keep, 0].long() * m + pairs[keep, 1]).sort().values
 
     @staticmethod
     def pair_set(pairs) -> set:
@@ -3592,9 +3627,87 @@ class Smoke:
               f"vs cpu: " + json.dumps(numbers), flush=True)
         return numbers
 
+    def sharded(self, card: str):
+        """Phase 20: the sharded engines (``repro_torch.core.*_sharded``)
+        in (a) a world of 1 on NCCL, in this process, and (b)
+        ``SHARDED_WORLD`` spawned ranks on gloo, all on cuda:0, each rank
+        running :func:`sharded_work` (checks, launch counts, warm times).
+        The kernels are built (phase 1) before the ranks are spawned, so
+        they load the built library and never race one build."""
+        import datetime
+
+        import torch.distributed as dist
+        import torch.multiprocessing as mp
+
+        torch = self.torch
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        dist.init_process_group("cpu:gloo,cuda:nccl",
+                                init_method=f"tcp://localhost:{_free_port()}",
+                                world_size=1, rank=0,
+                                timeout=datetime.timedelta(
+                                    seconds=SHARDED_TIMEOUT_S))
+        try:
+            one = [sharded_work(torch, 1, 0, single=True)]
+        finally:
+            dist.destroy_process_group()
+        self.phase_ms["phase 20 (a) world of 1"] = \
+            (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        out = ROOT / "build" / "sharded"
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        torch.cuda.empty_cache()
+        try:
+            mp.start_processes(sharded_rank,
+                               args=(SHARDED_WORLD, _free_port(), str(out)),
+                               nprocs=SHARDED_WORLD, join=True,
+                               start_method="spawn")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as exc:
+            raise SmokeFailure(f"phase 20 (b): a rank failed: {exc}") from exc
+        four = [json.loads((out / f"rank{r}.json").read_text())
+                for r in range(SHARDED_WORLD)]
+        self.phase_ms[f"phase 20 (b) world of {SHARDED_WORLD}"] = \
+            (time.perf_counter() - t1) * 1e3
+        self.sharded_launches = {}
+        for rec in one + four:
+            for name, count in rec["launches"].items():
+                self.sharded_launches[name] = \
+                    self.sharded_launches.get(name, 0) + count
+        single = one[0]["single_ms"]
+        for label, ranks in (("(a) world of 1, NCCL", one),
+                             (f"(b) world of {SHARDED_WORLD}, gloo, all on "
+                              "cuda:0 (the ranks share one card's SMs: the "
+                              "times measure the collectives and the padding, "
+                              "not scaling)", four)):
+            rec = ranks[0]
+            ms = {k: [round(r["ms"][k], 4) for r in ranks] for k in rec["ms"]}
+            for k, v in rec["ms"].items():
+                self.phase_ms[f"phase 20 {label[:3]} {k}"] = v
+            print(f"phase 20 {label}: K={rec['k']} (full size A) on "
+                  f"sbm/rank_count_sharded, CPU twins equal; bf_count_sharded "
+                  f"K={rec['k_bf']} (n=m={SURFACE_N}, alpha="
+                  f"{SURFACE_ALPHA:g}); enumerate pair set == sbm_enumerate, "
+                  f"capped at {SHARDED_CAP} a shard: {rec['holes']} holes, "
+                  f"rows == uncapped and == CPU twin; bitmatrix (a) words == "
+                  f"bitmatrix_words, K={rec['k_bitmatrix']}; K={rec['k_wide']}"
+                  f" past 2**31; launches per rank {rec['launches']}; warm "
+                  f"median ms of {SHARDED_REPS} calls per rank: "
+                  + json.dumps(ms) + "; single-device ms (world of 1): "
+                  + json.dumps({k: round(v, 4) for k, v in single.items()}),
+                  flush=True)
+        self.phase_ms["phase 20 (sharded)"] = (time.perf_counter() - t0) * 1e3
+        print(f"phase 20: {time.perf_counter() - t0:.3f} s", flush=True)
+        print(card, flush=True)
+
     def report(self, card: str):
         torch = self.torch
         self.rows["flash_attention"]["max_abs_err"] = self.err["flash_attention"]
+        # launches on phase 20's path: passes A and B in the sharded count,
+        # the bit-matrix kernel in the sharded bit-matrix (both worlds)
+        for name in REPLACES:
+            self.rows[name]["sharded_launches"] = \
+                self.sharded_launches.get(name, 0)
         print(json.dumps({"kernels": list(self.rows.values())}))
         print("launches on the main path (bitmatch: the bitmatrix path at "
               "cell (a)): " + json.dumps(self.launches))
@@ -3618,12 +3731,217 @@ class Smoke:
               + json.dumps([self.broker_launches, self.battery_launches]))
         print(f"launches on the {TRAIN['arch']} training run (phase 19, "
               f"{TRAIN['steps']} steps): " + json.dumps(self.train_launches))
+        print("launches on the sharded path (phase 20, both worlds, every "
+              "rank): " + json.dumps(self.sharded_launches))
         print("timings_ms: " + json.dumps(
             {k: round(v, 3) for k, v in self.phase_ms.items()}))
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """Phase 20 (b), one spawned rank: join the gloo world on cuda:0, run
+    :func:`sharded_work` and save its record as ``rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(
+                                seconds=SHARDED_TIMEOUT_S))
+    try:
+        rec = sharded_work(torch, world, rank)
+    finally:
+        dist.destroy_process_group()
+    (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def sharded_work(torch, world: int, rank: int, single: bool = False) -> dict:
+    """Every rank of a phase-20 world: the five sharded engines on cuda:0
+    over a 1-D mesh of the whole world, each held against its single-device
+    engine on the card and against itself on CPU tensors (its plain twin,
+    the same world); passes A and B, and the bit-matrix kernel, must launch
+    once per call (counts zeroed just before, read just after); warm
+    medians of ``SHARDED_REPS`` calls (host clock to a sync), and with
+    ``single`` the single-device engines' too.  Returns the rank's record."""
+    import statistics
+
+    from repro_torch import core
+    from repro_torch.core import ddim
+    from repro_torch.core.intervals import Extents
+    from repro_torch.kernels import bitmatch as B
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sbm_sweep as K
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dev = torch.device(DEVICE)
+    mesh = make_host_mesh(axis="p", device=DEVICE)
+    tag = f"phase 20 world of {world} rank {rank}"
+    rec = {"world": world, "rank": rank, "ms": {}, "single_ms": {},
+           "launches": {"block_sums": 0, "emission": 0, "bitmatch": 0}}
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def counted(fn, wrappers, what):
+        """One call with ``wrappers``' counts zeroed before and read after:
+        each must have launched exactly once."""
+        sync()
+        for w in wrappers:
+            w.launches = 0
+        res = fn()
+        sync()
+        got = {w.__name__: w.launches for w in wrappers}
+        require(all(v == 1 for v in got.values()),
+                f"{tag}: {what} launches {got}, expected 1 each")
+        for name, v in got.items():
+            rec["launches"][name] += v
+        return res
+
+    def warm_ms(fn):
+        fn()
+        sync()
+        times = []
+        for _ in range(SHARDED_REPS):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def host(e):
+        return Extents(e.lo.cpu(), e.hi.cpu())
+
+    def uniform(n, alpha, seed):
+        g = torch.Generator().manual_seed(seed)
+        return core.make_uniform_workload(n, n, alpha, length=LENGTH,
+                                          generator=g, device=dev)
+
+    # the count engines at full size A
+    n, alpha = FULL[0]
+    subs, upds = uniform(n, alpha, SEED)
+    k = int(ops.sbm_count_kernel(subs, upds))
+    require(int(core.rank_count(subs, upds)) == k,
+            f"{tag}: single-device rank_count != sbm_count_kernel")
+    got = counted(lambda: core.sbm_count_sharded(subs, upds, mesh, "p"),
+                  (K.block_sums, K.emission), "sbm_count_sharded")
+    twin = core.sbm_count_sharded(host(subs), host(upds), mesh, "p")
+    require(got.device.type == dev.type and int(got) == k == int(twin),
+            f"{tag}: sbm_count_sharded {int(got)} (CPU twin {int(twin)}) "
+            f"!= K {k}")
+    got = core.rank_count_sharded(subs, upds, mesh, "p")
+    twin = core.rank_count_sharded(host(subs), host(upds), mesh, "p")
+    require(int(got) == k == int(twin), f"{tag}: rank_count_sharded "
+            f"{int(got)} (CPU twin {int(twin)}) != K {k}")
+    rec["k"] = k
+    rec["ms"]["sbm_count_sharded"] = warm_ms(
+        lambda: core.sbm_count_sharded(subs, upds, mesh, "p"))
+    rec["ms"]["rank_count_sharded"] = warm_ms(
+        lambda: core.rank_count_sharded(subs, upds, mesh, "p"))
+
+    # sbm_enumerate_sharded at full size A: max_pairs = K, then capped
+    pairs, count = core.sbm_enumerate_sharded(subs, upds, mesh, "p",
+                                              max_pairs=k)
+    plain, _ = core.sbm_enumerate(subs, upds, max_pairs=k)
+    require(int(count) == k and torch.equal(Smoke.pair_keys(pairs, n),
+                                            Smoke.pair_keys(plain, n)),
+            f"{tag}: sbm_enumerate_sharded count {int(count)} or pair set "
+            "!= sbm_enumerate's")
+    capped, c_count = core.sbm_enumerate_sharded(
+        subs, upds, mesh, "p", max_pairs=k, max_pairs_per_shard=SHARDED_CAP)
+    live = capped[:, 0] >= 0
+    holes = int((~live).sum())
+    require(int(c_count) == k and 0 < holes < k
+            and torch.equal(capped[live], pairs[live]),
+            f"{tag}: capped buffer: count {int(c_count)}, {holes} holes, or "
+            "rows != the uncapped buffer's")
+    for buf, cap in ((pairs, None), (capped, SHARDED_CAP)):
+        t_pairs, t_count = core.sbm_enumerate_sharded(
+            host(subs), host(upds), mesh, "p", max_pairs=k,
+            max_pairs_per_shard=cap)
+        require(int(t_count) == k and torch.equal(t_pairs, buf.cpu()),
+                f"{tag}: sbm_enumerate_sharded (cap {cap}) on the CPU twin "
+                "!= the card's, row for row")
+    rec["holes"] = holes
+    rec["ms"]["sbm_enumerate_sharded"] = warm_ms(
+        lambda: core.sbm_enumerate_sharded(subs, upds, mesh, "p",
+                                           max_pairs=k))
+
+    # bf_count_sharded at phase 14's cell; its CPU twin on a subset
+    bs, bu = uniform(SURFACE_N, SURFACE_ALPHA, SEED + 40)
+    k_bf = int(core.rank_count(bs, bu))
+    got = core.bf_count_sharded(bs, bu, mesh, "p", block=BF_BLOCK)
+    part = (Extents(bs.lo[:BF_TWIN_N], bs.hi[:BF_TWIN_N]),
+            Extents(bu.lo[:BF_TWIN_N], bu.hi[:BF_TWIN_N]))
+    card_part = core.bf_count_sharded(*part, mesh, "p", block=BF_BLOCK)
+    twin = core.bf_count_sharded(*map(host, part), mesh, "p", block=BF_BLOCK)
+    require(int(got) == k_bf and int(card_part) == int(twin)
+            == int(core.rank_count(*part)),
+            f"{tag}: bf_count_sharded {int(got)} != K {k_bf}, or on "
+            f"{BF_TWIN_N} a side {int(card_part)} != CPU twin {int(twin)}")
+    rec["k_bf"] = k_bf
+    rec["ms"]["bf_count_sharded"] = warm_ms(
+        lambda: core.bf_count_sharded(bs, bu, mesh, "p", block=BF_BLOCK))
+
+    # bitmatrix_sharded at bit-matrix cell (a)
+    _, nb, d, alpha_b = BITMATCH_FULL[0]
+    g = torch.Generator().manual_seed(SEED + 5)
+    ts, tu = core.make_tall_thin_workload(nb, nb, alpha_b, length=LENGTH,
+                                          d=d, wide_dim=0, generator=g,
+                                          device=dev)
+    words, count = counted(lambda: core.bitmatrix_sharded(ts, tu, mesh, "p"),
+                           (B.bitmatch,), "bitmatrix_sharded")
+    want = ddim.bitmatrix_words(ts, tu)
+    k_b = int(ddim.bitmatrix_count(ts, tu))
+    t_words, t_count = core.bitmatrix_sharded(host(ts), host(tu), mesh, "p")
+    require(torch.equal(words, want) and int(count) == k_b == int(t_count)
+            and torch.equal(t_words, words.cpu()),
+            f"{tag}: bitmatrix_sharded words or K {int(count)} != "
+            f"bitmatrix_words / bitmatrix_count {k_b} or the CPU twin")
+    rec["k_bitmatrix"] = k_b
+    rec["ms"]["bitmatrix_sharded"] = warm_ms(
+        lambda: core.bitmatrix_sharded(ts, tu, mesh, "p"))
+
+    # K past 2**31, exact
+    wn, wm = WIDE_SHARDED
+    ws = Extents(torch.zeros(wn, device=dev), torch.ones(wn, device=dev))
+    wu = Extents(torch.full((wm,), 0.5, device=dev),
+                 torch.full((wm,), 2.0, device=dev))
+    wide = (int(counted(lambda: core.sbm_count_sharded(ws, wu, mesh, "p"),
+                        (K.block_sums, K.emission), "sbm_count_sharded")),
+            int(core.rank_count_sharded(ws, wu, mesh, "p")),
+            int(core.sbm_enumerate_sharded(ws, wu, mesh, "p",
+                                           max_pairs=16)[1]))
+    require(wide == (wn * wm,) * 3, f"{tag}: K past 2**31 {wide} != "
+            f"{wn * wm}")
+    rec["k_wide"] = wn * wm
+
+    if single:
+        rec["single_ms"] = {
+            "sbm_count_kernel": warm_ms(lambda: ops.sbm_count_kernel(subs,
+                                                                     upds)),
+            "rank_count": warm_ms(lambda: core.rank_count(subs, upds)),
+            "sbm_enumerate": warm_ms(lambda: core.sbm_enumerate(
+                subs, upds, max_pairs=k)),
+            "bf_count": warm_ms(lambda: core.bf_count(bs, bu,
+                                                      block=BF_BLOCK)),
+            "bitmatrix_kernel": warm_ms(lambda: B.bitmatrix_kernel(ts, tu)),
+        }
+    return rec
 
 
 def _warm_service(**kwargs):

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core.intervals import Extents, intersect_1d
 
 
@@ -30,3 +31,18 @@ def bf_count(subs: Extents, upds: Extents, *, block: int = 1024
                             upds.lo[None, :], upds.hi[None, :])
         total += mask.sum(dtype=torch.int64)
     return total
+
+
+def bf_count_sharded(subs: Extents, upds: Extents, mesh, axis_name: str,
+                     *, block: int = 1024) -> torch.Tensor:
+    """Paper §3.1 parallel BF over one dimension of a ``DeviceMesh``:
+    subscriptions sharded, updates replicated.  Every rank calls it with the
+    same extents, counts its contiguous shard of the subscriptions (padded
+    to a multiple of P with inert ``[+inf, -inf]`` extents) with
+    :func:`bf_count`, and an all-reduce sums the int64 counts."""
+    group, p, index = collectives.mesh_axis(mesh, axis_name)
+    local = Extents(
+        collectives.shard_padded(subs.lo, p, index, float("inf")),
+        collectives.shard_padded(subs.hi, p, index, float("-inf")))
+    return collectives.all_reduce_sum(bf_count(local, upds, block=block),
+                                      group)

@@ -18,8 +18,9 @@ Both d-dim strategies of the JAX package, on the port's sweep substrate:
   K.  The words come from :func:`repro_torch.kernels.bitmatch.bitmatch`:
   the CUDA kernel for tensors on the card, its plain version on the CPU.
 
-Counts are exact int64 tensors (the JAX package under x64).  The sharded
-bit-matrix is not ported yet.
+Counts are exact int64 tensors (the JAX package under x64).
+:func:`bitmatrix_sharded` shards the subscription rows of the bit-matrix
+over one ``DeviceMesh`` dimension.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core import prefix as prefix_lib
 from repro_torch.core import runtime as runtime_lib
 from repro_torch.core.enumerate import (_empty_result, enumerate_matches,
@@ -280,3 +282,37 @@ def bitmatrix_enumerate(subs: Extents, upds: Extents, *, max_pairs: int):
     """
     return bitmatch_kernels.sbm_bitmatrix_kernel(subs, upds,
                                                  max_pairs=max_pairs)
+
+
+# ---------------------------------------------------------------------------
+# Sharded bit-matrix (subscription rows over a device-mesh dimension)
+# ---------------------------------------------------------------------------
+
+def bitmatrix_sharded(subs: Extents, upds: Extents, mesh, axis_name: str):
+    """(words, count) with subscription rows sharded over one dimension of
+    a ``DeviceMesh``; every rank calls it with the same extents and gets
+    the same result.
+
+    Each rank packs and ANDs its contiguous shard of the rows (padded to a
+    multiple of P with inert ``[+inf, -inf]`` rows, whose words are all
+    zero) against the whole update set — on the card one launch of the
+    bit-matrix AND kernel, through
+    :func:`repro_torch.kernels.bitmatch.bitmatrix_kernel` — the shards'
+    words are gathered and sliced back to ``(n, ceil(m/32))`` int32 words
+    (uint32 patterns), and K is the all-reduce of the shards' exact int64
+    popcounts (the kernel's row counts).
+    """
+    group, p, index = collectives.mesh_axis(mesh, axis_name)
+    n, m = subs.size, upds.size
+    dev = subs.lo.device
+    if n == 0 or m == 0:
+        return (torch.zeros((n, max(-(-m // 32), 1)), dtype=torch.int32,
+                            device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+    s_lo, s_hi = _dim_rows(subs)
+    rows = Extents(collectives.shard_padded(s_lo, p, index, float("inf")),
+                   collectives.shard_padded(s_hi, p, index, float("-inf")))
+    words, _counts, k_local = bitmatch_kernels.bitmatrix_kernel(rows, upds)
+    gathered = collectives.all_gather(words, group)
+    return (gathered.reshape(-1, words.shape[1])[:n],
+            collectives.all_reduce_sum(k_local, group))

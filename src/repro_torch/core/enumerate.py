@@ -10,6 +10,9 @@ Two engines behind the same (pairs, count) contract:
 * :func:`enumerate_matches` — blocked all-pairs O(n·m) + compaction, the
   cross-check oracle.
 
+:func:`sbm_enumerate_sharded` runs the sweep's scheme across the ranks of
+one ``DeviceMesh`` dimension.
+
 Overflow contract (all engines): pairs beyond ``max_pairs`` are dropped but
 still counted — callers check ``count <= max_pairs`` and retry bigger.
 Counts are exact int64 tensors.
@@ -21,10 +24,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import collectives
+from repro_torch.core import prefix as prefix_lib
 from repro_torch.core import runtime as runtime_lib
 from repro_torch.core.intervals import Extents, intersect_1d
-from repro_torch.core.sweep import (_pad_stream, emission_rank_tables,
-                                    encode_endpoints, probe_count,
+from repro_torch.core.sweep import (_indicator_deltas, _pad_stream,
+                                    emission_rank_tables, encode_endpoints,
+                                    probe_count, rank_tables_from_cumsums,
                                     resolve_cumsum,
                                     sequential_sbm_pairs_numpy)
 
@@ -76,6 +82,87 @@ def sbm_enumerate(subs: Extents, upds: Extents, *, max_pairs: int,
     valid = slots < torch.clamp(k_total, max=max_pairs)
     pairs = torch.where(valid[:, None], torch.stack([pi, pj], dim=-1), -1)
     return pairs.to(torch.int32), k_total
+
+
+def sbm_enumerate_sharded(subs: Extents, upds: Extents, mesh,
+                          axis_name: str, *, max_pairs: int,
+                          max_pairs_per_shard: int | None = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distributed sweep enumeration over one dimension of a ``DeviceMesh``.
+
+    Every rank calls it with the same extents and gets the same (pairs
+    (max_pairs, 2) int32, count 0-d int64).  The sorted stream, padded to
+    a multiple of P, is split into contiguous shards; the two lower-
+    indicator cumsums run as the distributed two-level scan, the rank
+    tables are summed over the ranks (O(n+m) of traffic), and each rank
+    emits the pairs whose emitting upper endpoint it holds into a local
+    buffer of ``max_pairs_per_shard`` (default ``max_pairs``) pairs.  The
+    buffers are gathered and stitched in rank order by the shard totals'
+    prefix; a shard that emitted more than its buffer leaves (-1, -1)
+    holes where its excess would go.  Order: upper endpoints in stream
+    order, each emitter's counterparts by lower-endpoint rank.
+
+    The count is exact int64 and the buffer is never blanked: the JAX
+    package's behaviour under x64 (without x64 it pins the count at
+    2³¹−1 and blanks the buffer once K passes it).
+    """
+    group, p, index = collectives.mesh_axis(mesh, axis_name)
+    dev = subs.lo.device
+    n, m = subs.size, upds.size
+    if n == 0 or m == 0:
+        return _empty_result(max_pairs, dev)
+    cap = max_pairs if max_pairs_per_shard is None else max_pairs_per_shard
+    ep = _pad_stream(encode_endpoints(subs, upds), p)
+    shard = ep.values.shape[0] // p
+    part = slice(index * shard, (index + 1) * shard)
+    owner, is_sub, is_upper = ep.owner[part], ep.is_sub[part], \
+        ep.is_upper[part]
+    sub_lo, _sub_up, upd_lo, _upd_up = (d[part] for d in _indicator_deltas(ep))
+    # stream positions fit int32 (the pair counts below do not)
+    c_sub_lo = prefix_lib.shard_inclusive_cumsum(sub_lo, group)
+    c_upd_lo = prefix_lib.shard_inclusive_cumsum(upd_lo, group)
+    a_start, a_cnt, b_start, b_cnt, subs_by_lo, upds_by_lo = \
+        rank_tables_from_cumsums(
+            is_sub, is_upper, owner, c_sub_lo, c_upd_lo, n, m,
+            combine=lambda t: collectives.all_reduce_sum(t, group))
+
+    # one count per local upper endpoint: its emitter's class count
+    real = owner >= 0
+    sel_s_up = is_sub & is_upper & real
+    sel_u_up = ~is_sub & is_upper & real
+    o = owner.clamp(min=0).to(torch.int64)
+    cnt = (torch.where(sel_s_up, a_cnt[o.clamp(max=n - 1)], 0)
+           + torch.where(sel_u_up, b_cnt[o.clamp(max=m - 1)], 0)
+           ).to(torch.int64)
+    lc = torch.cumsum(cnt, dim=0, dtype=torch.int64)
+    local_total = lc[-1]
+
+    slots = torch.arange(cap, dtype=torch.int64, device=dev)
+    e = torch.searchsorted(lc, slots, right=True).clamp(max=shard - 1)
+    r = slots - (lc[e] - cnt[e])
+    oe = o[e]
+    j_of_a = upds_by_lo[(a_start[oe.clamp(max=n - 1)] + r).clamp(0, m - 1)]
+    i_of_b = subs_by_lo[(b_start[oe.clamp(max=m - 1)] + r).clamp(0, n - 1)]
+    is_a = sel_s_up[e]
+    pi = torch.where(is_a, oe, i_of_b)
+    pj = torch.where(is_a, j_of_a, oe)
+    buf = torch.where((slots < local_total)[:, None],
+                      torch.stack([pi, pj], dim=-1), -1).to(torch.int32)
+
+    # the master step: every shard's total, then the stitch by their prefix
+    totals = collectives.all_gather(local_total, group)          # (P,)
+    incl = torch.cumsum(totals, dim=0, dtype=torch.int64)
+    base = incl - totals
+    k_total = incl[-1]
+    bufs = collectives.all_gather(buf, group)                     # (P, cap, 2)
+    out = torch.full((max_pairs, 2), -1, dtype=torch.int32, device=dev)
+    if cap:
+        slots = torch.arange(max_pairs, dtype=torch.int64, device=dev)
+        s = torch.searchsorted(incl, slots, right=True).clamp(max=p - 1)
+        r = slots - base[s]
+        valid = (slots < k_total.clamp(max=max_pairs)) & (r < cap)
+        out = torch.where(valid[:, None], bufs[s, r.clamp(0, cap - 1)], out)
+    return out, k_total
 
 
 def sbm_enumerate_planned(subs: Extents, upds: Extents, *,

@@ -6,6 +6,11 @@
   an up-sweep and a down-sweep of log₂ N levels each.
 * :func:`cumsum_saturating_i32` — an int32 cumsum that pins at 2³¹−1
   instead of wrapping.
+* :func:`shard_exclusive_offsets` / :func:`shard_inclusive_cumsum` — the
+  two-level scheme across the ranks of a process group: each rank scans
+  its shard, the P shard totals are all-gathered (the master step, O(P)
+  scalars, replicated on every rank) and each rank adds the earlier
+  ranks' totals: the paper's algorithm with "thread" := rank.
 * :func:`delta_combine_bool` / :func:`delta_combine_bits` /
   :func:`delta_scan_exclusive` — Algorithm 6's set monoid on boolean masks
   or packed bitmask words.
@@ -23,7 +28,9 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.core import collectives
 from repro_torch.core.errors import ValidationError
 
 _WORD_BITS = 32
@@ -113,6 +120,31 @@ def cumsum_saturating_i32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """
     exact = torch.cumsum(x.to(torch.int64), dim=dim, dtype=torch.int64)
     return exact.clamp(_INT32_MIN, _INT32_MAX).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Distributed scan (the two-level scheme across the ranks of a group)
+# --------------------------------------------------------------------------
+
+def shard_exclusive_offsets(local_total: torch.Tensor, group) -> torch.Tensor:
+    """Exclusive prefix of per-shard totals across the ranks of ``group``.
+
+    Every rank of the group calls it with its shard's reduction (any shape,
+    the same on every rank) and gets the sum of the *earlier* ranks'
+    totals, in ``local_total``'s dtype.  The paper's master step: gather
+    the P partials and combine them locally.
+    """
+    gathered = collectives.all_gather(local_total, group)        # (P, ...)
+    earlier = gathered[:dist.get_rank(group)]
+    return earlier.sum(dim=0, dtype=local_total.dtype)
+
+
+def shard_inclusive_cumsum(x_shard: torch.Tensor, group) -> torch.Tensor:
+    """Full distributed inclusive cumsum along the last axis of an array
+    whose contiguous shards, in rank order, lie on the ranks of ``group``
+    (every shard non-empty), in ``x_shard``'s dtype."""
+    local = torch.cumsum(x_shard, dim=-1, dtype=x_shard.dtype)
+    return local + shard_exclusive_offsets(local[..., -1], group)[..., None]
 
 
 # --------------------------------------------------------------------------

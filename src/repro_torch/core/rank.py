@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core.intervals import Extents
 
 
@@ -45,3 +46,25 @@ def rank_count(subs: Extents, upds: Extents) -> torch.Tensor:
     int32 rows in int32, which wraps once K passes 2³¹; the port's total
     does not."""
     return per_sub_match_counts(subs, upds).sum(dtype=torch.int64)
+
+
+def rank_count_sharded(subs: Extents, upds: Extents, mesh, axis_name: str):
+    """Queries sharded across one dimension of a ``DeviceMesh`` (the
+    parallel-ITM analogue): K as a 0-d int64 tensor, the same on every
+    rank.
+
+    Every rank calls it with the same extents and sorts the update bounds
+    itself (they play the shared interval tree); it answers its contiguous
+    shard of the subscription queries, padded to a multiple of P with
+    inert ``[-inf, -inf]`` queries (no update starts at or before -inf, none
+    ends before it), and an all-reduce sums the shards' int64 counts.
+    """
+    group, p, index = collectives.mesh_axis(mesh, axis_name)
+    u_lo_sorted = torch.sort(upds.lo).values
+    u_hi_sorted = torch.sort(upds.hi).values
+    s_lo = collectives.shard_padded(subs.lo, p, index, float("-inf"))
+    s_hi = collectives.shard_padded(subs.hi, p, index, float("-inf"))
+    started = torch.searchsorted(u_lo_sorted, s_hi, right=True)
+    ended = torch.searchsorted(u_hi_sorted, s_lo, right=False)
+    return collectives.all_reduce_sum((started - ended).sum(dtype=torch.int64),
+                                      group)

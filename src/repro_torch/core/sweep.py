@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core import prefix as prefix_lib
 from repro_torch.core.errors import ValidationError
 from repro_torch.core.intervals import Extents, _np
@@ -191,7 +192,7 @@ def sbm_active_profile(subs: Extents, upds: Extents, *, num_segments: int = 8):
 # --------------------------------------------------------------------------
 
 def rank_tables_from_cumsums(is_sub, is_upper, owner, c_sub_lo, c_upd_lo,
-                             n: int, m: int):
+                             n: int, m: int, combine=lambda t: t):
     """Per-extent emission ranges from the two lower-indicator cumsums.
 
     In the sorted stream every endpoint has a unique position, so pair
@@ -206,6 +207,11 @@ def rank_tables_from_cumsums(is_sub, is_upper, owner, c_sub_lo, c_upd_lo,
     ``sum(a_count) + sum(b_count) = K``.  All tables are int32; records
     with ``owner < 0`` (padding) never contribute.  Each scatter writes
     deselected records to one spare slot past the end, dropped afterwards.
+
+    The inputs may be one rank's contiguous slice of the stream, with the
+    *global* cumsums: ``combine`` then folds each locally scattered table
+    into the global one (a sum over the ranks, since each endpoint lies
+    in one slice); the identity when the caller holds the whole stream.
     """
     real = owner >= 0
     idx_owner = owner.to(torch.int64)
@@ -214,7 +220,7 @@ def rank_tables_from_cumsums(is_sub, is_upper, owner, c_sub_lo, c_upd_lo,
         out = torch.zeros(count + 1, dtype=torch.int32, device=owner.device)
         out.scatter_(0, torch.where(sel, idx, count),
                      torch.where(sel, vals, 0).to(torch.int32))
-        return out[:count]
+        return combine(out[:count])
 
     sel_s_lo = is_sub & ~is_upper & real
     sel_s_up = is_sub & is_upper & real
@@ -297,6 +303,64 @@ def active_sets_at_segment_starts(subs: Extents, upds: Extents,
     sub_active = prefix_lib.delta_scan_exclusive(sadd, sdel)
     upd_active = prefix_lib.delta_scan_exclusive(uadd, udel)
     return ep, sub_active, upd_active
+
+
+# --------------------------------------------------------------------------
+# Distributed sweep: the paper's algorithm across a device-mesh dimension
+# --------------------------------------------------------------------------
+
+def sbm_count_shard_body(sub_lo, sub_up, upd_lo, upd_up, *, group):
+    """Per-rank body: this rank's contiguous shard of the four indicator
+    streams of the sorted, padded stream (a multiple of
+    ``kernels.ops.COUNT_BLOCK`` long), the ranks of ``group`` holding the
+    shards in order.  Returns the global K as a 0-d int64 tensor.
+
+    Exactly the paper's three phases with "processor" := rank: local
+    deltas (pass A, :func:`repro_torch.kernels.sbm_sweep.block_sums`, over
+    the shard's segments) → all-gather master combine (each rank's (4,)
+    column totals; the earlier ranks' sum is the shard's carry, added to
+    the local exclusive scan of the segment sums) → local emission (pass
+    B, :func:`repro_torch.kernels.sbm_sweep.emission`, from those
+    offsets).  K is the all-reduce of the shards' int64 emission totals:
+    exact beyond 2³¹, the JAX package's behaviour under x64.  On CUDA
+    tensors passes A and B are the kernels; on CPU tensors their plain
+    versions.
+    """
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sbm_sweep as sweep_kernels
+
+    bs = ops.COUNT_BLOCK
+    deltas = torch.stack([sub_lo, sub_up, upd_lo, upd_up]).to(torch.int32)
+    sums = sweep_kernels.block_sums(deltas, block_size=bs)
+    carry = prefix_lib.shard_exclusive_offsets(
+        sums.sum(dim=0, dtype=torch.int32), group)
+    offsets = torch.cumsum(sums, dim=0, dtype=torch.int32) - sums + carry
+    _, seg = sweep_kernels.emission(deltas, offsets, block_size=bs)
+    return collectives.all_reduce_sum(seg.sum(dtype=torch.int64), group)
+
+
+def sbm_count_sharded(subs: Extents, upds: Extents, mesh, axis_name: str):
+    """End-to-end distributed SBM count over one dimension of a
+    ``DeviceMesh``: K as a 0-d int64 tensor on the extents' device, the
+    same on every rank.
+
+    Every rank of the dimension calls it with the same extents.  Each
+    sorts the whole endpoint stream (as the JAX package sorts before its
+    ``shard_map``), pads it with inert sentinels to a multiple of
+    P · ``COUNT_BLOCK`` and sweeps its own contiguous shard
+    (:func:`sbm_count_shard_body`); the active-set carry crosses ranks
+    through the gathered shard totals.
+    """
+    from repro_torch.kernels import ops
+
+    group, p, index = collectives.mesh_axis(mesh, axis_name)
+    if subs.size == 0 or upds.size == 0:
+        return torch.zeros((), dtype=torch.int64, device=subs.lo.device)
+    ep = _pad_stream(encode_endpoints(subs, upds), p * ops.COUNT_BLOCK)
+    shard = ep.values.shape[0] // p
+    part = slice(index * shard, (index + 1) * shard)
+    return sbm_count_shard_body(*(d[part] for d in _indicator_deltas(ep)),
+                                group=group)
 
 
 # --------------------------------------------------------------------------

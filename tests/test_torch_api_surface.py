@@ -1,8 +1,8 @@
 """The port's public surface against the JAX package's.
 
 ``repro_torch.api.__all__`` is ``repro.api.__all__`` plus ``KernelError``;
-``repro_torch.core.__all__`` is ``repro.core.__all__`` less the five
-sharded engines, with ``kernel_builds`` where the JAX package has
+``repro_torch.core.__all__`` is ``repro.core.__all__``, the five sharded
+engines included, with ``kernel_builds`` where the JAX package has
 ``jit_compiles``.  Every public signature of ``repro_torch.api`` equals its
 record in ``tests/api_surface.json`` (read here, never written), apart from
 the ``device`` keyword the port adds.
@@ -21,8 +21,6 @@ from repro_torch import core
 from test_api_surface import _describe_callable, _describe_class
 
 LOCKFILE = pathlib.Path(__file__).with_name("api_surface.json")
-SHARDED = ("sbm_count_sharded", "rank_count_sharded", "bf_count_sharded",
-           "sbm_enumerate_sharded", "bitmatrix_sharded")
 
 
 def _entry(obj) -> dict:
@@ -61,9 +59,9 @@ def test_api_all_is_the_reference_list_plus_kernel_error():
     assert issubclass(api.KernelError, api.DDMError)
 
 
-def test_core_all_is_the_reference_list_less_the_sharded_engines():
+def test_core_all_is_the_reference_list_with_kernel_builds():
     want = [("kernel_builds" if n == "jit_compiles" else n)
-            for n in ref_core.__all__ if n not in SHARDED]
+            for n in ref_core.__all__]
     assert core.__all__ == want
     for name in core.__all__:
         assert hasattr(core, name), name
