@@ -269,6 +269,48 @@ Phases (any failure exits non-zero and prints no result line):
     rank beside the single-device engines' (world (a)); in (b) the ranks
     share one card, so those times measure the collectives and the
     padding, not scaling.
+21. Model-side parallelism (``repro_torch.parallel``, ``Model(cfg,
+    sharder=...)``).  (a) A world of 1 on NCCL, in this process, mesh
+    (1, 1): one prefill wave of 4 x 2048 tokens of ``Model(cfg, sharder)``
+    equals ``Model(cfg)`` bit for bit, for smollm-360m and
+    granite-moe-3b-a800m at full width and depth (the latter's logits are
+    (b)'s reference); then the one-rank references of (b) and (c): a
+    2-layer float32 granite prefill, a 2-layer float32 smollm loss and
+    gradients, and ``launch.train`` on smollm-360m (3 steps of 4 x 4096,
+    checkpoint at step 2).  (b)-(e) in 4 spawned gloo ranks on cuda:0
+    (:func:`model_parallel_work`): (b) granite-moe-3b-a800m at full width
+    and depth on (data 1, model 4), each rank holding its blocks (drawn
+    leaf by leaf from the seeded generator): one prefill wave of 4 x 2048
+    tokens for ``moe_impl`` auto (which picks ``ep``: 40 % 4 = 0), ``cap``
+    and ``ffn``: last-position logits within ``MP_BF16_ERR_BOUND`` of a
+    float32 run of the same weights (relative to its max), greedy tokens equal to the one rank's wherever the
+    float32 run's top-1 margin exceeds twice both errors, the drop
+    fraction and the tokens whose experts differ from one rank's (and the
+    float32 run's) in each layer printed, 32 flash launches a prefill on
+    each rank (counts zeroed just before) on its 6 q heads and 2 KV
+    heads; every MoE layer's output the same on every model rank; the
+    control, an ``ep`` wave with rank 0's partial left out of every
+    layer's reduction, must read above the bound; the flash kernel at
+    those launch shapes against its plain version and the dense oracle
+    within row 6g's ``flash_full_tol``; one MoE layer at full width, each
+    mode's bf16 output within ``MP_LAYER_RATIO`` x the one-rank einsum
+    path's error against float64 on the same bins, and above it with a
+    rank's partial dropped; the 2-layer float32 twin of each mode within
+    1e-4 relative.  (c) smollm-360m on (data 2, model 2) through
+    ``launch.train.main([..., "--tp", "2", "--distributed"])``: 3 steps
+    of 4 x 4096 from the world of 1's seed, every loss finite and within
+    ``MP_LOSS_BOUND`` of the world of 1's, and a step apart from it above
+    the bound;
+    the float32 twin's loss and every gradient leaf (summed over data,
+    gathered) within 1e-4; the step-2 checkpoint (gathered, rank 0's) has
+    the world of 1's layout and restores in a world of 1 bit for bit.
+    (d) ``ring_attention`` (causal) and ``halo_window_attention`` (window
+    4096, softcap 50) at gemma2-2b's shapes (B = 1, H = 8, KV = 4, S =
+    8192, D = 256; 2048 positions a rank) against dense attention of the
+    whole sequence in float32 within 2e-5.  (e) ``compressed_psum`` of a
+    47,185,920-float gradient (smollm-360m's embedding) over the 4 ranks:
+    the same on every rank bit for bit, within the int8 bound of the exact
+    mean.  Times: (b)'s prefill per mode, (c)'s steps, (d), (e).
 
 The build prints every kernel's registers, shared memory and spills from
 nvcc's ``-Xptxas -v`` report, and SASS opcode counts (the float32 flash
@@ -276,16 +318,20 @@ kernel must hold FFMA and cp.async and no tensor-core instruction).
 Every line of numbers that a phase prints is followed, at the latest before
 the last line, by the card's name and power limit.
 
+``python3 chip_smoke.py --model-parallel-cards`` runs phase 21 alone with
+its world of 4 on NCCL across 4 cards, one rank a card.
+
 ``python3 chip_smoke.py --flash-f32-rows [SRC]`` runs rows 6e and 6f
 alone (each beside SDPA in float32 with TF32 off and its bound), on the
 port under SRC (another checkout's ``src/``, default this one's), so
 that two commits' float32 kernels are timed in one call on one card.
 The last lines are the ``{"kernels": [...]}`` record (each row's
-``sharded_launches``: its launches in phase 20), the flash rows at
+``sharded_launches``: its launches in phase 20; ``model_parallel_launches``:
+in phase 21 (b), every rank), the flash rows at
 gemma2-2b's shapes, the launch counts (d = 1 main path, d-dim service
 path, the four serving paths, phase 14, the prefills of phases 17 and
-18, the training run of phase 19, the sharded path of phase 20), the
-phase timings,
+18, the training run of phase 19, the sharded path of phase 20, the
+model-parallel prefills of phase 21), the phase timings,
 the card line, and ``{"ok": true, "device": {...}}``.
 Data come from a fixed seed.  Exits 2 without a result when no CUDA device
 is present or the script stands outside the repository.
@@ -531,6 +577,46 @@ SHARDED_CAP = 65_536
 BF_TWIN_N = 10_000
 WIDE_SHARDED = (65_536, 65_536)
 SHARDED_TIMEOUT_S = 300        # a collective waiting longer fails the rank
+# phase 21: model-side parallelism.  A world of 4 gloo ranks on cuda:0
+MP_WORLD = 4
+MP_TIMEOUT_S = 600
+MP_SERVE = dict(arch="granite-moe-3b-a800m", rows=4, prompt_len=2048,
+                modes=("auto", "cap", "ffn"), seed=SEED + 110)
+MP_SMOLLM_SEED = SEED + 111
+MP_TRAIN = dict(arch="smollm-360m", tp=2, batch=4, seq=4096, steps=3,
+                ckpt_every=2, seed=SEED + 120)
+MP_TWIN = dict(layers=2, rows=4, seq=1024, seed=SEED + 121)
+MP_TWIN_TOL = 1e-4             # float32 twins: relative to the max |.|
+# bf16 granite logits in a world of 4 against one rank: both are bf16
+# evaluations of one function, differing in the order and rounding of
+# partial sums.  The yardstick is a float32 run of the same weights (TF32
+# off): each mode's last logits must lie within MP_BF16_ERR_BOUND of it,
+# relative to its max (2x the largest ep / cap reading on an H100 80GB,
+# 0.0252; one rank 0.0234).  Every MoE layer's output must also be the
+# same on every model rank (the sum of its bit patterns): the next
+# layer routes each token on each rank from it.  The control, an ep wave
+# with rank 0's partial left out of every layer's reduction, must read
+# above the bound (a fault of one late layer does not: with the partial
+# left out of the last layer alone the logits moved 0.024 on an H100,
+# so the one-layer check below carries the per-layer precision).
+MP_BF16_ERR_BOUND = 0.05
+MP_CONTROL_MODE = "auto"
+# one MoE layer at full width on the same dispatch (a 4 x 2048 wave,
+# x from a seed): each mode's bf16 output within MP_LAYER_RATIO x the
+# one-rank einsum path's error, both against a float64 evaluation of the
+# einsum path's bins and weights; with one rank's partial dropped from
+# the reduction (the control) each mode must read above that bound
+MP_LAYER_RATIO = 2.0
+MP_LAYER_SEED = SEED + 115
+# bf16 smollm losses in a world of 4 (data 2 x model 2) against one rank:
+# readings 2.1e-5 (a mean over 16,384 tokens of per-token errors of the
+# same kind); the control: the world of 4's loss at step t against the
+# world of 1's at step t - 1 (a lost update) must read above the bound
+MP_LOSS_BOUND = 1e-3
+MP_CP = dict(B=1, H=8, KV=4, S=8192, D=256, window=4096, softcap=50.0,
+             seed=SEED + 130)
+MP_CP_TOL = 2e-5               # tests/test_context_parallel.py
+MP_COMP_N = 49_152 * 960       # smollm-360m's embedding gradient
 DEVICE = "cuda"
 # the sweep kernels' names in a profile (the rebuild trace sums each)
 SWEEP_KERNELS = ("block_sums_kernel", "emission_kernel",
@@ -749,6 +835,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(src))
     if rows_only:
         return flash_f32_rows(torch, src)
+    if argv[:1] == ["--model-parallel-cards"]:
+        return model_parallel_cards(torch)
     # torch.compile's caches (the flex_attention yardstick) stay in the
     # checkout's build/
     os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
@@ -782,7 +870,27 @@ def main(argv=None) -> int:
     smoke.serve_seamless()
     smoke.train()
     smoke.sharded(card)
+    smoke.model_parallel(card)
     smoke.report(card)
+    return 0
+
+
+def model_parallel_cards(torch) -> int:
+    """``chip_smoke.py --model-parallel-cards``: phase 21 alone with its
+    world of 4 on NCCL, one rank a card (needs ``MP_WORLD`` cards): the
+    scaling that four ranks sharing one card cannot show."""
+    if torch.cuda.device_count() < MP_WORLD:
+        print(f"chip_smoke: --model-parallel-cards needs {MP_WORLD} cards",
+              file=sys.stderr)
+        return 2
+    card = card_line()
+    print(card, flush=True)
+    smoke = Smoke(torch)
+    smoke.build()
+    smoke.model_parallel(card, cards=True)
+    print("timings_ms: " + json.dumps(
+        {k: round(v, 3) for k, v in smoke.phase_ms.items()}))
+    print(card)
     return 0
 
 
@@ -2388,8 +2496,8 @@ class Smoke:
         torch.cuda.empty_cache()
         real, drops = moe.moe_layer, []
 
-        def counted(params, x, cfg):
-            out, aux = real(params, x, cfg)
+        def counted(params, x, cfg, *args, **kwargs):
+            out, aux = real(params, x, cfg, *args, **kwargs)
             if x.shape[1] > 1:          # a prefill's dispatch group
                 drops.append(aux["moe_drop_fraction"])
             return out, aux
@@ -3700,6 +3808,301 @@ class Smoke:
         print(f"phase 20: {time.perf_counter() - t0:.3f} s", flush=True)
         print(card, flush=True)
 
+    def model_parallel(self, card: str, cards: bool = False):
+        """Phase 21: model-side parallelism.  (a) A world of 1 on NCCL in
+        this process: ``Model(cfg, sharder)`` on a (1, 1) mesh equals
+        ``Model(cfg)`` bit for bit at full width; then the one-rank
+        references of (b) and (c).  (b)-(e) in ``MP_WORLD`` spawned gloo
+        ranks on cuda:0 (:func:`model_parallel_work`); with ``cards``,
+        NCCL ranks on ``MP_WORLD`` cards."""
+        import datetime
+        import gc
+
+        import torch.distributed as dist
+        import torch.multiprocessing as mp
+
+        torch = self.torch
+        t0 = time.perf_counter()
+        out = ROOT / "build" / "phase21"
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        torch.cuda.empty_cache()
+        dist.init_process_group("cpu:gloo,cuda:nccl",
+                                init_method=f"tcp://localhost:{_free_port()}",
+                                world_size=1, rank=0,
+                                timeout=datetime.timedelta(
+                                    seconds=MP_TIMEOUT_S))
+        try:
+            refs = self.mp_world_of_one(out)
+        finally:
+            dist.destroy_process_group()
+        torch.save(refs, out / "refs.pt")
+        del refs
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.phase_ms["phase 21 (a) world of 1 and references"] = \
+            (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        try:
+            mp.start_processes(model_parallel_rank,
+                               args=(MP_WORLD, _free_port(), str(out),
+                                     cards),
+                               nprocs=MP_WORLD, join=True,
+                               start_method="spawn")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as exc:
+            raise SmokeFailure(f"phase 21: a rank failed: {exc}") from exc
+        ranks = [json.loads((out / f"rank{r}.json").read_text())
+                 for r in range(MP_WORLD)]
+        self.phase_ms[f"phase 21 (b)-(e) world of {MP_WORLD}"] = \
+            (time.perf_counter() - t1) * 1e3
+        self.mp_launches = sum(sum(m["launches"] for m in r["b"].values())
+                               for r in ranks)
+        self.mp_check_checkpoint(out)
+        rec = ranks[0]
+        for mode, m in rec["b"].items():
+            self.phase_ms[f"phase 21 (b) {MP_SERVE['arch']} prefill "
+                          f"{mode}"] = m["ms"]
+            moved = [i for i, n in enumerate(m["routing_moved"]) if n]
+            print(f"phase 21 (b) {MP_SERVE['arch']} model 4, moe_impl "
+                  f"{mode} (runs {m['mode']}): prefill "
+                  f"{MP_SERVE['rows']} x {MP_SERVE['prompt_len']} ms per "
+                  f"rank {[r['b'][mode]['ms'] for r in ranks]}; last "
+                  f"logits max |diff| from one rank {m['rel']:.3e}, from "
+                  f"the float32 run {m['err']:.3e} (bound {m['bound']}; one "
+                  f"rank's {m['err_one']:.3e}), relative to the float32 "
+                  f"logits' max; layers whose MoE output differs between "
+                  f"the model ranks: {m['layers_differing_between_ranks']}; "
+                  f"tokens whose experts differ from one "
+                  f"rank's: {sum(m['routing_moved'])} over layers {moved} "
+                  f"(from the float32 run's: "
+                  f"{sum(m['routing_moved_float32'])}; one rank's from it: "
+                  f"{sum(rec['ref_routing_moved_float32'])}); greedy tokens "
+                  f"equal {m['tokens_equal']} of {MP_SERVE['rows']} (with "
+                  f"a float32 margin above twice the errors: "
+                  f"{m['tokens_decided']}); drop "
+                  f"fraction (mean of the layers) {m['drop']:.5f} (one "
+                  f"rank {rec['ref_drop']:.5f}); flash launches per rank "
+                  f"{[r['b'][mode]['launches'] for r in ranks]}; float32 "
+                  f"2-layer twin rel {rec['twin_b'][mode]:.3e}", flush=True)
+        print(f"phase 21 (b) control: {MP_CONTROL_MODE} with rank 0's "
+              f"partial left out of every layer's reduction, last logits "
+              f"{rec['b_control']:.3e} from the float32 run (above the "
+              f"bound {MP_BF16_ERR_BOUND})", flush=True)
+        self.mp_flash_err = max(r["flash_err"] for r in ranks)
+        print(f"phase 21 (b) flash kernel at each rank's launch shapes "
+              f"(B={MP_SERVE['rows']}, 6 q / 2 KV heads, S="
+              f"{MP_SERVE['prompt_len']}, D=64, bf16, causal) == plain == "
+              f"dense oracle within flash_full_tol; max |kernel - plain| "
+              f"{self.mp_flash_err:.4g}", flush=True)
+        layer = rec["layer"]
+        print(f"phase 21 (b) one MoE layer at full width, bf16 error "
+              f"against float64 of the same bins (relative to its max): one "
+              f"rank {layer['one']:.3e}; "
+              + ", ".join(f"{m} {layer[m]:.3e} (control "
+                          f"{layer[m + ' control']:.3e})"
+                          for m in MP_SERVE["modes"])
+              + f"; bound {MP_LAYER_RATIO} x one rank's", flush=True)
+        c = rec["c"]
+        self.phase_ms["phase 21 (c) train step (median)"] = c["step_ms"]
+        print(f"phase 21 (c) {MP_TRAIN['arch']} data 2 x model 2, "
+              f"{MP_TRAIN['batch']} x {MP_TRAIN['seq']}: losses "
+              f"{c['losses']} (one rank {c['ref_losses']}, max rel diff "
+              f"{c['loss_rel']:.3e}, bound {MP_LOSS_BOUND}; a step apart "
+              f"{c['loss_shifted']:.3e}); step ms "
+              f"{c['step_times_ms']}; float32 2-layer twin: loss rel "
+              f"{c['twin_loss_rel']:.3e}, worst gradient leaf rel "
+              f"{c['twin_grad_rel']:.3e} ({c['twin_worst_leaf']}); the "
+              f"step-{MP_TRAIN['ckpt_every']} checkpoint restores in a "
+              "world of 1 bit for bit", flush=True)
+        d = rec["d"]
+        print(f"phase 21 (d) context parallel at gemma2-2b's shapes "
+              f"(B={MP_CP['B']}, H={MP_CP['H']}, KV={MP_CP['KV']}, "
+              f"S={MP_CP['S']}, D={MP_CP['D']}, s_l = "
+              f"{MP_CP['S'] // MP_WORLD}): ring max |diff| "
+              f"{max(r['d']['ring_err'] for r in ranks):.3e}, halo (window "
+              f"{MP_CP['window']}, softcap {MP_CP['softcap']}) "
+              f"{max(r['d']['halo_err'] for r in ranks):.3e} (tol "
+              f"{MP_CP_TOL}); ms ring {d['ring_ms']:.3f}, halo "
+              f"{d['halo_ms']:.3f}", flush=True)
+        e = rec["e"]
+        print(f"phase 21 (e) compressed_psum of {MP_COMP_N} floats over "
+              f"{MP_WORLD} ranks: identical on every rank, max |out - "
+              f"mean| {e['max_err']:.3e} (int8 bound {e['bound']:.3e}); "
+              f"{e['ms']:.3f} ms", flush=True)
+        for key in ("ring_ms", "halo_ms"):
+            self.phase_ms[f"phase 21 (d) {key}"] = d[key]
+        self.phase_ms["phase 21 (e) compressed_psum ms"] = e["ms"]
+        self.phase_ms["phase 21 (model parallel)"] = \
+            (time.perf_counter() - t0) * 1e3
+        print(f"phase 21: {time.perf_counter() - t0:.3f} s", flush=True)
+        print(card, flush=True)
+
+    def mp_world_of_one(self, out) -> dict:
+        """Phase 21 (a) and the one-rank references of (b) and (c), in a
+        world of 1 (this process, NCCL)."""
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.launch import train as train_launcher
+        from repro_torch.launch.mesh import make_elastic_mesh
+        from repro_torch.models import Model, moe
+        from repro_torch.models.api import iter_leaves
+        from repro_torch.parallel.sharding import make_sharder
+        from repro_torch.train.loop import value_and_grad
+
+        torch = self.torch
+        mesh = make_elastic_mesh(model_parallel=1, device=DEVICE)
+        refs = {}
+        rows, plen = MP_SERVE["rows"], MP_SERVE["prompt_len"]
+        for arch, seed in (("smollm-360m", MP_SMOLLM_SEED),
+                           (MP_SERVE["arch"], MP_SERVE["seed"])):
+            cfg = get_config(arch)
+            plain = Model(cfg, device=DEVICE)
+            sharded = Model(cfg, sharder=make_sharder(cfg, mesh),
+                            device=DEVICE)
+            params = plain.init(torch.Generator(DEVICE).manual_seed(seed))
+            toks = torch.randint(1, cfg.vocab_size, (rows, plen),
+                                 generator=torch.Generator().manual_seed(
+                                     seed)).to(self.dev)
+            drops, choices, real = [], [], moe.moe_layer
+
+            def counted(*args, **kwargs):
+                res = real(*args, **kwargs)
+                drops.append(res[1]["moe_drop_fraction"])
+                return res
+            moe.moe_layer = counted
+            try:
+                with recorded_choices(moe, choices):
+                    _, want = plain.prefill(params, {"tokens": toks},
+                                            plain.init_cache(rows, plen + 8))
+                ref_drop = float(torch.stack(drops).mean()) if drops \
+                    else 0.0
+                self.flash.launches = 0
+                _, got = sharded.prefill(params, {"tokens": toks},
+                                         sharded.init_cache(rows, plen + 8))
+                torch.cuda.synchronize()
+            finally:
+                moe.moe_layer = real
+            require(torch.equal(got, want) and bool(torch.isfinite(
+                want[..., :cfg.vocab_size]).all()),
+                    f"phase 21 (a) {arch}: Model(cfg, sharder) on a (1, 1) "
+                    "mesh != Model(cfg) bit for bit, or not finite")
+            require(self.flash.launches == attention_layers(cfg),
+                    f"phase 21 (a) {arch}: flash launches "
+                    f"{self.flash.launches} != {attention_layers(cfg)}")
+            print(f"phase 21 (a) {arch} world of 1, mesh (1, 1): prefill "
+                  f"{rows} x {plen} of Model(cfg, sharder) == Model(cfg) "
+                  "bit for bit", flush=True)
+            if arch == MP_SERVE["arch"]:
+                exact, choices32 = self.mp_float32_logits(cfg, params, toks)
+                refs["serve"] = {
+                    "tokens": toks.cpu(), "logits": want.cpu(),
+                    "float32": exact, "drop": ref_drop,
+                    "choices": [c.cpu() for c in choices],
+                    "choices_float32": choices32,
+                    "routing_moved_float32": choice_diffs(choices,
+                                                          choices32)}
+            del params, plain, sharded, want, got
+            torch.cuda.empty_cache()
+
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            cfg = dataclasses.replace(get_config(MP_SERVE["arch"]),
+                                      num_layers=MP_TWIN["layers"],
+                                      dtype=torch.float32)
+            model = Model(cfg, device=DEVICE)
+            params = model.init(torch.Generator(DEVICE).manual_seed(
+                MP_TWIN["seed"]))
+            toks = torch.randint(1, cfg.vocab_size,
+                                 (MP_TWIN["rows"], MP_TWIN["seq"]),
+                                 generator=torch.Generator().manual_seed(
+                                     MP_TWIN["seed"])).to(self.dev)
+            _, want = model.prefill(params, {"tokens": toks}, model.init_cache(
+                MP_TWIN["rows"], MP_TWIN["seq"] + 8))
+            refs["serve_twin"] = {"tokens": toks.cpu(), "logits": want.cpu()}
+            del model, params
+            cfg = dataclasses.replace(get_config(MP_TRAIN["arch"]),
+                                      num_layers=MP_TWIN["layers"],
+                                      dtype=torch.float32)
+            model = Model(cfg, device=DEVICE)
+            params = model.init(torch.Generator(DEVICE).manual_seed(
+                MP_TWIN["seed"]))
+            batch = mp_twin_batch(torch, cfg)
+            (loss, _), grads = value_and_grad(model, params, batch)
+            refs["train_twin"] = {
+                "loss": float(loss),
+                "grads": {p: g.cpu() for p, g in iter_leaves(grads)}}
+            del model, params, grads
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.cuda.empty_cache()
+
+        loop = train_launcher.main(mp_train_argv(out / "ck1", tp=False))
+        refs["train"] = {"losses": [h["loss"] for h in loop.history]}
+        del loop
+        return refs
+
+    def mp_float32_logits(self, cfg, params, toks):
+        """Phase 21 (b)'s yardstick: the logits of ``cfg`` computed in
+        float32 (TF32 off) on the same weights, and its expert choices a
+        layer (both on the host)."""
+        import dataclasses
+
+        from repro_torch.models import Model, moe
+
+        torch = self.torch
+        c = dataclasses.replace(cfg, dtype=torch.float32)
+        model = Model(c, device=DEVICE)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        choices = []
+        try:
+            with recorded_choices(moe, choices):
+                _, logits = model.prefill(params, {"tokens": toks},
+                                          model.init_cache(toks.shape[0],
+                                                           toks.shape[1] + 8))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        return logits.cpu(), [c.cpu() for c in choices]
+
+    def mp_check_checkpoint(self, out):
+        """Phase 21 (c): the step-``ckpt_every`` checkpoint of the world of
+        4 (gathered, rank 0's) has the layout the world of 1 wrote and
+        restores in a world of 1 to its arrays bit for bit."""
+        import numpy as np
+
+        from repro_torch.configs import get_config
+        from repro_torch.models import Model
+        from repro_torch.train import checkpoint as ckpt
+        from repro_torch.train.optimizer import AdamW, constant_schedule
+
+        torch = self.torch
+        step = MP_TRAIN["ckpt_every"]
+        four = out / "ck4" / f"step_{step:08d}"
+        one = out / "ck1" / f"step_{step:08d}"
+        layout = [{k: json.loads((d / "meta.json").read_text())[k]
+                   for k in ("paths", "shapes", "dtypes")}
+                  for d in (four, one)]
+        require(layout[0] == layout[1], "phase 21 (c): the world of 4's "
+                "checkpoint layout != the world of 1's")
+        cfg = get_config(MP_TRAIN["arch"])
+        model = Model(cfg, device="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        restored, meta = ckpt.restore_checkpoint(
+            four, {"params": params,
+                   "opt_state": AdamW(constant_schedule(1.0)).init(params)})
+        with np.load(four / "arrays.npz") as z:
+            saved = [z[f"a{i}"] for i in range(len(layout[0]["paths"]))]
+        host = ckpt.host_copy(restored)
+        require(meta["step"] == step and [p for p, _ in host]
+                == layout[0]["paths"] and all(
+                    np.array_equal(arr.reshape(-1).view(np.uint8),
+                                   want.reshape(-1).view(np.uint8))
+                    for (_, (arr, _)), want in zip(host, saved)),
+                "phase 21 (c): the world of 4's checkpoint does not restore "
+                "in a world of 1 bit for bit")
+
     def report(self, card: str):
         torch = self.torch
         self.rows["flash_attention"]["max_abs_err"] = self.err["flash_attention"]
@@ -3708,6 +4111,14 @@ class Smoke:
         for name in REPLACES:
             self.rows[name]["sharded_launches"] = \
                 self.sharded_launches.get(name, 0)
+        # launches on phase 21's path: the flash kernel on each rank's
+        # local heads (row 6g's shapes cut over the model axis)
+        for row in self.rows.values():
+            row["model_parallel_launches"] = 0
+        self.rows["flash_attention_granite"]["model_parallel_launches"] = \
+            self.mp_launches
+        self.rows["flash_attention_granite"]["model_parallel_max_abs_err"] = \
+            self.mp_flash_err
         print(json.dumps({"kernels": list(self.rows.values())}))
         print("launches on the main path (bitmatch: the bitmatrix path at "
               "cell (a)): " + json.dumps(self.launches))
@@ -3733,6 +4144,8 @@ class Smoke:
               f"{TRAIN['steps']} steps): " + json.dumps(self.train_launches))
         print("launches on the sharded path (phase 20, both worlds, every "
               "rank): " + json.dumps(self.sharded_launches))
+        print("flash launches on the model-parallel path (phase 21 (b), "
+              "every rank, every prefill): " + json.dumps(self.mp_launches))
         print("timings_ms: " + json.dumps(
             {k: round(v, 3) for k, v in self.phase_ms.items()}))
         print(card)
@@ -3941,6 +4354,482 @@ def sharded_work(torch, world: int, rank: int, single: bool = False) -> dict:
                                                       block=BF_BLOCK)),
             "bitmatrix_kernel": warm_ms(lambda: B.bitmatrix_kernel(ts, tu)),
         }
+    return rec
+
+
+class recorded_choices:
+    """While active, ``moe.top_k`` appends each call's expert choices
+    (uint8, on the device) to ``store``: one (B, S, k) tensor a layer."""
+
+    def __init__(self, moe, store: list):
+        self.moe, self.store, self.real = moe, store, moe.top_k
+
+    def __enter__(self):
+        real, store = self.real, self.store
+
+        def top_k(probs, k):
+            vals, idx = real(probs, k)
+            store.append(idx.byte())
+            return vals, idx
+        self.moe.top_k = top_k
+
+    def __exit__(self, *exc):
+        self.moe.top_k = self.real
+
+
+def choice_diffs(got, want) -> list:
+    """Per MoE layer, the tokens whose set of experts differs."""
+    return [int((a.cpu().sort(-1).values != b.cpu().sort(-1).values)
+                .any(-1).sum()) for a, b in zip(got, want)]
+
+
+class dropped_partial:
+    """While active, ``moe.reduce_from`` over a non-empty group leaves out
+    the model coordinate 0's partial: phase 21's controls, a fault the
+    bounds must catch."""
+
+    def __init__(self, moe, torch, midx: int):
+        self.moe, self.real = moe, moe.reduce_from
+        self.torch, self.midx = torch, midx
+
+    def __enter__(self):
+        real = self.real
+
+        def reduce_from(x, groups):
+            if groups and self.midx == 0:
+                x = self.torch.zeros_like(x)
+            return real(x, groups)
+        self.moe.reduce_from = reduce_from
+
+    def __exit__(self, *exc):
+        self.moe.reduce_from = self.real
+
+
+def mp_flash_check(torch, cfg, sharder, rows: int, plen: int) -> float:
+    """Phase 21 (b): the flash kernel at this rank's launch shapes in the
+    granite prefill (its local q and KV heads, bf16, causal blocks of
+    ``attn_block_q``) against the plain version and the dense oracle on
+    the same inputs, within row 6g's ``flash_full_tol``.  Returns the max
+    |kernel - plain|."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import KERNEL_WRAPPERS
+
+    h = cfg.num_heads // sharder.split("heads", cfg.num_heads).size
+    hkv = cfg.num_kv_heads // sharder.split("kv_heads",
+                                            cfg.num_kv_heads).size
+    d, blk = cfg.head_dim, cfg.attn_block_q
+    gen = torch.Generator().manual_seed(MP_SERVE["seed"] + 1)
+    q = torch.randn((rows, h, plen, d), generator=gen) * FLASH_FULL_Q_GAIN
+    k = torch.randn((rows, hkv, plen, d), generator=gen)
+    v = torch.randn((rows, hkv, plen, d), generator=gen)
+    q, k, v = (t.to(DEVICE, torch.bfloat16) for t in (q, k, v))
+    idx, cnt, _ = ops.build_block_structure(plen, plen, block_q=blk,
+                                            block_k=blk, causal=True)
+    args = (q, k, v, torch.from_numpy(idx), torch.from_numpy(cnt))
+    kw = dict(scale=d ** -0.5, causal=True, window=None, softcap=None,
+              block_q=blk, block_k=blk, q_offset=0)
+    got = KERNEL_WRAPPERS[0](*args, **kw)
+    atol, rtol = flash_full_tol(v)
+    errs = []
+    for name, want in (("plain", ref.ref_flash_attention(*args, **kw)),
+                       ("dense oracle", ref.ref_attention(
+                           q, k, v, scale=d ** -0.5, causal=True))):
+        diff = (got.float() - want.float()).abs()
+        errs.append(float(diff.max()))
+        require(got.shape == q.shape and got.dtype == q.dtype
+                and bool((diff <= atol + rtol * want.float().abs()).all()),
+                f"phase 21 (b) flash at B={rows} H={h}/{hkv} S={plen} "
+                f"D={d}: kernel != {name} (max |diff| {errs[-1]}, "
+                f"tolerance {atol:.4g} + {rtol:.4g} |ref|)")
+    return errs[0]
+
+
+def mp_layer_check(torch, cfg, sharder, midx: int) -> dict:
+    """Phase 21 (b): one granite MoE layer at full width on the (data 1,
+    model 4) mesh, a 4 x 2048 wave of x from a seed.  Each mode's bf16
+    output against a float64 evaluation of the einsum path's own bins,
+    records and weights (its ``_apply`` arguments), within ``MP_LAYER_RATIO`` x the
+    one-rank einsum path's error; then the control, one rank's partial
+    left out of every reduction, which must read above that bound.
+    Returns the errors relative to the reference's max."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    from repro_torch.models.api import init_params
+
+    defs = moe.moe_defs(cfg)
+    rows, plen = MP_SERVE["rows"], MP_SERVE["prompt_len"]
+    gen = torch.Generator(DEVICE).manual_seed(MP_LAYER_SEED)
+    whole = init_params(defs, torch.float32, gen, device=DEVICE)
+    gen = torch.Generator(DEVICE).manual_seed(MP_LAYER_SEED)
+    local = init_params(defs, torch.float32, gen, device=DEVICE,
+                        local=sharder.local)
+    x = torch.randn((rows, plen, cfg.d_model), generator=gen,
+                    device=DEVICE).to(cfg.dtype)
+    seen, real = {}, moe._apply
+
+    def captured(*args):
+        seen["args"] = args
+        return real(*args)
+    moe._apply = captured
+    try:
+        one = moe.moe_layer(whole, x, cfg)[0]
+    finally:
+        moe._apply = real
+    xs, bt, w, (expert, slot, gate) = seen.pop("args")
+    want = real(xs.double(), bt, {n: t.double() for n, t in w.items()},
+                (expert, slot, gate.double())).reshape(one.shape)
+    scale = float(want.abs().max())
+
+    def err(out):
+        return float((out.double() - want).abs().max()) / scale
+    rec = {"one": err(one)}
+    bound = MP_LAYER_RATIO * rec["one"]
+    for impl in MP_SERVE["modes"]:
+        c = dataclasses.replace(cfg, moe_impl=impl)
+        rec[impl] = err(moe.moe_layer(local, x, c, sharder)[0])
+        with dropped_partial(moe, torch, midx):
+            rec[f"{impl} control"] = err(moe.moe_layer(local, x, c,
+                                                       sharder)[0])
+        require(rec[impl] <= bound < rec[f"{impl} control"],
+                f"phase 21 (b) one MoE layer, {impl}: bf16 error "
+                f"{rec[impl]:.3e}, control {rec[f'{impl} control']:.3e}, "
+                f"bound {bound:.3e} ({MP_LAYER_RATIO} x one rank's)")
+    return rec
+
+
+def mp_train_argv(directory, tp: bool) -> list:
+    """Phase 21 (c): the training launcher's arguments (the world of 1's,
+    or with ``--tp 2 --distributed`` the world of 4's)."""
+    t = MP_TRAIN
+    argv = ["--arch", t["arch"], "--steps", str(t["steps"]),
+            "--batch", str(t["batch"]), "--seq", str(t["seq"]),
+            "--ckpt-every", str(t["ckpt_every"]), "--seed", str(t["seed"]),
+            "--ckpt-dir", str(directory), "--device", DEVICE]
+    return argv + (["--tp", str(t["tp"]), "--distributed"] if tp else [])
+
+
+def mp_twin_batch(torch, cfg) -> dict:
+    """Phase 21 (c)'s float32 twin: one ``SyntheticLM`` batch on the card
+    (every rank the same)."""
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    return SyntheticLM(SyntheticConfig(
+        vocab_size=cfg.vocab_size, seq_len=MP_TWIN["seq"],
+        global_batch=MP_TWIN["rows"], seed=MP_TWIN["seed"]),
+        device=DEVICE).batch(0)
+
+
+def model_parallel_rank(rank: int, world: int, port: int, out_dir: str,
+                        cards: bool = False) -> None:
+    """Phase 21, one spawned rank: join the gloo world on cuda:0 (with
+    ``cards``, the NCCL world with rank r on cuda:r), run
+    :func:`model_parallel_work` and save its record as ``rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank if cards else 0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("nccl" if cards else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=MP_TIMEOUT_S))
+    try:
+        rec = model_parallel_work(torch, rank, pathlib.Path(out_dir))
+    finally:
+        dist.destroy_process_group()
+    (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def model_parallel_work(torch, rank: int, out) -> dict:
+    """Every rank of phase 21's world of 4 (gloo, all on cuda:0):
+    (b) granite-moe-3b-a800m at full width and depth on a (data 1, model
+    4) mesh, one prefill wave per MoE mode against the world of 1's
+    logits, and a 2-layer float32 twin; (c) smollm-360m trained through
+    ``launch.train --tp 2 --distributed`` on (data 2, model 2), and a
+    2-layer float32 twin's loss and gradients; (d) ring and halo attention
+    at gemma2-2b's shapes over the model group of 4; (e)
+    ``compressed_psum`` over it.  Returns the rank's record."""
+    import contextlib
+    import dataclasses
+    import gc
+    import statistics
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import KERNEL_WRAPPERS
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import make_elastic_mesh
+    from repro_torch.models import Model, moe
+    from repro_torch.models.api import iter_leaves, param_shapes
+    from repro_torch.models.attention import dense_attention
+    from repro_torch.parallel import compression
+    from repro_torch.parallel import context_parallel as cp
+    from repro_torch.parallel.collectives import all_reduce_max
+    from repro_torch.parallel.sharding import gather_params, make_sharder
+    from repro_torch.train.loop import data_parallel_sum, value_and_grad
+
+    dev = torch.device(DEVICE)
+    flash = KERNEL_WRAPPERS[0]
+    refs = torch.load(out / "refs.pt", weights_only=False)
+    tag = f"phase 21 rank {rank}"
+    rec = {"b": {}, "twin_b": {}}
+    mesh4 = make_elastic_mesh(model_parallel=MP_WORLD, device=DEVICE)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) granite at full width and depth, model 4, one wave per mode
+    cfg = get_config(MP_SERVE["arch"])
+    base = Model(cfg, sharder=make_sharder(cfg, mesh4), device=DEVICE)
+    midx = base.sharder.coordinate("model")
+    mgroup = mesh4.get_group("model")
+    params = base.init(torch.Generator(DEVICE).manual_seed(MP_SERVE["seed"]))
+    ref = refs["serve"]
+    toks = ref["tokens"].to(dev)
+    rows, plen = toks.shape
+    want = ref["logits"][:, -1, :cfg.vocab_size].float()
+    exact = ref["float32"][:, -1, :cfg.vocab_size].float()
+    scale = exact.abs().max()
+    err_one = float((want - exact).abs().max() / scale)
+    top2 = exact.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]) / scale
+    real = moe.moe_layer
+
+    def prefill(impl, control=False):
+        """One wave of ``moe_impl`` impl: (logits, ms, flash launches,
+        drop fractions, expert choices a layer, the number of layers whose
+        MoE output differs between the model ranks); with ``control``
+        rank 0's partial is left out of every layer's reduction."""
+        c = dataclasses.replace(cfg, moe_impl=impl)
+        model = Model(c, sharder=make_sharder(c, mesh4), device=DEVICE)
+        drops, choices, bits = [], [], []
+
+        def counted(*args, **kwargs):
+            res = real(*args, **kwargs)
+            drops.append(res[1]["moe_drop_fraction"])
+            bits.append(res[0].contiguous().view(torch.int16)
+                        .sum(dtype=torch.int64))
+            return res
+        cache = model.init_cache(rows, plen + 8)
+        sync()
+        flash.launches = 0
+        moe.moe_layer = counted
+        t0 = time.perf_counter()
+        try:
+            drop = dropped_partial(moe, torch, midx) if control \
+                else contextlib.nullcontext()
+            with recorded_choices(moe, choices), drop:
+                _, logits = model.prefill(params, {"tokens": toks}, cache)
+            sync()
+        finally:
+            moe.moe_layer = real
+        ms = (time.perf_counter() - t0) * 1e3
+        got = logits[:, -1, :cfg.vocab_size].float().cpu()
+        bits = torch.stack(bits)
+        hi = all_reduce_max(bits, (mgroup,))
+        lo = -all_reduce_max(-bits, (mgroup,))
+        return (got, ms, flash.launches, drops, choices,
+                int((hi != lo).sum()))
+
+    for impl in MP_SERVE["modes"]:
+        mode = moe.select_moe_mode(
+            dataclasses.replace(cfg, moe_impl=impl), mesh4,
+            moe._capacity(rows * plen, cfg))
+        got, ms, launches, drops, choices, differ = prefill(impl)
+        rel = float((got - want).abs().max() / scale)
+        err = float((got - exact).abs().max() / scale)
+        same = got.argmax(dim=-1) == want.argmax(dim=-1)
+        decided = margin > 2 * (err + err_one)
+        moved = choice_diffs(choices, ref["choices"])
+        moved32 = choice_diffs(choices, ref["choices_float32"])
+        bound = MP_BF16_ERR_BOUND
+        rec["b"][impl] = {
+            "mode": mode, "ms": ms, "launches": launches, "rel": rel,
+            "err": err, "err_one": err_one, "bound": bound,
+            "layers_differing_between_ranks": differ,
+            "tokens_equal": int(same.sum()),
+            "tokens_decided": int(decided.sum()),
+            "drop": float(torch.stack(drops).mean()),
+            "routing_moved": moved, "routing_moved_float32": moved32}
+        if rank == 0:
+            print(f"{tag} (b) {impl}: " + json.dumps(rec["b"][impl]),
+                  flush=True)
+        require(launches == attention_layers(cfg),
+                f"{tag} (b) {impl}: flash launches {launches} != "
+                f"{attention_layers(cfg)} a prefill")
+        require(differ == 0, f"{tag} (b) {impl}: the MoE output of "
+                f"{differ} layers differs between the model ranks")
+        require(bool(torch.isfinite(got).all()) and err <= bound
+                and bool(same[decided].all()),
+                f"{tag} (b) {impl}: last logits {err:.3e} from the float32 "
+                f"run (bound {bound}; one rank {err_one:.3e}), "
+                "or a greedy token with margin differs")
+    got = prefill(MP_CONTROL_MODE, control=True)[0]
+    control = float((got - exact).abs().max() / scale)
+    rec["b_control"] = control
+    require(control > MP_BF16_ERR_BOUND,
+            f"{tag} (b) control: {MP_CONTROL_MODE} with one rank's partial "
+            f"left out of every layer reads {control:.3e}, not above the "
+            f"bound {MP_BF16_ERR_BOUND}")
+    rec["ref_drop"] = ref["drop"]
+    rec["ref_routing_moved_float32"] = ref["routing_moved_float32"]
+    sharder = base.sharder
+    del params, base
+    free()
+    rec["flash_err"] = mp_flash_check(torch, cfg, sharder, rows, plen)
+    rec["layer"] = mp_layer_check(torch, cfg, sharder, midx)
+    free()
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        c = dataclasses.replace(cfg, num_layers=MP_TWIN["layers"],
+                                dtype=torch.float32)
+        ref = refs["serve_twin"]
+        params = Model(c, sharder=make_sharder(c, mesh4),
+                       device=DEVICE).init(
+            torch.Generator(DEVICE).manual_seed(MP_TWIN["seed"]))
+        for impl in MP_SERVE["modes"]:
+            ci = dataclasses.replace(c, moe_impl=impl)
+            model = Model(ci, sharder=make_sharder(ci, mesh4), device=DEVICE)
+            _, logits = model.prefill(params, {"tokens": ref["tokens"].to(dev)},
+                                      model.init_cache(MP_TWIN["rows"],
+                                                       MP_TWIN["seq"] + 8))
+            v = c.vocab_size
+            rel = _rel(logits[..., :v].cpu(), ref["logits"][..., :v])
+            require(rel <= MP_TWIN_TOL, f"{tag} (b) float32 twin {impl}: "
+                    f"logits rel {rel:.3e} > {MP_TWIN_TOL}")
+            rec["twin_b"][impl] = rel
+        del params, model
+        free()
+
+        # (c) the float32 twin of the training step, data 2 x model 2
+        mesh2 = make_elastic_mesh(model_parallel=MP_TRAIN["tp"],
+                                  device=DEVICE)
+        c = dataclasses.replace(get_config(MP_TRAIN["arch"]),
+                                num_layers=MP_TWIN["layers"],
+                                dtype=torch.float32)
+        model = Model(c, sharder=make_sharder(c, mesh2), device=DEVICE)
+        params = model.init(torch.Generator(DEVICE).manual_seed(
+            MP_TWIN["seed"]))
+        batch = mp_twin_batch(torch, c)
+        (loss, _), grads = value_and_grad(model, params, batch)
+        grads = data_parallel_sum(grads, model, batch["tokens"].shape[0])
+        grads = gather_params(grads, model.sharder, model.specs(),
+                              param_shapes(model.defs(), torch.float32))
+        ref = refs["train_twin"]
+        worst = max(((_rel(g.cpu(), ref["grads"][p]), p)
+                     for p, g in iter_leaves(grads)))
+        loss_rel = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+        require(loss_rel <= MP_TWIN_TOL and worst[0] <= MP_TWIN_TOL,
+                f"{tag} (c) float32 twin: loss rel {loss_rel:.3e}, "
+                f"gradient {worst[1]} rel {worst[0]:.3e} > {MP_TWIN_TOL}")
+        twin_c = {"twin_loss_rel": loss_rel, "twin_grad_rel": worst[0],
+                  "twin_worst_leaf": worst[1]}
+        del model, params, grads
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    free()
+
+    # (c) smollm-360m trains through the launcher, data 2 x model 2
+    loop = train_launcher.main(mp_train_argv(out / "ck4", tp=True))
+    losses = [h["loss"] for h in loop.history]
+    times = [h["time_s"] * 1e3 for h in loop.history]
+    ref_losses = refs["train"]["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    # the control: a step's loss against the world of 1's a step earlier
+    shifted = min(abs(a - b) / abs(b)
+                  for a, b in zip(losses[1:], ref_losses[:-1]))
+    require(len(losses) == len(ref_losses) == MP_TRAIN["steps"]
+            and all(math.isfinite(x) for x in losses)
+            and loss_rel <= MP_LOSS_BOUND < shifted,
+            f"{tag} (c): losses {losses} against the world of 1's "
+            f"{ref_losses} (bound {MP_LOSS_BOUND}; a step apart "
+            f"{shifted:.3e})")
+    rec["c"] = {"losses": losses, "ref_losses": ref_losses,
+                "loss_rel": loss_rel, "loss_shifted": shifted,
+                "step_times_ms": times,
+                "step_ms": statistics.median(times[1:]), **twin_c}
+    del loop
+    free()
+
+    # (d) context parallelism over the model group of 4
+    group = mesh4.get_group("model")
+    idx = dist.get_rank(group)
+    t = MP_CP
+    gen = torch.Generator(DEVICE).manual_seed(t["seed"])
+    q = torch.randn((t["B"], t["H"], t["S"], t["D"]), generator=gen,
+                    device=dev)
+    k = torch.randn((t["B"], t["KV"], t["S"], t["D"]), generator=gen,
+                    device=dev)
+    v = torch.randn((t["B"], t["KV"], t["S"], t["D"]), generator=gen,
+                    device=dev)
+    s_l = t["S"] // MP_WORLD
+    ql = q[:, :, idx * s_l:(idx + 1) * s_l].contiguous()
+    kl = k[:, :, idx * s_l:(idx + 1) * s_l].contiguous()
+    vl = v[:, :, idx * s_l:(idx + 1) * s_l].contiguous()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rec["d"] = {}
+        for name, fn, kwargs in (
+                ("ring", cp.ring_attention, {}),
+                ("halo", cp.halo_window_attention,
+                 {"window": t["window"], "softcap": t["softcap"]})):
+            sync()
+            t0 = time.perf_counter()
+            got = fn(ql, kl, vl, group=group, **kwargs)
+            sync()
+            rec["d"][f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+            want = dense_attention(ql, k, v, scale=t["D"] ** -0.5,
+                                   causal=True,
+                                   window=kwargs.get("window"),
+                                   softcap=kwargs.get("softcap"),
+                                   q_offset=idx * s_l)
+            err = float((got - want).abs().max())
+            require(bool(torch.allclose(got, want, rtol=MP_CP_TOL,
+                                        atol=MP_CP_TOL)),
+                    f"{tag} (d) {name}: max |diff| {err:.3e} > {MP_CP_TOL}")
+            rec["d"][f"{name}_err"] = err
+            del got, want
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del q, k, v, ql, kl, vl
+    free()
+
+    # (e) compressed_psum of a 47M-float gradient over the model group
+    x = torch.randn(MP_COMP_N, generator=torch.Generator(DEVICE).manual_seed(
+        SEED + 140 + rank), device=dev) * 0.01
+    err0 = torch.zeros_like(x)
+    sync()
+    t0 = time.perf_counter()
+    mean, _ = compression.compressed_psum(x, group, err0)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    hi = all_reduce_max(mean, (group,))
+    lo = -all_reduce_max(-mean, (group,))
+    exact = x.clone()
+    dist.all_reduce(exact, group=group)
+    exact /= MP_WORLD
+    bound = float(all_reduce_max(x.abs().max(), (group,))) / 127
+    max_err = float((mean - exact).abs().max())
+    require(torch.equal(hi, mean) and torch.equal(lo, mean)
+            and max_err <= bound,
+            f"{tag} (e): ranks differ or max |out - mean| {max_err:.3e} > "
+            f"int8 bound {bound:.3e}")
+    rec["e"] = {"ms": ms, "max_err": max_err, "bound": bound}
     return rec
 
 

@@ -14,6 +14,7 @@ the multi-pod mesh adds a leading "pod" dimension (2 pods = 512 ranks).
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -85,3 +86,28 @@ def make_host_mesh(num: Optional[int] = None, axis: str = "data", *,
     if count < 1:
         raise ValidationError(f"a mesh needs at least one rank, got num={num}")
     return _mesh(range(count), (count,), (axis,), device)
+
+
+def init_distributed(device: str = "cuda") -> None:
+    """Join the world of the ``torchrun`` environment (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; ``env://``): NCCL
+    on the card (each rank on its ``LOCAL_RANK``'s card), gloo on the CPU.
+    A process group the caller initialised already is kept as it is."""
+    if dist.is_initialized():
+        return
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+
+
+def world_mesh(model_parallel: int, device: str = "cuda"):
+    """The launchers' mesh: :func:`make_elastic_mesh` over every rank when
+    the world holds more than one (as the JAX launchers build one only on
+    more than one device), else None."""
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() == 1:
+        return None
+    return make_elastic_mesh(model_parallel=model_parallel,
+                             device=torch.device(device).type)

@@ -2,8 +2,8 @@
 
 The port of ``make_train_step``, ``make_prefill_step`` and
 ``make_decode_step`` of the JAX package's ``repro/launch/steps.py``.  Its
-``sds_*`` helpers (sharded dry-run specs) have no counterpart: the port
-has no mesh.  ``make_train_step`` is the training loop's own
+``sds_*`` helpers (sharded dry-run specs) have no counterpart yet: they
+belong to the dry run.  ``make_train_step`` is the training loop's own
 (:func:`repro_torch.train.loop.make_train_step`, with a ``microbatches``
 argument): it writes the new parameters and moments into the given
 tensors (the JAX step returns new arrays).

@@ -11,14 +11,16 @@ and the check of parameters carried over from the JAX package
 
 ``dtype`` (compute) and ``param_dtype`` are ``torch`` dtypes.  ``remat``
 recomputes each pattern block in the backward pass
-(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).  The
-sharding overrides are left out (no mesh), and the mesh-bound
-``moe_impl`` modes raise.
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
+``sharding_overrides`` edit the rule table of
+:func:`repro_torch.parallel.sharding.rules_for_config`; :func:`param_specs`
+and :func:`param_shapes` give the logical axes and the global shapes
+(``meta`` tensors) of a ParamDef tree.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +56,9 @@ class ModelConfig:
     num_experts_per_token: int = 0
     moe_capacity_factor: float = 1.25
     moe_group_rows: int = 1          # rows merged per dispatch group
-    moe_impl: str = "auto"           # auto | gspmd (ep | cap | ffn: refused)
+    moe_impl: str = "auto"           # auto | gspmd | ep | cap | ffn
+    # per-arch sharding rule overrides: (("logical_axis", "mesh_axis"|None),…)
+    sharding_overrides: Tuple[Tuple[str, Any], ...] = ()
     # Mamba-2 (SSD)
     ssm_state: int = 0
     mamba_head_dim: int = 64
@@ -156,20 +160,42 @@ def _init_leaf(d: ParamDef, dtype, device, generator) -> torch.Tensor:
 
 
 def init_params(defs, dtype, generator: torch.Generator, *,
-                device="cuda") -> Dict:
+                device="cuda", local=None) -> Dict:
     """Materialize a ParamDef tree on ``device``.
 
     The same distributions as the JAX package (normal with std
     1/sqrt(fan-in), zeros for norm scales), not the same numbers: the
     leaves are drawn one after another, in the tree's order, from
-    ``generator`` (on its own device), then moved to ``device``.
+    ``generator`` (on its own device), then moved to ``device``.  With
+    ``local`` (``Sharder.local``), each leaf is cut to this rank's block
+    as soon as it is drawn, so at most one whole leaf is held: every rank
+    draws the same numbers as a single device does.
     """
     def build(node):
         if isinstance(node, ParamDef):
-            return _init_leaf(node, dtype, device, generator)
+            leaf = _init_leaf(node, dtype, device, generator)
+            return leaf if local is None else local(leaf, node.axes)
         return {key: build(val) for key, val in node.items()}
 
     return build(defs)
+
+
+def _map_defs(fn, node):
+    if isinstance(node, ParamDef):
+        return fn(node)
+    return {key: _map_defs(fn, val) for key, val in node.items()}
+
+
+def param_specs(defs) -> Dict:
+    """Logical-axes tree with the same structure as the params."""
+    return _map_defs(lambda d: d.axes, defs)
+
+
+def param_shapes(defs, dtype) -> Dict:
+    """Tree of ``meta``-device tensors of each leaf's global shape and
+    ``dtype`` (the JAX ``ShapeDtypeStruct`` tree): no memory is taken."""
+    return _map_defs(lambda d: torch.empty(d.shape, dtype=dtype,
+                                           device="meta"), defs)
 
 
 def stack_defs(defs, n: int, axis_name: Optional[str] = "layers") -> Dict:

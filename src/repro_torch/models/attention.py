@@ -14,16 +14,27 @@ call, non-causal, with Sq != Skv.
 Decode reads the whole cache with a position mask, in plain torch, as the
 JAX package does outside any kernel.  The caches are updated in place (the
 JAX package returns new arrays and donates the old ones).
+
+Under a mesh, ``wq`` / ``wk`` / ``wv`` run column-parallel over ``heads``
+/ ``kv_heads`` and ``wo`` row-parallel (its partial outputs all-reduced),
+as the layout of each leaf says (:func:`head_layout`): the flash kernel
+runs on this rank's local heads, and the KV caches hold its local KV
+heads.  Where the divisibility fallback replicates ``kv_heads`` but not
+``heads``, every rank computes every KV head and attends with the ones
+its q heads' groups need.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core.errors import ValidationError
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.models.api import ModelConfig, ParamDef
 from repro_torch.models.common import rope
+from repro_torch.parallel.collectives import copy_to, reduce_from
+from repro_torch.parallel.sharding import Sharder
 
 NEG_INF = -1.0e30
 
@@ -138,24 +149,73 @@ def _output(o: torch.Tensor, wo: torch.Tensor, dt) -> torch.Tensor:
         @ wo.to(dt).reshape(h * hd, -1)
 
 
-def _decode_attention(q, cache: KVCache, pos: int, *, scale, window, softcap,
-                      dt):
-    """One query position against the whole cache, masked to ≤ pos."""
-    smax = cache.k.shape[2]
+def _decode_attention(q, ck, cv, pos: int, *, scale, window, softcap, dt):
+    """One query position against the whole cache (k, v), masked to ≤ pos."""
+    smax = ck.shape[2]
     k_pos = torch.arange(smax, device=q.device)[None, :]
     q_pos = torch.full((1, 1), pos, dtype=torch.int64, device=q.device)
     mask = _token_mask(q_pos, k_pos, causal=True, window=window)
-    q5 = _split_heads(q, cache.k.shape[1]).float()
-    sc = torch.einsum("bkgqd,bksd->bkgqs", q5, cache.k.float()) * scale
+    q5 = _split_heads(q, ck.shape[1]).float()
+    sc = torch.einsum("bkgqd,bksd->bkgqs", q5, ck.float()) * scale
     if softcap:
         sc = softcap * torch.tanh(sc / softcap)
     sc = torch.where(mask, sc, NEG_INF)
     p = torch.softmax(sc, dim=-1)
-    o = torch.einsum("bkgqs,bksd->bkgqd", p, cache.v.float())
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, cv.float())
     return _merge_heads(o).to(dt)
 
 
-def attention_layer(params, x, cfg: ModelConfig, *,
+class HeadLayout(NamedTuple):
+    """How one rank's attention heads sit in the global ones."""
+    q_groups: tuple        # process groups splitting the q heads (or ())
+    kv_groups: tuple       # process groups splitting the KV heads (or ())
+    q_heads: int           # local q heads
+    kv_heads: int          # local KV heads (the projection's and cache's)
+    # where the q heads split and the KV heads do not: the KV heads that
+    # the local q heads attend with, in order (local q head j uses
+    # kv_select[j // group]); None: the local KV heads as they are
+    kv_select: Optional[List[int]]
+
+
+def head_layout(cfg: ModelConfig, sharder: Sharder) -> HeadLayout:
+    """The run-time split of ``heads`` and ``kv_heads`` (each leaf's
+    spec), and the GQA mapping that survives it: rank r's q heads
+    [r·H/P, (r+1)·H/P) pair with KV heads [r·Hkv/P, (r+1)·Hkv/P) when
+    both split; when only ``heads`` splits, each local q head keeps its
+    global group's KV head."""
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    qs, ks = sharder.split("heads", h), sharder.split("kv_heads", kvh)
+    if ks.size > 1 and ks.axes != qs.axes:
+        raise ValidationError(
+            f"{cfg.name}: kv_heads split over {ks.axes}, heads over "
+            f"{qs.axes}: the port needs both over the same mesh axes")
+    hl, kvl = h // qs.size, kvh // ks.size
+    select = None
+    if qs.size > 1 and ks.size == 1:
+        g, off = h // kvh, qs.index * hl
+        if hl % g == 0:                   # whole groups
+            select = [off // g + i for i in range(hl // g)]
+        elif g % hl == 0:                 # inside one group
+            select = [off // g]
+        else:
+            select = [(off + j) // g for j in range(hl)]
+    return HeadLayout(sharder.groups(qs.axes), sharder.groups(ks.axes),
+                      hl, kvl, select)
+
+
+def _select(t: torch.Tensor, lay: HeadLayout) -> torch.Tensor:
+    """The KV heads the local q heads attend with (a replicated K/V used
+    for this rank's block of work: its gradient is all-reduced)."""
+    if lay.kv_select is None:
+        return t
+    t = copy_to(t, lay.q_groups)
+    if lay.kv_select == list(range(t.shape[1])):
+        return t
+    return t[:, lay.kv_select]
+
+
+def attention_layer(params, x, cfg: ModelConfig,
+                    sharder: Optional[Sharder] = None, *,
                     causal: bool = True, window: Optional[int] = None,
                     positions: Optional[torch.Tensor] = None,
                     segments: Optional[torch.Tensor] = None,
@@ -175,16 +235,21 @@ def attention_layer(params, x, cfg: ModelConfig, *,
     A prefill writes the whole prefix into ``cache.k`` / ``cache.v`` and a
     decode step one position, in place; the returned cache holds the same
     tensors and the new length.  ``cfg.attn_impl == "dense"`` takes
-    :func:`dense_attention` at every length.
+    :func:`dense_attention` at every length.  Under a mesh the heads are
+    this rank's (:func:`head_layout`) and the output is all-reduced where
+    ``heads`` splits.
     """
     s = x.shape[1]
     scale = cfg.head_dim ** -0.5
     dt = cfg.dtype
+    lay = head_layout(cfg, sharder or Sharder())
 
-    q = _project(x, params["wq"], dt)                      # (B, S, H, hd)
+    xq = copy_to(x, lay.q_groups)
+    q = _project(xq, params["wq"], dt)                     # (B, S, H, hd)
     if kv_override is None:
-        k = _project(x, params["wk"], dt)
-        v = _project(x, params["wv"], dt)
+        xkv = xq if lay.kv_groups else x
+        k = _project(xkv, params["wk"], dt)
+        v = _project(xkv, params["wv"], dt)
         if positions is not None:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
@@ -203,15 +268,18 @@ def attention_layer(params, x, cfg: ModelConfig, *,
             cache.v[:, :, pos] = v[:, :, 0].to(cache.v.dtype)
             new_cache = KVCache(cache.k, cache.v,
                                 torch.tensor(pos + 1, dtype=torch.int32))
-            o = _decode_attention(q, new_cache, pos, scale=scale,
+            o = _decode_attention(q, _select(cache.k, lay),
+                                  _select(cache.v, lay), pos, scale=scale,
                                   window=window, softcap=cfg.attn_softcap,
                                   dt=dt)
-            return _output(o, params["wo"], dt), new_cache
+            return reduce_from(_output(o, params["wo"], dt),
+                               lay.q_groups), new_cache
         cache.k[:, :, :s] = k.to(cache.k.dtype)
         cache.v[:, :, :s] = v.to(cache.v.dtype)
         new_cache = KVCache(cache.k, cache.v,
                             torch.tensor(s, dtype=torch.int32))
 
+    k, v = _select(k, lay), _select(v, lay)
     if cfg.attn_impl == "dense" or s <= cfg.attn_block_q:
         o = dense_attention(q, k, v, scale=scale, causal=causal,
                             window=window, softcap=cfg.attn_softcap,
@@ -222,13 +290,18 @@ def attention_layer(params, x, cfg: ModelConfig, *,
             softcap=cfg.attn_softcap, block_q=cfg.attn_block_q,
             block_k=cfg.attn_block_k, num_global_blocks=num_global_blocks,
             q_segments=segments, kv_segments=segments)
-    return _output(o, params["wo"], dt), new_cache
+    return reduce_from(_output(o, params["wo"], dt), lay.q_groups), new_cache
 
 
-def make_cross_kv(params, enc_out: torch.Tensor, cfg: ModelConfig):
+def make_cross_kv(params, enc_out: torch.Tensor, cfg: ModelConfig,
+                  sharder: Optional[Sharder] = None):
     """Cross-attention K/V (B, Hkv, S_enc, hd) from the encoder output
-    (B, S_enc, d), through the sub-layer's ``wk`` / ``wv``; no rope."""
+    (B, S_enc, d), through the sub-layer's ``wk`` / ``wv``; no rope.
+    Under a mesh, this rank's KV heads (all where ``kv_heads`` is
+    replicated)."""
     dt = cfg.dtype
+    enc_out = copy_to(enc_out, head_layout(cfg, sharder or Sharder())
+                      .kv_groups)
     k = _project(enc_out, params["wk"], dt).transpose(1, 2).contiguous()
     v = _project(enc_out, params["wv"], dt).transpose(1, 2).contiguous()
     return k, v

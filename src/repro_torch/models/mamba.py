@@ -131,12 +131,16 @@ def _ssd_chunked(xh, dt, a_log, bmat, cmat, h0):
     return y.permute(0, 1, 3, 2, 4).reshape(b, s, hm, p), h
 
 
-def mamba_layer(params, x: torch.Tensor, cfg: ModelConfig, *,
+def mamba_layer(params, x: torch.Tensor, cfg: ModelConfig, sharder=None, *,
                 state: Optional[MambaState] = None
                 ) -> Tuple[torch.Tensor, Optional[MambaState]]:
     """x: (B, S, D).  With ``state``: stateful (prefill s > 1 or decode
     s == 1), returning the new state (h float32 in ``state.h``'s dtype,
-    the conv histories in the compute dtype); else (out, None)."""
+    the conv histories in the compute dtype); else (out, None).
+
+    ``sharder``: the layer's leaves are replicated in the run-time layout
+    (``mamba_heads`` is not split yet), so under a model axis every rank
+    computes the whole layer on its rows, with no collective."""
     dt_ = cfg.dtype
     b, s, d = x.shape
     hm, p, n = cfg.mamba_heads, cfg.mamba_head_dim, cfg.ssm_state

@@ -14,13 +14,22 @@ them followed by cross-attention (``cross_attn``); MLPs: ``dense``,
 (``encoder_pattern``) over ``frame_embeds`` and its decoder
 cross-attends to the encoder output; a ``vision`` frontend prepends
 projected ``prefix_embeds`` to the token embeddings, an ``audio`` one
-projects the frames.  The ``moe_impl`` modes that need a mesh raise
-:class:`ValidationError`.
+projects the frames.
+
+``Model(cfg, sharder=...)`` over a ``("data", "model")`` mesh (the
+:class:`~repro_torch.parallel.sharding.Sharder` of
+:func:`~repro_torch.parallel.sharding.make_sharder`) computes what the
+model computes on one device: every rank passes the same global batch
+and keeps its rows (the ``batch`` axis's layout: data parallelism); each
+layer holds its blocks of the parameters (:meth:`Model.init` cuts them
+leaf by leaf) and runs tensor parallel over heads, KV heads, FFN, vocab
+and experts where the layout splits them, with the all-reduces written
+out.  ``sharder=None`` keeps every single-device path as it was.
 """
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -31,12 +40,14 @@ from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.api import (LayerSpec, ModelConfig, ParamDef,
-                                    init_params, iter_leaves, stack_defs)
+                                    init_params, iter_leaves, param_specs,
+                                    stack_defs)
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (cross_entropy, embed_defs,
                                        embed_tokens, rmsnorm, rmsnorm_defs,
-                                       unembed)
+                                       unembed, vocab_shard)
 from repro_torch.models.mamba import MambaState
+from repro_torch.parallel.sharding import Sharder
 
 MIXERS = ("attn", "attn_local", "attn_bidir", "mamba")
 MLPS = ("dense", "moe", "none")
@@ -105,13 +116,14 @@ def model_defs(cfg: ModelConfig):
     return defs
 
 
-def _apply_block(cfg: ModelConfig, pattern: Tuple[LayerSpec, ...],
-                 params_block, x, positions, segments, caches=None,
-                 enc_out=None):
+def _apply_block(cfg: ModelConfig, sharder: Sharder,
+                 pattern: Tuple[LayerSpec, ...], params_block, x, positions,
+                 segments, caches=None, enc_out=None, rows=None):
     """One pattern block; returns (x, new caches of the block, aux (2,)
     float32: the block's summed MoE [aux loss, z-loss]).  A layer with
     ``cross_attn`` attends, after its mixer, to ``enc_out`` (B, S_enc, d),
-    non-causal; its K/V are projected from ``enc_out`` at every call."""
+    non-causal; its K/V are projected from ``enc_out`` at every call.
+    ``rows``: the global batch's row count (x holds this rank's rows)."""
     aux = torch.zeros(2, dtype=torch.float32, device=x.device)
     new_caches: Dict[str, Any] = {}
     for i, spec in enumerate(pattern):
@@ -119,11 +131,12 @@ def _apply_block(cfg: ModelConfig, pattern: Tuple[LayerSpec, ...],
         h = rmsnorm(sub["norm_mixer"], x, cfg.norm_eps)
         cache_i = None if caches is None else caches[f"layer{i}"]
         if spec.mixer == "mamba":
-            o, nc = mamba_lib.mamba_layer(sub["mixer"], h, cfg,
+            o, nc = mamba_lib.mamba_layer(sub["mixer"], h, cfg, sharder,
                                           state=cache_i)
         else:
             o, nc = attn_lib.attention_layer(
-                sub["mixer"], h, cfg, causal=spec.mixer != "attn_bidir",
+                sub["mixer"], h, cfg, sharder,
+                causal=spec.mixer != "attn_bidir",
                 window=cfg.window if spec.mixer == "attn_local" else None,
                 positions=positions, segments=segments, cache=cache_i)
         if nc is not None:
@@ -134,16 +147,17 @@ def _apply_block(cfg: ModelConfig, pattern: Tuple[LayerSpec, ...],
                 raise ValidationError(f"{cfg.name}: cross-attention needs "
                                       "the encoder output (enc_out)")
             h = rmsnorm(sub["norm_cross"], x, cfg.norm_eps)
-            kv = attn_lib.make_cross_kv(sub["cross"], enc_out, cfg)
-            o, _ = attn_lib.attention_layer(sub["cross"], h, cfg,
+            kv = attn_lib.make_cross_kv(sub["cross"], enc_out, cfg, sharder)
+            o, _ = attn_lib.attention_layer(sub["cross"], h, cfg, sharder,
                                             causal=False, kv_override=kv)
             x = x + o
         if spec.mlp == "dense":
             h = rmsnorm(sub["norm_mlp"], x, cfg.norm_eps)
-            x = x + mlp_lib.mlp(sub["mlp"], h, cfg)
+            x = x + mlp_lib.mlp(sub["mlp"], h, cfg, sharder)
         elif spec.mlp == "moe":
             h = rmsnorm(sub["norm_mlp"], x, cfg.norm_eps)
-            o, moe_aux = moe_lib.moe_layer(sub["mlp"], h, cfg)
+            o, moe_aux = moe_lib.moe_layer(sub["mlp"], h, cfg, sharder,
+                                           batch=rows)
             aux = aux + torch.stack([moe_aux["moe_aux_loss"],
                                      moe_aux["moe_z_loss"]])
             x = x + o
@@ -163,9 +177,9 @@ def _needs_grad(x: torch.Tensor, stacked_params) -> bool:
         leaf.requires_grad for _, leaf in iter_leaves(stacked_params)))
 
 
-def _run_stack(cfg: ModelConfig, pattern: Tuple[LayerSpec, ...],
-               stacked_params, x, positions, segments, stacked_caches=None,
-               enc_out=None):
+def _run_stack(cfg: ModelConfig, sharder: Sharder,
+               pattern: Tuple[LayerSpec, ...], stacked_params, x, positions,
+               segments, stacked_caches=None, enc_out=None, rows=None):
     """Run every block of ``pattern`` (the decoder's or the encoder's) in
     order; returns (x, the stacked caches, aux (2,) summed over the
     blocks).  Attention writes K/V into its block's cache views itself,
@@ -174,7 +188,8 @@ def _run_stack(cfg: ModelConfig, pattern: Tuple[LayerSpec, ...],
     stacked float32 state.  With ``cfg.remat``, when autograd records the
     stack (training: no caches), each block runs under
     ``torch.utils.checkpoint`` and is recomputed in the backward pass, as
-    ``jax.checkpoint`` does in the JAX package."""
+    ``jax.checkpoint`` does in the JAX package; the recomputation issues
+    the block's collectives again, in the same order on every rank."""
     aux = torch.zeros(2, dtype=torch.float32, device=x.device)
     num_blocks = next(iter_leaves(stacked_params))[1].shape[0]
     block_fn = _apply_block
@@ -185,8 +200,9 @@ def _run_stack(cfg: ModelConfig, pattern: Tuple[LayerSpec, ...],
     for bi in range(num_blocks):
         caches = None if stacked_caches is None \
             else _index(stacked_caches, bi)
-        x, new, a = block_fn(cfg, pattern, _index(stacked_params, bi), x,
-                             positions, segments, caches, enc_out)
+        x, new, a = block_fn(cfg, sharder, pattern,
+                             _index(stacked_params, bi), x, positions,
+                             segments, caches, enc_out, rows)
         aux = aux + a
         for name, nc in new.items():
             if isinstance(nc, KVCache):
@@ -198,24 +214,50 @@ def _run_stack(cfg: ModelConfig, pattern: Tuple[LayerSpec, ...],
 
 
 class Model:
-    """A thin class over a parameter dict: static config and device only.
+    """A thin class over a parameter dict: static config, sharder and
+    device only.
 
     ``params`` is the nested dict of :meth:`init` (or of
-    :func:`repro_torch.convert.model_params_from_arrays`), with the JAX
-    package's structure and names.
+    :func:`repro_torch.convert.model_params_from_arrays` followed by
+    :func:`repro_torch.parallel.sharding.shard_params`), with the JAX
+    package's structure and names; under a mesh each leaf is this rank's
+    block.  Every entry point takes the global batch (every rank the
+    same) and keeps this rank's rows: :meth:`forward` returns this rank's
+    block of the logits (its rows, its vocab block), :meth:`loss` the
+    global mean on every rank, :meth:`prefill` and :meth:`decode_step`
+    the whole last-position logits on every rank; caches hold this rank's
+    rows and KV heads.
     """
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, *, sharder: Optional[Sharder] = None,
+                 device="cuda"):
         check_supported(cfg)
+        if any(spec.mlp == "moe" for spec in cfg.pattern):
+            moe_lib.check_moe_mode(cfg, None if sharder is None
+                                   else sharder.mesh)
         self.cfg = cfg
+        self.sharder = sharder if sharder is not None else Sharder()
         self.device = torch.device(device)
 
     def defs(self):
         return model_defs(self.cfg)
 
+    def specs(self):
+        return param_specs(self.defs())
+
     def init(self, generator: torch.Generator):
+        """Parameters drawn from ``generator`` as on one device, each leaf
+        cut to this rank's block as soon as it is drawn."""
+        local = self.sharder.local if self.sharder.mesh is not None else None
         return init_params(self.defs(), self.cfg.param_dtype, generator,
-                           device=self.device)
+                           device=self.device, local=local)
+
+    def _rows(self, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """This rank's rows of a global batch input (``t`` itself when the
+        batch is not split)."""
+        if t is None or self.sharder.mesh is None:
+            return t
+        return self.sharder.local(t, ("batch",) + (None,) * (t.dim() - 1))
 
     def _scaled(self, x: torch.Tensor) -> torch.Tensor:
         return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.cfg.dtype,
@@ -230,11 +272,13 @@ class Model:
     def _embed_inputs(self, params, batch) -> torch.Tensor:
         """(B, S, d) inputs of the decoder stack, scaled by √d_model: the
         token embeddings, after the projected ``prefix_embeds`` (B, P, d)
-        for a ``vision`` frontend (S = P + tokens)."""
+        for a ``vision`` frontend (S = P + tokens).  This rank's rows."""
         cfg = self.cfg
-        x = embed_tokens(params["embed"], batch["tokens"], cfg)
+        x = embed_tokens(params["embed"], self._rows(batch["tokens"]), cfg,
+                         self.sharder)
         if cfg.frontend == "vision":
-            pe = self._batch_input(batch, "prefix_embeds").to(cfg.dtype)
+            pe = self._rows(self._batch_input(batch, "prefix_embeds")) \
+                .to(cfg.dtype)
             x = torch.cat([pe @ params["frontend_proj"].to(cfg.dtype), x],
                           dim=1)
         return self._scaled(x)
@@ -248,13 +292,16 @@ class Model:
         ``batch["frame_embeds"]`` (B, S_enc, d), projected by
         ``frontend_proj`` for an ``audio`` frontend (not scaled), through
         the encoder stack at rope positions 0..S_enc-1 and
-        ``enc_final_norm``."""
+        ``enc_final_norm``.  This rank's rows (what :meth:`decode_step`
+        takes as ``enc_out``)."""
         cfg = self.cfg
-        x = self._batch_input(batch, "frame_embeds").to(cfg.dtype)
+        frames = self._batch_input(batch, "frame_embeds")
+        x = self._rows(frames).to(cfg.dtype)
         if cfg.frontend == "audio":
             x = x @ params["frontend_proj"].to(cfg.dtype)
-        x, _, _ = _run_stack(cfg, cfg.encoder_pattern, params["enc_blocks"],
-                             x, self._positions(x), None)
+        x, _, _ = _run_stack(cfg, self.sharder, cfg.encoder_pattern,
+                             params["enc_blocks"], x, self._positions(x),
+                             None, rows=frames.shape[0])
         return rmsnorm(params["enc_final_norm"], x, cfg.norm_eps)
 
     def _encoder_output(self, params, batch):
@@ -266,18 +313,21 @@ class Model:
         [aux loss, z-loss] summed over the decoder's layers, zeros without
         MoE) of a batch: ``tokens`` (B, S_text); ``prefix_embeds`` for a
         vision frontend (S = P + S_text), ``frame_embeds`` for an
-        encoder-decoder model; optional ``positions``, ``segments``."""
+        encoder-decoder model; optional ``positions``, ``segments``.
+        Under a mesh the logits are this rank's rows and vocab block."""
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
-        positions = batch.get("positions")
+        positions = self._rows(batch.get("positions"))
         if positions is None:
             positions = self._positions(x)
         enc_out = self._encoder_output(params, batch)
-        x, _, aux = _run_stack(cfg, cfg.pattern, params["blocks"], x,
-                               positions, batch.get("segments"),
-                               enc_out=enc_out)
+        x, _, aux = _run_stack(cfg, self.sharder, cfg.pattern,
+                               params["blocks"], x, positions,
+                               self._rows(batch.get("segments")),
+                               enc_out=enc_out,
+                               rows=batch["tokens"].shape[0])
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return unembed(params["embed"], x, cfg), aux
+        return unembed(params["embed"], x, cfg, self.sharder), aux
 
     def forward(self, params, batch) -> torch.Tensor:
         """The logits of :meth:`forward_with_aux`."""
@@ -287,24 +337,36 @@ class Model:
         """(total, {"ce", "moe_aux", "moe_z"}) of a batch with ``labels``
         (B, S), -1 where no loss is taken: the mean next-token cross
         entropy plus 0.01 x the MoE aux loss and 0.001 x its z-loss (0-d
-        float32 tensors), as the JAX ``Model.loss``."""
+        float32 tensors), as the JAX ``Model.loss``.  Under a mesh the
+        mean is over every rank's tokens (vocab-parallel over the vocab's
+        group, the NLL sum and the token count all-reduced over the
+        batch's), the same on every rank."""
         logits, aux = self.forward_with_aux(params, batch)
-        ce = cross_entropy(logits, self._batch_input(batch, "labels"))
+        groups, lo, _ = vocab_shard(self.cfg, self.sharder)
+        labels = self._batch_input(batch, "labels")
+        ce = cross_entropy(
+            logits, self._rows(labels), vocab_groups=groups, vocab_offset=lo,
+            batch_groups=self.sharder.groups(
+                self.sharder.split("batch", labels.shape[0]).axes))
         total = ce + 0.01 * aux[0] + 0.001 * aux[1]
         return total, {"ce": ce, "moe_aux": aux[0], "moe_z": aux[1]}
 
     def init_cache(self, batch: int, max_len: int):
-        """Stacked per-block caches on the model's device: KV caches in the
-        compute dtype for attention layers, a float32 ``MambaState`` for
-        Mamba layers."""
+        """Stacked per-block caches on the model's device for a global
+        batch of ``batch`` rows: KV caches in the compute dtype for
+        attention layers, a float32 ``MambaState`` for Mamba layers; under
+        a mesh, this rank's rows and KV heads (:meth:`cache_spec_axes`)."""
         cfg = self.cfg
         nb = cfg.num_blocks
-        shape = (nb, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+        rows = batch // self.sharder.split("batch", batch).size
+        kv = cfg.num_kv_heads \
+            // self.sharder.split("kv_heads", cfg.num_kv_heads).size
+        shape = (nb, rows, kv, max_len, cfg.head_dim)
 
         def one(spec: LayerSpec):
             if spec.mixer == "mamba":
                 return mamba_lib.init_mamba_state(
-                    cfg, batch, torch.float32, device=self.device, layers=nb)
+                    cfg, rows, torch.float32, device=self.device, layers=nb)
             return KVCache(
                 torch.zeros(shape, dtype=cfg.dtype, device=self.device),
                 torch.zeros(shape, dtype=cfg.dtype, device=self.device),
@@ -312,19 +374,45 @@ class Model:
 
         return {f"layer{i}": one(s) for i, s in enumerate(cfg.pattern)}
 
+    def cache_spec_axes(self) -> Any:
+        """Logical axes for every cache leaf (mirrors :meth:`init_cache`)."""
+        def one(spec: LayerSpec):
+            if spec.mixer.startswith("attn"):
+                kv_axes = ("layers", "batch", "kv_heads", None, None)
+                return KVCache(kv_axes, kv_axes, ("layers",))
+            return MambaState(
+                h=("layers", "batch", "mamba_heads", None, None),
+                conv_x=("layers", "batch", None, "mamba_heads", None),
+                conv_B=("layers", "batch", None, None),
+                conv_C=("layers", "batch", None, None),
+            )
+        return {f"layer{i}": one(s) for i, s in enumerate(self.cfg.pattern)}
+
+    def _whole_logits(self, logits: torch.Tensor, rows: int) -> torch.Tensor:
+        """(B, 1, padded_vocab) on every rank from this rank's block."""
+        if self.sharder.mesh is None:
+            return logits
+        return self.sharder.gather(logits, ("batch", None, "vocab"),
+                                   (rows, logits.shape[1],
+                                    self.cfg.padded_vocab))
+
     @torch.no_grad()
     def prefill(self, params, batch, cache):
         """Fill the caches from a prefix (in place: the vision prefix and
         the tokens; an encoder-decoder model encodes ``frame_embeds``
         inside, and its decode steps take :meth:`_encode`'s output);
-        returns (cache, last-position logits (B, 1, padded_vocab))."""
+        returns (cache, last-position logits (B, 1, padded_vocab), whole
+        on every rank)."""
         cfg = self.cfg
+        rows = batch["tokens"].shape[0]
         x = self._embed_inputs(params, batch)
-        x, cache, _ = _run_stack(cfg, cfg.pattern, params["blocks"], x,
-                                 self._positions(x), None, cache,
-                                 self._encoder_output(params, batch))
+        x, cache, _ = _run_stack(cfg, self.sharder, cfg.pattern,
+                                 params["blocks"], x, self._positions(x),
+                                 None, cache,
+                                 self._encoder_output(params, batch), rows)
         x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-        return cache, unembed(params["embed"], x, cfg)
+        return cache, self._whole_logits(
+            unembed(params["embed"], x, cfg, self.sharder), rows)
 
     @torch.no_grad()
     def decode_step(self, params, token: torch.Tensor, cache, pos: int,
@@ -332,15 +420,21 @@ class Model:
         """One decode step (cache updated in place).  token: (B, 1) int;
         pos: its position; ``enc_out``: :meth:`_encode`'s output, which an
         encoder-decoder model needs (its cross K/V are projected from it
-        at every step).  Returns (cache, logits (B, 1, padded_vocab))."""
+        at every step).  Returns (cache, logits (B, 1, padded_vocab),
+        whole on every rank)."""
         cfg = self.cfg
         if cfg.is_encoder_decoder and enc_out is None:
             raise ValidationError(f"{cfg.name}: an encoder-decoder decode "
                                   "step needs enc_out")
-        x = self._scaled(embed_tokens(params["embed"], token, cfg))
+        rows = token.shape[0]
+        token = self._rows(token)
+        x = self._scaled(embed_tokens(params["embed"], token, cfg,
+                                      self.sharder))
         positions = torch.full(token.shape, int(pos), dtype=torch.int64,
                                device=token.device)
-        x, cache, _ = _run_stack(cfg, cfg.pattern, params["blocks"], x,
-                                 positions, None, cache, enc_out)
+        x, cache, _ = _run_stack(cfg, self.sharder, cfg.pattern,
+                                 params["blocks"], x, positions, None, cache,
+                                 enc_out, rows)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return cache, unembed(params["embed"], x, cfg)
+        return cache, self._whole_logits(
+            unembed(params["embed"], x, cfg, self.sharder), rows)

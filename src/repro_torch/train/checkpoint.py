@@ -144,11 +144,12 @@ def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def restore_checkpoint(path: str | Path, template):
+def restore_checkpoint(path: str | Path, template, *, device=None):
     """(state, meta): the checkpoint at ``path`` in the structure of
     ``template``, each leaf a tensor of the template leaf's dtype on its
-    device.  Raises :class:`ValidationError` if a leaf is missing or its
-    shape differs from the template's."""
+    device (on ``device`` if given: a template of ``meta`` tensors then
+    takes no memory).  Raises :class:`ValidationError` if a leaf is
+    missing or its shape differs from the template's."""
     path = Path(path)
     meta = json.loads((path / "meta.json").read_text())
     with np.load(path / "arrays.npz") as z:
@@ -164,7 +165,8 @@ def restore_checkpoint(path: str | Path, template):
         if tuple(arr.shape) != tuple(t.shape):
             raise ValidationError(f"{p}: shape {tuple(arr.shape)} != "
                                   f"template {tuple(t.shape)}")
-        leaves[p] = _from_host(arr, dt).to(device=t.device, dtype=t.dtype)
+        leaves[p] = _from_host(arr, dt).to(
+            device=t.device if device is None else device, dtype=t.dtype)
     return _unflatten(template, leaves), meta
 
 

@@ -18,6 +18,15 @@ The port of the JAX package's ``repro/train/loop.py``:
 
 The step runs eagerly (no ``torch.compile``): the loss and its gradient
 by autograd, then AdamW's update written into the parameters in place.
+
+Under a mesh (a model with a sharder) every rank draws the same global
+batch and the model keeps its rows; each rank's loss is the global
+mean, so its gradient holds its own rows' share: after the microbatch
+accumulation the gradients are summed over the batch's data group (every
+leaf is replicated over the batch axes at run time), the global norm
+all-reduces the squares of split leaves (:func:`~repro_torch.train.
+optimizer.global_norm`), and checkpoints hold the gathered arrays, in the
+JAX layout, written by rank 0; a restore cuts each rank's blocks.
 """
 from __future__ import annotations
 
@@ -27,11 +36,15 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.models.api import param_shapes
 from repro_torch.models.transformer import Model
+from repro_torch.parallel.collectives import all_reduce_sum
+from repro_torch.parallel.sharding import gather_params, shard_params
 from repro_torch.train import checkpoint as ckpt_lib
-from repro_torch.train.optimizer import (AdamW, apply_updates, tree_leaves,
-                                         tree_map)
+from repro_torch.train.optimizer import (AdamState, AdamW, apply_updates,
+                                         global_norm, tree_leaves, tree_map)
 
 
 @dataclasses.dataclass
@@ -109,17 +122,33 @@ def make_grad_accum_loss(model: Model, microbatches: int):
     return loss_and_grad
 
 
+def data_parallel_sum(grads, model: Model, rows: int):
+    """``grads`` summed over the data group that splits a (micro)batch of
+    ``rows`` rows (``grads`` itself where the batch is not split)."""
+    groups = model.sharder.groups(model.sharder.split("batch", rows).axes)
+    if not groups:
+        return grads
+    return tree_map(lambda g: all_reduce_sum(g, groups), grads)
+
+
 def make_train_step(model: Model, opt: AdamW, microbatches: int = 1):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss and gradients over ``microbatches`` slices of the
-    batch (:func:`make_grad_accum_loss`), then one AdamW update written
-    into ``params`` and the moments in place; metrics ``loss``, ``ce``,
-    ``moe_aux``, ``moe_z``, ``grad_norm`` and ``lr`` (0-d tensors)."""
+    batch (:func:`make_grad_accum_loss`; under a mesh summed over the data
+    group), then one AdamW update written into ``params`` and the moments
+    in place; metrics ``loss``, ``ce``, ``moe_aux``, ``moe_z``,
+    ``grad_norm`` and ``lr`` (0-d tensors)."""
     loss_and_grad = make_grad_accum_loss(model, microbatches)
+    defs = model.defs()
 
     def train_step(params, opt_state, batch):
         (loss, aux), grads = loss_and_grad(params, batch)
-        updates, opt_state, om = opt.update(grads, opt_state, params)
+        if model.sharder.mesh is not None:
+            grads = data_parallel_sum(
+                grads, model, batch["tokens"].shape[0] // microbatches)
+        updates, opt_state, om = opt.update(
+            grads, opt_state, params,
+            global_norm(grads, model.sharder, defs))
         del grads
         params = apply_updates(params, updates)
         return params, opt_state, {"loss": loss, **aux, **om}
@@ -151,6 +180,8 @@ class TrainLoop:
             async_save=cfg.async_checkpoint)
         self.history: List[Dict] = []
         self.train_step = make_train_step(model, opt, cfg.microbatches)
+        self.sharded = model.sharder.mesh is not None
+        self.writer = not self.sharded or dist.get_rank() == 0
 
     # -- state ---------------------------------------------------------------
     def init_state(self, seed: int) -> TrainState:
@@ -160,20 +191,61 @@ class TrainLoop:
         params = self.model.init(gen)
         return TrainState(params, self.opt.init(params), 0)
 
+    def _global(self, tree, dtype):
+        """The gathered arrays of a tree laid out like the parameters
+        (collective under a mesh)."""
+        if not self.sharded:
+            return tree
+        defs = self.model.defs()
+        return gather_params(tree, self.model.sharder, self.model.specs(),
+                             param_shapes(defs, dtype))
+
     def _save(self, state: TrainState):
-        self.manager.save(state.step,
-                          {"params": state.params,
-                           "opt_state": state.opt_state},
-                          metadata={"step": state.step})
+        """Checkpoint the gathered state (rank 0 writes it)."""
+        opt = state.opt_state
+        tree = {"params": self._global(state.params,
+                                       self.model.cfg.param_dtype),
+                "opt_state": AdamState(opt.step,
+                                       self._global(opt.m,
+                                                    self.opt.moment_dtype),
+                                       self._global(opt.v,
+                                                    self.opt.moment_dtype))}
+        if self.writer:
+            self.manager.save(state.step, tree, metadata={"step": state.step})
 
     def _restore(self, template: TrainState) -> Optional[TrainState]:
-        latest = self.manager.latest()
+        if not self.sharded:
+            latest = self.manager.latest()
+            if latest is None:
+                return None
+            restored, meta = ckpt_lib.restore_checkpoint(
+                latest, {"params": template.params,
+                         "opt_state": template.opt_state})
+            return TrainState(restored["params"], restored["opt_state"],
+                              int(meta["step"]))
+        # every rank reads the gathered arrays once rank 0's writes are
+        # done, and keeps its blocks
+        self.manager.wait()
+        dist.barrier()
+        latest = ckpt_lib.latest_checkpoint(self.cfg.checkpoint_dir)
         if latest is None:
             return None
+        defs = self.model.defs()
+        opt = template.opt_state
+        moments = param_shapes(defs, self.opt.moment_dtype)
         restored, meta = ckpt_lib.restore_checkpoint(
-            latest, {"params": template.params,
-                     "opt_state": template.opt_state})
-        return TrainState(restored["params"], restored["opt_state"],
+            latest, {"params": param_shapes(defs, self.model.cfg.param_dtype),
+                     "opt_state": AdamState(opt.step, moments, moments)},
+            device="cpu")
+        dev, specs, sharder = self.model.device, self.model.specs(), \
+            self.model.sharder
+
+        def local(tree):
+            return tree_map(lambda t: t.to(dev),
+                            shard_params(tree, sharder, specs))
+        ro = restored["opt_state"]
+        return TrainState(local(restored["params"]),
+                          AdamState(ro.step, local(ro.m), local(ro.v)),
                           int(meta["step"]))
 
     # -- main loop -----------------------------------------------------------

@@ -14,6 +14,11 @@ difference from the JAX package, whose arrays are immutable:
 the updates to the parameters in place, without autograd.  The step
 counter and the schedules' scalars are float32 / int32 tensors on the
 host, so no update waits for the card.
+
+Under tensor parallelism each rank's trees hold its blocks:
+:func:`global_norm` given the sharder and the ParamDef tree all-reduces
+the squares of split leaves over their groups and counts replicated
+leaves once, and :meth:`AdamW.update` takes its value as ``gnorm``.
 """
 from __future__ import annotations
 
@@ -62,13 +67,16 @@ class AdamW:
                          tree_map(zeros, params), tree_map(zeros, params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamState, params
+    def update(self, grads, state: AdamState, params,
+               gnorm: Optional[torch.Tensor] = None
                ) -> Tuple[Any, AdamState, Dict[str, torch.Tensor]]:
         """(updates, state, {"grad_norm", "lr"}): the updates to add to
         ``params`` (float32 trees computed in the JAX package's order);
-        the moments of ``state`` are overwritten in place."""
+        the moments of ``state`` are overwritten in place.  ``gnorm``: the
+        global gradient norm (default ``global_norm(grads)``)."""
         step = state.step + 1
-        gnorm = global_norm(grads)
+        if gnorm is None:
+            gnorm = global_norm(grads)
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / (gnorm + 1.0e-9), max=1.0)
             grads = tree_map(lambda g: g * scale, grads)
@@ -107,10 +115,31 @@ def apply_updates(params, updates):
     return params
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32 (0-d tensor)."""
-    return torch.sqrt(sum(leaf.float().square().sum()
-                          for leaf in tree_leaves(tree)))
+def global_norm(tree, sharder=None, defs=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32 (0-d tensor).
+
+    With a ``sharder`` over a mesh, ``tree`` holds this rank's blocks of
+    the leaves of the ParamDef tree ``defs``: the squares of the leaves
+    split over a set of mesh axes are summed, all-reduced once over those
+    axes' groups, and the replicated leaves are counted once."""
+    if sharder is None or sharder.mesh is None:
+        return torch.sqrt(sum(leaf.float().square().sum()
+                              for leaf in tree_leaves(tree)))
+    from repro_torch.parallel.collectives import all_reduce_sum
+    by_axes: Dict[tuple, torch.Tensor] = {}
+    for leaf, d in zip(tree_leaves(tree), _def_leaves(defs)):
+        axes = tuple(a for s in sharder.layout(d.axes, d.shape)
+                     for a in s.axes)
+        sq = leaf.float().square().sum()
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+    return torch.sqrt(sum(all_reduce_sum(sq, sharder.groups(axes))
+                          for axes, sq in sorted(by_axes.items())))
+
+
+def _def_leaves(defs):
+    if isinstance(defs, dict):
+        return [leaf for val in defs.values() for leaf in _def_leaves(val)]
+    return [defs]
 
 
 def cosine_schedule(peak_lr: float, warmup_steps: int, total_steps: int,

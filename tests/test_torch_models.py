@@ -249,18 +249,14 @@ def test_init_params_distributions():
 
 
 def test_unported_paths_raise():
-    """What the port still refuses: unknown mixers and MLPs, the mesh-bound
-    MoE modes, token-only serving of a model with a frontend or an encoder
+    """What the port still refuses: unknown mixers and MLPs, token-only
+    serving of a model with a frontend or an encoder
     (engine and launcher, before any weight is made), and a
     cross-attention layer run without an encoder output.  All ten archs
     are registered."""
     cfg = reduce_config(get_config("smollm-360m"))
-    moe_cfg = reduce_config(get_config("granite-moe-3b-a800m"))
     for bad in (dataclasses.replace(cfg, pattern=(LayerSpec("rnn", "dense"),)),
-                dataclasses.replace(cfg, pattern=(LayerSpec("attn", "glu"),)),
-                dataclasses.replace(moe_cfg, moe_impl="ep"),
-                dataclasses.replace(moe_cfg, moe_impl="cap"),
-                dataclasses.replace(moe_cfg, moe_impl="ffn")):
+                dataclasses.replace(cfg, pattern=(LayerSpec("attn", "glu"),))):
         with pytest.raises(ValidationError):
             Model(bad, device="cpu")
     for arch in ("phi-3-vision-4.2b", "seamless-m4t-medium"):

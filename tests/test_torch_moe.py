@@ -142,10 +142,17 @@ def test_moe_ties_take_the_lower_expert_first_as_jax():
 
 @pytest.mark.parametrize("mode", ["ep", "cap", "ffn", "bogus"])
 def test_mesh_modes_raise(mode):
+    """Without a mesh: an explicit mesh mode is what ``select_moe_mode``
+    returns (the JAX rule), and a Model without a sharder refuses it; an
+    unknown mode raises from both.  ``auto`` and ``gspmd`` take the
+    einsum path."""
     cfg = dataclasses.replace(reduce_config(get_config(GRANITE)),
                               moe_impl=mode)
-    with pytest.raises(ValidationError):
-        moe.select_moe_mode(cfg)
+    if mode == "bogus":
+        with pytest.raises(ValidationError):
+            moe.select_moe_mode(cfg)
+    else:
+        assert moe.select_moe_mode(cfg, None, 8) == mode
     with pytest.raises(ValidationError):
         Model(cfg, device="cpu")
     for ok in ("auto", "gspmd"):
