@@ -311,6 +311,33 @@ Phases (any failure exits non-zero and prints no result line):
     47,185,920-float gradient (smollm-360m's embedding) over the 4 ranks:
     the same on every rank bit for bit, within the int8 bound of the exact
     mean.  Times: (b)'s prefill per mode, (c)'s steps, (d), (e).
+22. The fuzz, metamorphic and shrink harness (``repro_torch.testing``),
+    the dry run and the example twins.  (a) ``fuzz.run_fuzz`` on ``cuda``
+    over 44 seeds at the full size ladder (every corpus four times: the
+    registry's engines against the host oracle, the metamorphic
+    relations, churn scripts through every delta implementation, the
+    duplicate-rid probes, the batch split), then each of the 11 corpora
+    at n = m of 1 to 4,000 (``FUZZ_SCALED``) through every registered
+    engine: zero failures; the wrappers' launch counts, zeroed just
+    before, printed, and ``delta_bitmasks``, ``emit_pairs`` and
+    ``bitmatch`` must have launched.  (b) ``fuzz.self_check`` on
+    ``cuda`` catches the injected tie bug and shrinks it to at most 6
+    regions; the shrunk workload's pytest snippet, run on the card,
+    passes for every registered engine of its dimension and fails for
+    the broken engine.  (c) Every metamorphic relation for every engine
+    at d = 1, 2, 3 and the batch split for every churn implementation at
+    d = 1, 2, on ``cuda``.  (d) While (a)-(c) run: the dry run
+    (``python -m repro_torch.launch.dryrun``, one process a cell, no card
+    visible) traces smollm-360m ``train_4k`` on 16 x 16 and grok-1-314b
+    ``decode_32k`` on 2 x 16 x 16; each cell's JSON must be written with
+    counted flops; its trace seconds and each rank's argument and peak
+    bytes are printed; the one-card argument bytes of phase 19's training
+    configuration (``dryrun.argument_bytes``) must lie below phase 19's
+    measured peak memory.  (e) Also meanwhile, in their own processes on
+    the card: ``examples/ddm_service_torch.py --n 20000`` (every count
+    against the sequential sweep), ``examples/quickstart_torch.py
+    --preset tiny --steps 30`` (the loss falls) and
+    ``examples/interest_serving_torch.py`` (every request served).
 
 The build prints every kernel's registers, shared memory and spills from
 nvcc's ``-Xptxas -v`` report, and SASS opcode counts (the float32 flash
@@ -327,11 +354,12 @@ port under SRC (another checkout's ``src/``, default this one's), so
 that two commits' float32 kernels are timed in one call on one card.
 The last lines are the ``{"kernels": [...]}`` record (each row's
 ``sharded_launches``: its launches in phase 20; ``model_parallel_launches``:
-in phase 21 (b), every rank), the flash rows at
+in phase 21 (b), every rank; ``harness_launches``: in phase 22 (a)), the
+flash rows at
 gemma2-2b's shapes, the launch counts (d = 1 main path, d-dim service
 path, the four serving paths, phase 14, the prefills of phases 17 and
 18, the training run of phase 19, the sharded path of phase 20, the
-model-parallel prefills of phase 21), the phase timings,
+model-parallel prefills of phase 21, phase 22 (a)), the phase timings,
 the card line, and ``{"ok": true, "device": {...}}``.
 Data come from a fixed seed.  Exits 2 without a result when no CUDA device
 is present or the script stands outside the repository.
@@ -617,6 +645,32 @@ MP_CP = dict(B=1, H=8, KV=4, S=8192, D=256, window=4096, softcap=50.0,
              seed=SEED + 130)
 MP_CP_TOL = 2e-5               # tests/test_context_parallel.py
 MP_COMP_N = 49_152 * 960       # smollm-360m's embedding gradient
+# phase 22: the fuzz, metamorphic and shrink harness on the card, the dry
+# run on the host (subprocesses) and the three example twins.  (a) run_fuzz
+# over FUZZ_SEEDS seeds at the full size ladder (seed % 11 picks the
+# corpus: every corpus four times), then each corpus at the (n = m, d) of
+# FUZZ_SCALED through every registered engine: the dense corpora smaller,
+# so that each case's host oracle (a Python set of every pair) stays
+# within a few seconds; tall-thin too, whose sequential oracle sweeps
+# dimension 0 and so meets all n * m pairs when that dimension is wide
+FUZZ_SEEDS = 44
+FUZZ_SCALED = (("integer_ties", 300, 1), ("zero_width", 2000, 3),
+               ("all_identical", 300, 1), ("duplicates", 400, 2),
+               ("uniform_float", 2000, 3), ("extreme_floats", 400, 1),
+               ("tall_thin", 1000, 2), ("clustered", 4000, 1),
+               ("equal_selectivity", 500, 2), ("single_region", 1, 3),
+               ("empty_side", 3000, 1))
+# the wrappers that phase 22 (a) must launch (passes A and B launch too)
+FUZZ_MUST_LAUNCH = ("delta_bitmasks", "emit_pairs", "bitmatch")
+# (d) dry-run cells (arch, shape, mesh), each its own host process
+DRYRUN_CELLS = (("smollm-360m", "train_4k", "single"),
+                ("grok-1-314b", "decode_32k", "multi"))
+DRYRUN_TIMEOUT_S = 600
+# (e) the example twins on the card, each its own process
+EXAMPLES = (("ddm_service_torch.py", "--n", "20000"),
+            ("quickstart_torch.py", "--preset", "tiny", "--steps", "30"),
+            ("interest_serving_torch.py",))
+EXAMPLE_TIMEOUT_S = 600
 DEVICE = "cuda"
 # the sweep kernels' names in a profile (the rebuild trace sums each)
 SWEEP_KERNELS = ("block_sums_kernel", "emission_kernel",
@@ -871,6 +925,7 @@ def main(argv=None) -> int:
     smoke.train()
     smoke.sharded(card)
     smoke.model_parallel(card)
+    smoke.harness(card)
     smoke.report(card)
     return 0
 
@@ -4103,6 +4158,269 @@ class Smoke:
                 "phase 21 (c): the world of 4's checkpoint does not restore "
                 "in a world of 1 bit for bit")
 
+    # -- phase 22: the harness, the dry run and the examples ---------------
+    def harness(self, card: str):
+        """Phase 22: (a) the fuzz and the scaled corpus, (b) the
+        self-check and its artifact, (c) the metamorphic relations and the
+        batch split, all on the card in this process, while (d) the dry
+        run's cells (host only) and (e) the example twins run as
+        subprocesses; every subprocess is stopped before the phase ends."""
+        t0 = time.perf_counter()
+        jobs = self.start_host_jobs()
+        try:
+            self.harness_fuzz()
+            self.harness_self_check()
+            self.harness_relations()
+            self.harness_dryrun(jobs)
+            self.harness_examples(jobs)
+        finally:
+            for proc, _, _ in jobs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        secs = time.perf_counter() - t0
+        self.phase_ms["phase 22"] = secs * 1e3
+        print(f"phase 22: {secs:.3f} s", flush=True)
+        print(card, flush=True)
+
+    def start_host_jobs(self) -> dict:
+        """Start (d) and (e): {name: (process, log path, command)}."""
+        logs = ROOT / "build" / "phase22"
+        shutil.rmtree(logs, ignore_errors=True)
+        logs.mkdir(parents=True)
+        # one host thread each: the jobs share the host with (a)-(c)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   OMP_NUM_THREADS="1")
+        host_env = dict(env, CUDA_VISIBLE_DEVICES="")   # the dry run: no card
+        jobs = {}
+
+        def start(name, argv, job_env):
+            log = logs / f"{name}.log"
+            with open(log, "w") as fh:
+                proc = subprocess.Popen(argv, cwd=ROOT, env=job_env,
+                                        stdout=fh, stderr=subprocess.STDOUT)
+            jobs[name] = (proc, log, argv)
+
+        for arch, shape, mesh in DRYRUN_CELLS:
+            start(f"dryrun_{mesh}_{arch}_{shape}",
+                  [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--mesh", mesh,
+                   "--out", str(logs / "dryrun")], host_env)
+        for script, *args in EXAMPLES:
+            if script == "quickstart_torch.py":
+                args = args + ["--ckpt-dir", str(logs / "quickstart_ckpt")]
+            start(script[:-3], [sys.executable, str(ROOT / "examples" / script),
+                                *args], env)
+        return jobs
+
+    @staticmethod
+    def finish(job, timeout: float) -> str:
+        """Wait for a job; its output; fails unless it exited 0."""
+        proc, log, argv = job
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        text = log.read_text()
+        require(proc.returncode == 0,
+                f"{' '.join(argv[1:])} exited {proc.returncode}: "
+                f"{text[-3000:]}")
+        return text
+
+    def harness_fuzz(self):
+        """(a) ``run_fuzz`` on ``cuda`` over ``FUZZ_SEEDS`` seeds, then each
+        corpus at its ``FUZZ_SCALED`` size through every registered
+        engine; zero failures, and the sweep's delta-bitmask and pass-C
+        kernels and the bit-matrix kernel launched (counts zeroed just
+        before, read just after)."""
+        import numpy as np
+
+        from repro_torch.testing import conformance, fuzz, oracles
+
+        torch = self.torch
+        t0 = time.perf_counter()
+        for w in self.wrappers:
+            w.launches = 0
+        checks, failures = fuzz.run_fuzz(FUZZ_SEEDS, smoke=False,
+                                         verbose=False, device=DEVICE)
+        require(not failures, "(a) fuzz: " + "; ".join(
+            str(f) for f in failures[:3]))
+        t_fuzz = time.perf_counter() - t0
+        scaled = {}
+        for k, (corpus, n, d) in enumerate(FUZZ_SCALED):
+            rng = np.random.RandomState(SEED + 220 + k)
+            subs, upds = fuzz.CORPUS[corpus](rng, n, n, d, device=DEVICE)
+            want = oracles.reference_pairs(subs, upds)
+            engines = conformance.engines_for(subs.ndim_space)
+            for engine in engines:
+                mm = conformance.check_engine(engine, subs, upds, want=want)
+                require(mm is None, f"(a) scaled {corpus} n=m={n} d={d}: "
+                        f"{mm and mm.describe()}")
+            scaled[corpus] = dict(n=n, d=subs.ndim_space, pairs=len(want),
+                                  engines=len(engines))
+        torch.cuda.synchronize()
+        launches = {w.__name__: w.launches for w in self.wrappers}
+        self.harness_launches = launches
+        require(all(launches[name] > 0 for name in FUZZ_MUST_LAUNCH),
+                f"(a) a kernel of the harness's engines did not launch: "
+                f"{launches}")
+        secs = time.perf_counter() - t0
+        self.phase_ms["phase 22 (a) fuzz"] = secs * 1e3
+        print(f"phase 22 (a) fuzz on the card: {FUZZ_SEEDS} seeds, {checks} "
+              f"checks, 0 failures in {t_fuzz:.3f} s; scaled corpus through "
+              f"every engine: {json.dumps(scaled)}; {secs:.3f} s in all; "
+              f"launches {json.dumps(launches)}", flush=True)
+
+    def harness_self_check(self):
+        """(b) ``self_check(device="cuda")`` catches the injected tie bug
+        and shrinks it to at most 6 regions; the shrunk workload's pytest
+        snippet on the card passes for every registered engine of its
+        dimension and fails for the broken engine."""
+        import dataclasses
+
+        from repro_torch.testing import conformance, fuzz
+
+        t0 = time.perf_counter()
+        arts = []
+        rc = fuzz.self_check(verbose=False, device=DEVICE, artifact=arts)
+        require(rc == 0 and arts, f"(b) self-check returned {rc}")
+        best = arts[0]
+        broken = fuzz.broken_open_interval_engine()
+
+        def run_snippet(engine):
+            code = dataclasses.replace(best, engine=engine).to_pytest(DEVICE)
+            ns = {}
+            exec(compile(code, f"<repro {engine}>", "exec"), ns)
+            next(v for k, v in ns.items() if k.startswith("test_repro_"))()
+
+        engines = [e.name for e in conformance.engines_for(best.dims)]
+        for name in engines:
+            run_snippet(name)
+        conformance.register(broken)
+        try:
+            try:
+                run_snippet(broken.name)
+            except AssertionError:
+                pass
+            else:
+                raise SmokeFailure("(b) the shrunk repro's snippet passes "
+                                   "on the broken engine")
+        finally:
+            conformance.unregister(broken.name)
+        secs = time.perf_counter() - t0
+        self.phase_ms["phase 22 (b) self-check"] = secs * 1e3
+        print(f"phase 22 (b) self-check on the card: the injected tie bug "
+              f"caught and shrunk to {best.region_count()} regions (d = "
+              f"{best.dims}); its snippet passes for {len(engines)} engines "
+              f"and fails for the broken one; {secs:.3f} s", flush=True)
+
+    def harness_relations(self):
+        """(c) Every metamorphic relation for every engine on integer-grid
+        workloads at d = 1, 2, 3 and the batch split for every churn
+        implementation at d = 1, 2, on ``cuda``."""
+        import numpy as np
+
+        from repro_torch.testing import conformance, fuzz, metamorphic
+
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(SEED + 230)
+        held = 0
+        for d in (1, 2, 3):
+            lo_s = rng.randint(0, 10, (d, 40)).astype(np.float32)
+            lo_u = rng.randint(0, 10, (d, 30)).astype(np.float32)
+            hi_s = (lo_s + rng.randint(0, 4, (d, 40))).astype(np.float32)
+            hi_u = (lo_u + rng.randint(0, 4, (d, 30))).astype(np.float32)
+            if d == 1:
+                lo_s, hi_s, lo_u, hi_u = lo_s[0], hi_s[0], lo_u[0], hi_u[0]
+            subs, upds = self.extents(lo_s, hi_s), self.extents(lo_u, hi_u)
+            for engine in conformance.engines_for(d):
+                v = metamorphic.check_relations(engine.pairs, subs, upds)
+                require(v == [], f"(c) {engine.name} d={d}: "
+                        f"{[str(x) for x in v]}")
+                held += 1
+        for impl in conformance.CHURN_IMPLS:
+            for dims in (1, 2):
+                script = fuzz.random_script(rng, dims, batches=2, max_ops=6)
+                v = metamorphic.check_batch_split(dims, script[0], script[1],
+                                                  impl=impl, device=DEVICE)
+                require(v is None, f"(c) batch split {impl} d={dims}: {v}")
+        secs = time.perf_counter() - t0
+        self.phase_ms["phase 22 (c) relations"] = secs * 1e3
+        print(f"phase 22 (c) on the card: {len(metamorphic.STATELESS_RELATIONS)}"
+              f" relations hold for {held} (engine, d) pairs; the batch split "
+              f"holds for {list(conformance.CHURN_IMPLS)} at d = 1, 2; "
+              f"{secs:.3f} s", flush=True)
+
+    def harness_dryrun(self, jobs: dict):
+        """(d) The dry run's cells, each traced in its own process with no
+        card visible: every cell's JSON written, its trace seconds and
+        each rank's bytes printed; and the one-card argument bytes of
+        phase 19's training configuration below phase 19's measured peak
+        memory."""
+        from repro_torch.configs import ShapeDef, get_config
+        from repro_torch.launch.dryrun import argument_bytes
+        from repro_torch.parallel.sharding import MeshShape
+
+        t0 = time.perf_counter()
+        cells = {}
+        for arch, shape, mesh in DRYRUN_CELLS:
+            tag = f"{mesh}_{arch}_{shape}"
+            self.finish(jobs[f"dryrun_{tag}"], DRYRUN_TIMEOUT_S)
+            path = ROOT / "build" / "phase22" / "dryrun" / f"dryrun_{tag}.json"
+            require(path.exists(), f"(d) {path.name} not written")
+            rec = json.loads(path.read_text())
+            require("error" not in rec and rec["cost"]["flops"] > 0,
+                    f"(d) {tag}: {rec.get('error', rec.get('cost'))}")
+            cells[tag] = {k: rec[k] for k in (
+                "mesh", "devices", "trace_s", "args_bytes", "peak_live_bytes",
+                "cost")}
+            cells[tag]["analytic_total_flops_per_rank"] = \
+                rec["analytic"]["total_flops"] / rec["devices"]
+            cells[tag]["collective_wire_bytes"] = \
+                rec["collectives"]["wire_bytes"]
+        t = TRAIN
+        cfg = get_config(t["arch"])
+        one = argument_bytes(cfg, ShapeDef("phase19", t["seq"], t["batch"],
+                                           "train"),
+                             MeshShape((1, 1), ("data", "model")))
+        peak = getattr(self, "train_numbers", {}).get("peak_memory_bytes")
+        require(peak is not None and one["total"] < peak,
+                f"(d) one-card argument bytes {one} not below phase 19's "
+                f"peak {peak}")
+        secs = time.perf_counter() - t0
+        self.phase_ms["phase 22 (d) dry run (wait)"] = secs * 1e3
+        self.dryrun_cells = cells
+        print(f"phase 22 (d) dry run on the host: {json.dumps(cells)}; "
+              f"{t['arch']} B={t['batch']} S={t['seq']} on one card: "
+              f"argument bytes {json.dumps(one)} < phase 19 peak {peak}",
+              flush=True)
+
+    def harness_examples(self, jobs: dict):
+        """(e) The three example twins on the card: each exits 0; the
+        quickstart's loss falls; the serving example serves every
+        request."""
+        t0 = time.perf_counter()
+        outs = {script[:-3]: self.finish(jobs[script[:-3]], EXAMPLE_TIMEOUT_S)
+                for script, *_ in EXAMPLES}
+        require(outs["ddm_service_torch"].rstrip().endswith("OK"),
+                "(e) ddm_service_torch did not finish")
+        m = re.search(r"loss ([0-9.]+) -> ([0-9.]+)",
+                      outs["quickstart_torch"])
+        require(m is not None and float(m.group(2)) < float(m.group(1)),
+                f"(e) quickstart_torch: the loss did not fall "
+                f"({m and m.group(0)})")
+        require("all requests served" in outs["interest_serving_torch"],
+                "(e) interest_serving_torch did not serve every request")
+        table = [line for line in outs["ddm_service_torch"].splitlines()
+                 if re.match(r"\s+[0-9.]+\s+\d+\s", line)]
+        secs = time.perf_counter() - t0
+        self.phase_ms["phase 22 (e) examples (wait)"] = secs * 1e3
+        print(f"phase 22 (e) example twins on the card: ddm_service_torch "
+              f"(alpha, K, SBM / rank / BF ms) {json.dumps(table)}; "
+              f"quickstart_torch {m.group(0)}; interest_serving_torch served "
+              f"every request", flush=True)
+
     def report(self, card: str):
         torch = self.torch
         self.rows["flash_attention"]["max_abs_err"] = self.err["flash_attention"]
@@ -4119,6 +4437,13 @@ class Smoke:
             self.mp_launches
         self.rows["flash_attention_granite"]["model_parallel_max_abs_err"] = \
             self.mp_flash_err
+        # launches in phase 22 (a): the fuzz and the scaled corpus on the
+        # card (the wrappers' names are the rows' keys of the sweep and
+        # bit-matrix kernels; the flash kernel's row is "flash_attention")
+        for key, row in self.rows.items():
+            row["harness_launches"] = self.harness_launches.get(
+                "flash_attention_kernel" if key == "flash_attention"
+                else key, 0)
         print(json.dumps({"kernels": list(self.rows.values())}))
         print("launches on the main path (bitmatch: the bitmatrix path at "
               "cell (a)): " + json.dumps(self.launches))
@@ -4146,6 +4471,8 @@ class Smoke:
               "rank): " + json.dumps(self.sharded_launches))
         print("flash launches on the model-parallel path (phase 21 (b), "
               "every rank, every prefill): " + json.dumps(self.mp_launches))
+        print("launches in phase 22 (a) (fuzz and scaled corpus on the "
+              "card): " + json.dumps(self.harness_launches))
         print("timings_ms: " + json.dumps(
             {k: round(v, 3) for k, v in self.phase_ms.items()}))
         print(card)

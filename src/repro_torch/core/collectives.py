@@ -11,10 +11,15 @@ group's backend takes: gloo takes CPU and CUDA tensors for both (a list
 ``all_gather``, so the output needs no flat layout), NCCL CUDA tensors.
 Every rank must make the same calls with tensors of the same shapes, as
 the engines do: their shapes follow from the global inputs alone.
+
+:func:`record_traffic` counts the bytes of every collective called
+through this module and :mod:`repro_torch.parallel.collectives` (the dry
+run's collective record).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import contextlib
+from typing import Dict, List, NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -46,6 +51,43 @@ def mesh_axis(mesh, axis_name: str) -> MeshAxis:
                     mesh.get_local_rank(dim))
 
 
+_RECORDS: List[Dict[str, Dict[str, float]]] = []
+
+
+@contextlib.contextmanager
+def record_traffic():
+    """Yield ``{kind: {"count", "operand_bytes", "wire_bytes"}}``, filled
+    while the block runs with each collective this rank calls through the
+    port's wrappers (kind ``"all-reduce"`` or ``"all-gather"``).
+    ``operand_bytes`` is this rank's input; ``wire_bytes`` the ring
+    algorithm's traffic a rank, 2(g−1)/g of the buffer for an all-reduce
+    and (g−1)/g of the gathered result for an all-gather, g the group's
+    size (the JAX dry run's convention)."""
+    record: Dict[str, Dict[str, float]] = {}
+    _RECORDS.append(record)
+    try:
+        yield record
+    finally:
+        _RECORDS.remove(record)
+
+
+def note_collective(kind: str, t: torch.Tensor, group) -> None:
+    """Add one collective of ``t`` (this rank's input) over ``group`` to
+    every open :func:`record_traffic`."""
+    if not _RECORDS:
+        return
+    g = dist.get_world_size(group)
+    nbytes = float(t.numel() * t.element_size())
+    full = nbytes * g if kind == "all-gather" else nbytes
+    wire = (2.0 if kind == "all-reduce" else 1.0) * (g - 1) / g * full
+    for record in _RECORDS:
+        row = record.setdefault(kind, {"count": 0.0, "operand_bytes": 0.0,
+                                       "wire_bytes": 0.0})
+        row["count"] += 1
+        row["operand_bytes"] += nbytes
+        row["wire_bytes"] += wire
+
+
 def shard_padded(x: torch.Tensor, size: int, index: int,
                  fill: float) -> torch.Tensor:
     """Shard ``index`` of ``size`` contiguous shards of ``x``'s last axis,
@@ -64,6 +106,7 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
         return t.new_empty((p,) + tuple(t.shape))
     t = t.contiguous()
     outs = [torch.empty_like(t) for _ in range(p)]
+    note_collective("all-gather", t, group)
     dist.all_gather(outs, t, group=group)
     return torch.stack(outs)
 
@@ -71,5 +114,6 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     """The elementwise sum of every rank's ``t`` (a new tensor)."""
     out = t.clone()
+    note_collective("all-reduce", out, group)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out

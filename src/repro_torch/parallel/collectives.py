@@ -26,11 +26,14 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.collectives import note_collective
+
 
 def _all_reduce(x: torch.Tensor, groups, op=dist.ReduceOp.SUM
                 ) -> torch.Tensor:
     out = x.contiguous().clone()
     for group in groups:
+        note_collective("all-reduce", out, group)
         dist.all_reduce(out, op=op, group=group)
     return out
 
@@ -42,6 +45,7 @@ def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     p = dist.get_world_size(group)
     x = x.contiguous()
     outs = [torch.empty_like(x) for _ in range(p)]
+    note_collective("all-gather", x, group)
     dist.all_gather(outs, x, group=group)
     return torch.cat(outs, dim=dim)
 

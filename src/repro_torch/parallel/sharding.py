@@ -205,22 +205,40 @@ class Sharder:
                                   "shape")
         return tuple(self.split(a, d) for a, d in zip(axes, shape))
 
-    def split(self, axis: Optional[str], dim: int) -> Split:
-        """One dimension of :meth:`layout`: logical ``axis`` of global size
-        ``dim``."""
+    def _split_axes(self, axis: Optional[str], dim: int
+                    ) -> Tuple[Tuple[str, ...], int]:
+        """The mesh axes logical ``axis`` (global size ``dim``) is split
+        over at run time, and their shard count."""
         if self.mesh is None or axis in RUNTIME_REPLICATED:
-            return REPLICATED
+            return (), 1
         present = _entry_axes(self._resolve(axis, dim))
         if axis != "batch":
             present = tuple(t for t in present if t not in BATCH_AXES)
         sizes = mesh_sizes(self.mesh)
-        if math.prod(sizes[t] for t in present) == 1:
+        return present, math.prod(sizes[t] for t in present)
+
+    def block_shape(self, axes: Sequence[Optional[str]],
+                    shape: Sequence[int]) -> Tuple[int, ...]:
+        """Each rank's block shape under :meth:`layout` (the same on every
+        rank, so a :class:`MeshShape` will do)."""
+        if len(axes) != len(shape):
+            raise ValidationError(f"{len(axes)} axes for rank-{len(shape)} "
+                                  "shape")
+        return tuple(d // self._split_axes(a, d)[1]
+                     for a, d in zip(axes, shape))
+
+    def split(self, axis: Optional[str], dim: int) -> Split:
+        """One dimension of :meth:`layout`: logical ``axis`` of global size
+        ``dim``."""
+        present, size = self._split_axes(axis, dim)
+        if size == 1:
             return REPLICATED              # no axis, or axes of size 1
+        sizes = mesh_sizes(self.mesh)
         coord = self._coordinate()
         index = 0
         for t in present:                  # row-major over the entry's axes
             index = index * sizes[t] + coord[t]
-        return Split(present, math.prod(sizes[t] for t in present), index)
+        return Split(present, size, index)
 
     def _coordinate(self) -> Dict[str, int]:
         if isinstance(self.mesh, MeshShape):

@@ -67,6 +67,17 @@ def test_core_all_is_the_reference_list_with_kernel_builds():
         assert hasattr(core, name), name
 
 
+def test_testing_all_is_the_reference_list():
+    import importlib
+
+    import repro.testing as ref_testing
+    import repro_torch.testing as testing
+
+    assert testing.__all__ == list(ref_testing.__all__)
+    for name in testing.__all__:
+        importlib.import_module(f"repro_torch.testing.{name}")
+
+
 @pytest.mark.parametrize("name", sorted(ref_api.__all__))
 def test_signature_equals_the_lockfile_record(name):
     locked = json.loads(LOCKFILE.read_text())[name]

@@ -1,0 +1,213 @@
+"""The port's dry run: the ``sds_*`` specs of ``repro_torch.launch.steps``
+against the JAX package's ``ShapeDtypeStruct`` trees on both production
+meshes (the JAX side over ``AbstractMesh``es, as in
+``tests/test_torch_parallel.py``), and ``launch.dryrun``'s cells and CLI
+in a fake world, in a subprocess (the fake process group is the
+process's default group)."""
+import json
+import math
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import jax
+import pytest
+from jax.sharding import AbstractMesh
+
+from repro.configs import SHAPES as JSHAPES
+from repro.configs import ShapeDef as JShapeDef
+from repro.configs import get_config as jget_config
+from repro.configs import reduce_config as jreduce_config
+from repro.launch import steps as jsteps
+from repro.models import Model as JaxModel
+from repro.parallel.sharding import make_sharder as jmake_sharder
+from repro.perf import analytic as janalytic
+from repro.train.optimizer import AdamW as JAdamW
+from repro.train.optimizer import cosine_schedule as jcosine
+from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+from repro_torch.launch import steps
+from repro_torch.models import Model
+from repro_torch.models.api import iter_leaves
+from repro_torch.parallel.sharding import (BATCH_AXES, RUNTIME_REPLICATED,
+                                           MeshShape, make_sharder)
+from repro_torch.train.optimizer import AdamW, cosine_schedule
+
+jax.config.update("jax_platform_name", "cpu")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+MESHES = {"16x16": ((16, 16), ("data", "model")),
+          "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
+DECODE = "decode_32k"
+
+
+def _key(entry) -> str:
+    for attr in ("key", "name", "idx"):
+        if hasattr(entry, attr):
+            return str(getattr(entry, attr))
+    return str(entry)
+
+
+def _jax_leaves(tree):
+    flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+    return {"/".join(_key(k) for k in path): leaf for path, leaf in flat}
+
+
+def _port_leaves(tree, prefix=""):
+    if isinstance(tree, steps.ShardedSpec):
+        return {prefix: tree}
+    if isinstance(tree, dict):
+        items = tree.items()
+    else:                                  # a NamedTuple
+        items = zip(tree._fields, tree)
+    out = {}
+    for k, v in items:
+        out.update(_port_leaves(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def _runtime_block(spec, axes, shape, sizes):
+    """The block of the run-time layout from the JAX spec: batch mesh axes
+    only on the ``batch`` axis, ``mamba_heads`` replicated."""
+    out = []
+    for entry, axis, dim in zip(tuple(spec) + (None,) * len(shape), axes,
+                                shape):
+        names = () if entry is None else \
+            (entry,) if isinstance(entry, str) else tuple(entry)
+        if axis in RUNTIME_REPLICATED:
+            names = ()
+        elif axis != "batch":
+            names = tuple(n for n in names if n not in BATCH_AXES)
+        out.append(dim // math.prod(sizes[n] for n in names))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_sds_blocks_equal_jax_shard_shapes(arch, mesh):
+    sizes, names = MESHES[mesh]
+    size_of = dict(zip(names, sizes))
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    sharder = make_sharder(cfg, MeshShape(sizes, names))
+    jsharder = jmake_sharder(jcfg, AbstractMesh(sizes, names))
+    model = Model(cfg, sharder=sharder, device="meta")
+    jmodel = JaxModel(jcfg, jsharder)
+    shape = SHAPES[DECODE]
+    b, s = shape.global_batch, shape.seq_len
+    opt = AdamW(cosine_schedule(3e-4, 100, 10_000))
+    jopt = JAdamW(jcosine(3e-4, 100, 10_000))
+    param_axes = {p: d.axes for p, d in iter_leaves(model.defs())}
+    cache_axes = {}
+    for name, state in model.cache_spec_axes().items():
+        for field, axes in zip(state._fields, state):
+            cache_axes[f"{name}/{field}"] = axes
+    trees = {
+        "params": (steps.sds_params(model, sharder),
+                   jsteps.sds_params(jmodel, jsharder)),
+        "opt": (steps.sds_opt_state(model, sharder, opt),
+                jsteps.sds_opt_state(jmodel, jsharder, jopt)),
+        "batch": (steps.sds_batch(cfg, SHAPES["train_4k"], sharder),
+                  jsteps.sds_batch(jcfg, JSHAPES["train_4k"], jsharder)),
+        "cache": (steps.sds_cache(model, sharder, b, s),
+                  jsteps.sds_cache(jmodel, jsharder, b, s)),
+        "token": (steps.sds_token(cfg, b, sharder),
+                  jsteps.sds_token(jcfg, b, jsharder)),
+        "enc_out": (steps.sds_enc_out(cfg, b, s, sharder),
+                    jsteps.sds_enc_out(jcfg, b, s, jsharder)),
+        "scalar": (steps.sds_scalar(sharder), jsteps.sds_scalar(jsharder)),
+    }
+    differ = set()
+    for kind, (mine, theirs) in trees.items():
+        mine, theirs = _port_leaves(mine), _jax_leaves(theirs)
+        assert mine.keys() == theirs.keys(), kind
+        for path, leaf in mine.items():
+            want = theirs[path]
+            where = f"{kind}:{path}"
+            assert leaf.shape == tuple(want.shape), where
+            assert str(leaf.dtype).split(".")[-1] == want.dtype.name, where
+            jspec = want.sharding.spec
+            assert tuple(leaf.layout.spec) == tuple(jspec), where
+            shard = tuple(want.sharding.shard_shape(want.shape))
+            block = tuple(leaf.block.shape)
+            assert leaf.block.device.type == "meta"
+            if block == shard:
+                continue
+            # the run-time layout's two queued axes: the parameters'
+            # "embed": "data" (FSDP) and Mamba's heads stay replicated
+            if kind in ("params", "opt"):
+                axes = param_axes[path.split("/", 1)[1]
+                                  if kind == "opt" else path]
+            else:
+                axes = cache_axes.get(path) if kind == "cache" else None
+            assert axes is not None, where
+            assert "embed" in axes or "mamba_heads" in axes, where
+            assert block == _runtime_block(jspec, axes, leaf.shape,
+                                           size_of), where
+            differ.add(kind)
+    assert differ <= {"params", "opt", "cache"}
+    if "mamba" not in {sp.mixer for sp in cfg.pattern}:
+        assert "cache" not in differ
+
+
+_CELLS = textwrap.dedent("""
+    import json, sys
+    from repro_torch.configs import get_config, reduce_config, ShapeDef
+    from repro_torch.launch import dryrun
+    out = {}
+    for arch, kind in (("granite-moe-3b-a800m", "train"),
+                       ("seamless-m4t-medium", "decode")):
+        cfg = reduce_config(get_config(arch))
+        shape = ShapeDef("reduced", 64, 8, kind)
+        out[kind] = dryrun.run_cell(arch, "reduced", False, cfg=cfg,
+                                    shape=shape,
+                                    mesh=((2, 4), ("data", "model")))
+    rc = dryrun.main(["--arch", "smollm-360m", "--shape",
+                      "decode_32k,long_500k", "--mesh", "single",
+                      "--out", sys.argv[1]])
+    out["rc"] = rc
+    print(json.dumps(out))
+""")
+
+
+def test_run_cell_and_cli_in_a_fake_world(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _CELLS, str(tmp_path)],
+                          capture_output=True, text=True, env=env,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    keys = {"arch", "shape", "mesh", "devices", "kind", "params",
+            "active_params", "analytic", "analytic_bytes",
+            "model_flops_ref", "trace_s", "cost", "collectives",
+            "args_bytes", "peak_live_bytes"}
+    for kind, arch in (("train", "granite-moe-3b-a800m"),
+                       ("decode", "seamless-m4t-medium")):
+        rec = out[kind]
+        assert keys <= rec.keys(), kind
+        assert (rec["mesh"], rec["devices"], rec["kind"]) == ("2x4", 8, kind)
+        jcfg = jreduce_config(jget_config(arch))
+        jshape = JShapeDef("reduced", 64, 8, kind)
+        assert rec["params"] == jcfg.param_count()
+        assert rec["active_params"] == jcfg.active_param_count()
+        assert rec["analytic"] == janalytic.flops_model(jcfg, jshape)
+        assert rec["analytic_bytes"] == janalytic.bytes_model(jcfg, jshape)
+        assert rec["model_flops_ref"] \
+            == janalytic.model_flops_reference(jcfg, jshape)
+        assert rec["cost"]["flops"] > 0 and rec["trace_s"] > 0
+        assert rec["collectives"]["by_op"]["all-reduce"]["count"] > 0
+        assert rec["args_bytes"]["total"] \
+            == sum(v for k, v in rec["args_bytes"].items() if k != "total")
+        assert rec["peak_live_bytes"] >= rec["args_bytes"]["params"]
+    assert out["train"]["args_bytes"]["moments"] > 0
+    assert out["decode"]["args_bytes"]["cache"] > 0
+    assert out["rc"] == 0
+    files = sorted(p.name for p in tmp_path.iterdir())
+    assert files == ["dryrun_single_smollm-360m_decode_32k.json",
+                     "dryrun_single_smollm-360m_long_500k.json"]
+    skip = json.loads((tmp_path / files[1]).read_text())
+    assert skip["mesh"] == "16x16" and "skipped" in skip
+    cell = json.loads((tmp_path / files[0]).read_text())
+    assert cell["devices"] == 256 and cell["kind"] == "decode"
+    assert cell["analytic"] == janalytic.flops_model(
+        jget_config("smollm-360m"), JSHAPES["decode_32k"])

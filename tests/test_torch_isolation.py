@@ -33,8 +33,11 @@ from repro_torch.models.api import init_params
 from repro_torch.serve.engine import ServeEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+EXAMPLE_TWINS = [ROOT / "examples" / f"{name}_torch.py"
+                 for name in ("ddm_service", "quickstart", "interest_serving")]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+    + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) \
+    + EXAMPLE_TWINS
 
 
 def _imported_modules(path):
@@ -70,6 +73,28 @@ def test_entry_points_default_to_the_card():
     assert DDMService().device == torch.device("cuda")
     cfg = reduce_config(get_config("smollm-360m"))
     assert Model(cfg).device == torch.device("cuda")
+
+
+def test_fuzz_cli_and_harness_default_to_the_card(monkeypatch):
+    from repro_torch.testing import conformance, fuzz, metamorphic
+
+    for fn in (fuzz.run_seed, fuzz.run_fuzz, fuzz.self_check,
+               fuzz.probe_duplicate_rid, metamorphic.check_batch_split,
+               conformance.churn_runner, conformance.check_churn_script,
+               *fuzz.CORPUS.values()):
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == "cuda", fn
+    seen = {}
+    monkeypatch.setattr(fuzz, "run_fuzz", lambda *a, **k: (
+        seen.setdefault("run_fuzz", k["device"]), (0, []))[1])
+    monkeypatch.setattr(fuzz, "self_check", lambda **k: (
+        seen.setdefault("self_check", k["device"]), 0)[1])
+    assert fuzz.main(["--seeds", "1"]) == 0
+    assert fuzz.main(["--self-check"]) == 0
+    assert seen == {"run_fuzz": "cuda", "self_check": "cuda"}
+    for path in EXAMPLE_TWINS:
+        assert 'ap.add_argument("--device", default="cuda")' \
+            in path.read_text(), path.name
 
 
 def test_no_silent_cpu_path_without_a_card():
