@@ -671,6 +671,44 @@ EXAMPLES = (("ddm_service_torch.py", "--n", "20000"),
             ("quickstart_torch.py", "--preset", "tiny", "--steps", "30"),
             ("interest_serving_torch.py",))
 EXAMPLE_TIMEOUT_S = 600
+# phase 23: the run-time layout is the JAX shard layout (parameters and
+# moments cut over data, FSDP; Mamba-2 heads cut over model).  Four gloo
+# ranks on cuda:0, as phase 21.  (a) mamba2-2.7b at full width and depth
+# on (data 1, model 4), 20 of its 80 heads a rank, with phase 16's
+# weights: a 4 x 2048 prefill and 8 decode steps fed one rank's greedy
+# tokens; a 2-layer float32 twin for the gradient bits
+LAYOUT_MAMBA = dict(arch="mamba2-2.7b", rows=4, prompt_len=2048, steps=8,
+                    seed=SEED + 40)
+LAYOUT_TWIN = dict(layers=2, seed=SEED + 150)
+# phase 21 (b)'s bf16 yardstick, a float32 run of the same weights, does
+# not separate a fault here: at depth 64 with random weights one rank's
+# own bf16 logits lie 0.45 of the max from it (an H100 run), as far as a
+# rank's partial left out of every layer (0.86).  So the bf16 run gives
+# the times, the bytes and the greedy tokens (the same on every rank),
+# and the check is in float32 (TF32 off): each rank's logits, at the
+# prefill and every decode step, and its MambaState.h after the prefill
+# within LAYOUT_F32_TOL of one rank's float32 run (relative to its max),
+# and the control, rank 0's partial left out of every Mamba layer's
+# reduce_from, above it.  The card read 3.24e-4 (logits) and 2.2e-4 (h),
+# the control 0.897 (the float32 reordering is amplified as bf16's is)
+LAYOUT_F32_TOL = 1e-3
+# (b) smollm-360m through the launcher on (data 4, model 1), phase 21
+# (c)'s run (4 x 4096, 3 steps), each step's loss and gradient norm within
+# MP_LOSS_BOUND of one rank's (relative); the control leaves data rank
+# 0's partial out of every FSDP reduce-scatter and must read above the
+# bound: one step, whose gradient norm moves at once (the losses barely
+# move: AdamW's first updates are near lr · sign(g) whatever the
+# gradient's scale; a CPU rehearsal at reduced size read 6.0e-4 on the
+# losses, 0.16 on the norms; the card 0.153 over 3 steps)
+LAYOUT_DATA = 4
+# (c) the dry run's cells of phase 22 (d) against their bytes a rank in
+# the replicated layout (parameters replicated over pod and data, Mamba
+# heads over model; an H100 run of phase 22 (d)): arguments, peak live
+# fake-tensor bytes
+DRYRUN_REPLICATED = {"single_smollm-360m_train_4k": (771_726_848, 37_446_167_316),
+               "multi_grok-1-314b_decode_32k": (75_337_576_720,
+                                                75_476_169_256)}
+LAYOUT_TIMEOUT_S = 600
 DEVICE = "cuda"
 # the sweep kernels' names in a profile (the rebuild trace sums each)
 SWEEP_KERNELS = ("block_sums_kernel", "emission_kernel",
@@ -891,6 +929,8 @@ def main(argv=None) -> int:
         return flash_f32_rows(torch, src)
     if argv[:1] == ["--model-parallel-cards"]:
         return model_parallel_cards(torch)
+    if argv[:1] == ["--layout"]:
+        return layout_alone(torch)
     # torch.compile's caches (the flex_attention yardstick) stay in the
     # checkout's build/
     os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
@@ -926,7 +966,22 @@ def main(argv=None) -> int:
     smoke.sharded(card)
     smoke.model_parallel(card)
     smoke.harness(card)
+    smoke.layout(card)
     smoke.report(card)
+    return 0
+
+
+def layout_alone(torch) -> int:
+    """``chip_smoke.py --layout``: phase 23 (a) and (b) alone (no dry run:
+    (c) reads phase 22's cells)."""
+    card = card_line()
+    print(card, flush=True)
+    smoke = Smoke(torch)
+    smoke.build()
+    smoke.layout(card)
+    print("timings_ms: " + json.dumps(
+        {k: round(v, 3) for k, v in smoke.phase_ms.items()}))
+    print(card)
     return 0
 
 
@@ -3968,7 +4023,12 @@ class Smoke:
               f"{c['twin_loss_rel']:.3e}, worst gradient leaf rel "
               f"{c['twin_grad_rel']:.3e} ({c['twin_worst_leaf']}); the "
               f"step-{MP_TRAIN['ckpt_every']} checkpoint restores in a "
-              "world of 1 bit for bit", flush=True)
+              "world of 1 bit for bit; each rank's bytes in the FSDP layout "
+              f"(counted from its blocks): params {c['bytes']['params']}, "
+              f"bf16 moments {c['bytes']['moments']} (the replicated "
+              f"layout: {c['bytes']['replicated_params']}, "
+              f"{c['bytes']['replicated_moments']})",
+              flush=True)
         d = rec["d"]
         print(f"phase 21 (d) context parallel at gemma2-2b's shapes "
               f"(B={MP_CP['B']}, H={MP_CP['H']}, KV={MP_CP['KV']}, "
@@ -4093,7 +4153,7 @@ class Smoke:
             torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.cuda.empty_cache()
 
-        loop = train_launcher.main(mp_train_argv(out / "ck1", tp=False))
+        loop = train_launcher.main(mp_train_argv(out / "ck1"))
         refs["train"] = {"losses": [h["loss"] for h in loop.history]}
         del loop
         return refs
@@ -4379,6 +4439,7 @@ class Smoke:
                 rec["analytic"]["total_flops"] / rec["devices"]
             cells[tag]["collective_wire_bytes"] = \
                 rec["collectives"]["wire_bytes"]
+            cells[tag]["collectives_by_op"] = rec["collectives"]["by_op"]
         t = TRAIN
         cfg = get_config(t["arch"])
         one = argument_bytes(cfg, ShapeDef("phase19", t["seq"], t["batch"],
@@ -4421,6 +4482,154 @@ class Smoke:
               f"quickstart_torch {m.group(0)}; interest_serving_torch served "
               f"every request", flush=True)
 
+    # -- phase 23: the run-time layout is the JAX shard layout -----------
+    def layout(self, card: str):
+        """Phase 23: (a) mamba2-2.7b tensor-parallel over its heads and
+        (b) smollm-360m trained in the FSDP layout, in ``MP_WORLD``
+        spawned gloo ranks on cuda:0 (:func:`layout_work`) against one
+        rank's runs made here first (:meth:`layout_refs`); (c) the dry
+        run's cells of phase 22 (d) against the replicated layout's bytes a
+        rank."""
+        import torch.multiprocessing as mp
+
+        torch = self.torch
+        t0 = time.perf_counter()
+        out = ROOT / "build" / "phase23"
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        torch.cuda.empty_cache()
+        self.layout_refs(out)
+        self.phase_ms["phase 23 one-rank references"] = \
+            (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        try:
+            mp.start_processes(layout_rank,
+                               args=(MP_WORLD, _free_port(), str(out)),
+                               nprocs=MP_WORLD, join=True,
+                               start_method="spawn")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as exc:
+            raise SmokeFailure(f"phase 23: a rank failed: {exc}") from exc
+        ranks = [json.loads((out / f"rank{r}.json").read_text())
+                 for r in range(MP_WORLD)]
+        self.phase_ms[f"phase 23 (a), (b) world of {MP_WORLD}"] = \
+            (time.perf_counter() - t1) * 1e3
+        a = ranks[0]["a"]
+        m = LAYOUT_MAMBA
+        print(f"phase 23 (a) {m['arch']} (data 1, model {MP_WORLD}), "
+              f"{a['heads']} of {a['heads_whole']} heads a rank: bf16 prefill "
+              f"{m['rows']} x {m['prompt_len']} + {m['steps']} decode steps, "
+              f"ms per rank {[r['a']['ms'] for r in ranks]}, greedy tokens "
+              f"the same on every rank ({a['tokens_equal']} of {a['tokens']} "
+              f"equal to one rank's), logits against one rank's float32 run "
+              f"{a['err_bf16']:.3e} (one rank's bf16 {a['err_bf16_one']:.3e}"
+              f"); float32 (TF32 off) against one rank's float32 run, "
+              f"relative to its max: logits (max over the prefill and the "
+              f"steps) per rank {[r['a']['err'] for r in ranks]}, "
+              f"MambaState.h after the prefill per rank "
+              f"{[r['a']['h_err'] for r in ranks]}, bound {LAYOUT_F32_TOL}; "
+              f"control (rank 0's partial left out of every Mamba layer's "
+              f"reduce_from) {[r['a']['control'] for r in ranks]}; params a "
+              f"rank {[r['a']['param_bytes'] for r in ranks]} B (whole "
+              f"{a['param_bytes_whole']}); peak allocated a rank "
+              f"{[r['a']['peak_bytes'] for r in ranks]} B; float32 "
+              f"{LAYOUT_TWIN['layers']}-layer twin: {a['twin_replicated']} "
+              "leaves replicated over the model axis, their gradients the "
+              "same bits on every model rank", flush=True)
+        b = ranks[0]["b"]
+        print(f"phase 23 (b) {MP_TRAIN['arch']} (data {LAYOUT_DATA}, model "
+              f"1), {MP_TRAIN['batch']} x {MP_TRAIN['seq']}, "
+              f"{MP_TRAIN['steps']} steps: losses {b['losses']} (one rank "
+              f"{b['ref_losses']}), gradient norms {b['grad_norms']} (one "
+              f"rank {b['ref_grad_norms']}), max rel diff "
+              f"{b['loss_rel']:.3e}, bound {MP_LOSS_BOUND}; control (data "
+              f"rank 0's partial left out of every reduce-scatter) "
+              f"{b['control']:.3e}; step ms "
+              f"{b['step_times_ms']}; params / bf16 moments a rank "
+              f"{[r['b']['param_bytes'] for r in ranks]} / "
+              f"{[r['b']['moment_bytes'] for r in ranks]} B (replicated "
+              f"{b['param_bytes_whole']} / {b['moment_bytes_whole']}); peak "
+              f"allocated a rank {[r['b']['peak_bytes'] for r in ranks]} B; "
+              f"flash launches a rank {[r['b']['launches'] for r in ranks]}",
+              flush=True)
+        self.phase_ms["phase 23 (b) train step (median)"] = b["step_ms"]
+        self.layout_launches = sum(r["b"]["launches"] for r in ranks)
+        self.layout_dryrun()
+        self.phase_ms["phase 23"] = (time.perf_counter() - t0) * 1e3
+        print(f"phase 23: {time.perf_counter() - t0:.3f} s", flush=True)
+        print(card, flush=True)
+
+    def layout_refs(self, out):
+        """Phase 23's one-rank runs, in this process: (a) mamba2-2.7b's
+        bf16 prefill and decode steps (fed its own greedy tokens) and the
+        float32 run of the same weights fed the same tokens, their logits
+        and the float32 run's states after the prefill; (b) the training
+        launcher's losses and gradient norms in a world of 1."""
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.launch import train as train_launcher
+        from repro_torch.models import Model
+
+        torch = self.torch
+        m = LAYOUT_MAMBA
+        cfg = get_config(m["arch"])
+        rows, plen, steps, vocab = m["rows"], m["prompt_len"], m["steps"], \
+            cfg.vocab_size
+        params = Model(cfg, device=DEVICE).init(
+            torch.Generator(DEVICE).manual_seed(m["seed"]))
+        toks = torch.randint(1, vocab, (rows, plen),
+                             generator=torch.Generator().manual_seed(
+                                 m["seed"])).to(self.dev)
+        refs, states = {"tokens": toks.cpu()}, {}
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        feed = None
+        for name, dtype in (("one", cfg.dtype), ("float32", torch.float32)):
+            model = Model(dataclasses.replace(cfg, dtype=dtype),
+                          device=DEVICE)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                logits, h, fed = mamba_run(torch, model, params, toks, steps,
+                                           feed)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+            feed = fed if feed is None else feed
+            refs[name] = logits.cpu()
+            states[name] = h.cpu()
+            del model, logits, h
+            torch.cuda.empty_cache()
+        refs["feed"] = feed.cpu()
+        torch.save(states["float32"], out / "h_float32.pt")
+        del states, params
+        torch.cuda.empty_cache()
+        loop = train_launcher.main(mp_train_argv(out / "ck1"))
+        refs["train"] = [h["loss"] for h in loop.history]
+        refs["train_norms"] = [h["grad_norm"] for h in loop.history]
+        del loop
+        torch.cuda.empty_cache()
+        torch.save(refs, out / "refs.pt")
+
+    def layout_dryrun(self):
+        """Phase 23 (c): phase 22 (d)'s cells, arguments and peak live
+        bytes a rank at or below the replicated layout's."""
+        cells = getattr(self, "dryrun_cells", None)
+        if cells is None:
+            print("phase 23 (c): no phase 22 (d) cells in this run",
+                  flush=True)
+            return
+        for tag, (args, peak) in DRYRUN_REPLICATED.items():
+            rec = cells[tag]
+            got = (rec["args_bytes"]["total"], rec["peak_live_bytes"])
+            require(got[0] <= args and got[1] <= peak,
+                    f"phase 23 (c) {tag}: arguments {got[0]}, peak "
+                    f"{got[1]} B a rank above the replicated layout's "
+                    f"{args}, {peak}")
+            print(f"phase 23 (c) dry run {tag}: arguments a rank {got[0]} B "
+                  f"(params {rec['args_bytes']['params']}, moments "
+                  f"{rec['args_bytes']['moments']}, cache "
+                  f"{rec['args_bytes']['cache']}), replicated {args}; peak "
+                  f"live {got[1]} B, replicated {peak}; collectives "
+                  f"{json.dumps(rec['collectives_by_op'])}", flush=True)
+
     def report(self, card: str):
         torch = self.torch
         self.rows["flash_attention"]["max_abs_err"] = self.err["flash_attention"]
@@ -4437,6 +4646,12 @@ class Smoke:
             self.mp_launches
         self.rows["flash_attention_granite"]["model_parallel_max_abs_err"] = \
             self.mp_flash_err
+        # launches on phase 23 (b)'s path: the flash kernel at smollm's
+        # training shapes on each data rank's row (row 6j's kernel)
+        for row in self.rows.values():
+            row["layout_launches"] = 0
+        self.rows["flash_attention_train"]["layout_launches"] = \
+            self.layout_launches
         # launches in phase 22 (a): the fuzz and the scaled corpus on the
         # card (the wrappers' names are the rows' keys of the sweep and
         # bit-matrix kernels; the flash kernel's row is "flash_attention")
@@ -4473,6 +4688,8 @@ class Smoke:
               "every rank, every prefill): " + json.dumps(self.mp_launches))
         print("launches in phase 22 (a) (fuzz and scaled corpus on the "
               "card): " + json.dumps(self.harness_launches))
+        print("flash launches on the FSDP training path (phase 23 (b), every "
+              "rank): " + json.dumps(self.layout_launches))
         print("timings_ms: " + json.dumps(
             {k: round(v, 3) for k, v in self.phase_ms.items()}))
         print(card)
@@ -4825,15 +5042,32 @@ def mp_layer_check(torch, cfg, sharder, midx: int) -> dict:
     return rec
 
 
-def mp_train_argv(directory, tp: bool) -> list:
-    """Phase 21 (c): the training launcher's arguments (the world of 1's,
-    or with ``--tp 2 --distributed`` the world of 4's)."""
+def mp_train_argv(directory, tp=None, steps=None) -> list:
+    """Phases 21 (c) and 23 (b): the training launcher's arguments (the
+    world of 1's, or with ``--tp TP --distributed`` the world of 4's;
+    ``MP_TRAIN``'s steps unless ``steps``)."""
     t = MP_TRAIN
-    argv = ["--arch", t["arch"], "--steps", str(t["steps"]),
+    argv = ["--arch", t["arch"], "--steps", str(steps or t["steps"]),
             "--batch", str(t["batch"]), "--seq", str(t["seq"]),
             "--ckpt-every", str(t["ckpt_every"]), "--seed", str(t["seed"]),
             "--ckpt-dir", str(directory), "--device", DEVICE]
-    return argv + (["--tp", str(t["tp"]), "--distributed"] if tp else [])
+    return argv + ([] if tp is None else ["--tp", str(tp), "--distributed"])
+
+
+def layout_bytes(sharder, defs, dtype_bytes: int, stored: bool = True) -> int:
+    """Each rank's bytes of a ParamDef tree's blocks (elements of
+    ``dtype_bytes``): as stored (the JAX shard layout), or with
+    ``stored=False`` in the replicated layout (parameters replicated over
+    the batch axes, where only ``embed`` maps, and Mamba heads
+    replicated)."""
+    import dataclasses
+
+    from repro_torch.models.api import iter_leaves
+    if not stored:
+        sharder = dataclasses.replace(sharder, rules=dict(
+            sharder.rules, embed=None, mamba_heads=None))
+    return sum(math.prod(sharder.block_shape(d.axes, d.shape)) * dtype_bytes
+               for _, d in iter_leaves(defs))
 
 
 def mp_twin_batch(torch, cfg) -> dict:
@@ -5071,8 +5305,16 @@ def model_parallel_work(torch, rank: int, out) -> dict:
     free()
 
     # (c) smollm-360m trains through the launcher, data 2 x model 2
-    loop = train_launcher.main(mp_train_argv(out / "ck4", tp=True))
+    loop = train_launcher.main(mp_train_argv(out / "ck4", MP_TRAIN["tp"]))
     losses = [h["loss"] for h in loop.history]
+    model = loop.model
+    defs = model.defs()
+    c_bytes = {"params": layout_bytes(model.sharder, defs, 4),
+               "moments": 2 * layout_bytes(model.sharder, defs, 2),
+               "replicated_params": layout_bytes(model.sharder, defs, 4,
+                                                 False),
+               "replicated_moments": 2 * layout_bytes(model.sharder, defs, 2,
+                                                      False)}
     times = [h["time_s"] * 1e3 for h in loop.history]
     ref_losses = refs["train"]["losses"]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
@@ -5087,7 +5329,7 @@ def model_parallel_work(torch, rank: int, out) -> dict:
             f"{shifted:.3e})")
     rec["c"] = {"losses": losses, "ref_losses": ref_losses,
                 "loss_rel": loss_rel, "loss_shifted": shifted,
-                "step_times_ms": times,
+                "step_times_ms": times, "bytes": c_bytes,
                 "step_ms": statistics.median(times[1:]), **twin_c}
     del loop
     free()
@@ -5157,6 +5399,270 @@ def model_parallel_work(torch, rank: int, out) -> dict:
             f"{tag} (e): ranks differ or max |out - mean| {max_err:.3e} > "
             f"int8 bound {bound:.3e}")
     rec["e"] = {"ms": ms, "max_err": max_err, "bound": bound}
+    return rec
+
+
+def mamba_run(torch, model, params, toks, steps: int, feed=None):
+    """A prefill of ``toks`` and ``steps`` decode steps, fed ``feed``
+    (rows, steps) or, without it, the greedy tokens.  Returns (logits
+    (steps + 1, rows, vocab) float32, the stacked MambaState.h after the
+    prefill, the tokens fed)."""
+    cfg = model.cfg
+    rows, plen = toks.shape
+    vocab = cfg.vocab_size
+    cache = model.init_cache(rows, plen + steps)
+    cache, last = model.prefill(params, {"tokens": toks}, cache)
+    h = cache["layer0"].h.clone()
+    out, fed = [last[:, 0, :vocab].float()], []
+    for t in range(steps):
+        tok = out[-1].argmax(-1)[:, None] if feed is None \
+            else feed[:, t:t + 1].to(toks.device)
+        fed.append(tok)
+        cache, last = model.decode_step(params, tok, cache, plen + t)
+        out.append(last[:, 0, :vocab].float())
+    return torch.stack(out), h, torch.cat(fed, dim=1)
+
+
+class dropped_slice:
+    """While active, the FSDP gather's backward on data coordinate 0
+    leaves its own partial out of the reduce-scatter (zeros in its place):
+    phase 23 (b)'s control."""
+
+    def __init__(self, collectives, torch, didx: int):
+        self.cls, self.torch, self.didx = collectives._FsdpGather, torch, didx
+
+    def __enter__(self):
+        real = self.real = self.cls.backward
+        torch, didx = self.torch, self.didx
+
+        def backward(ctx, grad):
+            return real(ctx, torch.zeros_like(grad) if didx == 0 else grad)
+        self.cls.backward = staticmethod(backward)
+
+    def __exit__(self, *exc):
+        self.cls.backward = staticmethod(self.real)
+
+
+def train_reading(history, refs) -> float:
+    """Phase 23 (b): the largest relative difference of a step's loss or
+    gradient norm from one rank's (the norm is that of the summed
+    gradient, before the update: a lost partial moves it at once)."""
+    return max(max(abs(h["loss"] - a) / abs(a), abs(h["grad_norm"] - b) / b)
+               for h, a, b in zip(history, refs["train"],
+                                  refs["train_norms"]))
+
+
+def layout_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """Phase 23, one spawned rank: join the gloo world on cuda:0, run
+    :func:`layout_work` and save its record as ``rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(
+                                seconds=LAYOUT_TIMEOUT_S))
+    try:
+        rec = layout_work(torch, rank, pathlib.Path(out_dir))
+    finally:
+        dist.destroy_process_group()
+    (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.models.api import iter_leaves
+    return sum(t.numel() * t.element_size() for _, t in iter_leaves(tree))
+
+
+def layout_work(torch, rank: int, out) -> dict:
+    """Every rank of phase 23's world of 4 (gloo, all on cuda:0): (a)
+    mamba2-2.7b on (data 1, model 4): the bf16 run, the float32 run
+    against one rank's and its control, the float32 twin's replicated
+    gradients;
+    (b) smollm-360m trained through ``launch.train --tp 1 --distributed``
+    on (data 4, model 1) against one rank's losses, and the control.
+    Returns the rank's record."""
+    import dataclasses
+    import gc
+    import statistics
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import KERNEL_WRAPPERS
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import make_elastic_mesh
+    from repro_torch.models import Model
+    from repro_torch.models import mamba as mamba_lib
+    from repro_torch.models.api import iter_leaves
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import make_sharder
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optimizer import AdamW
+
+    dev = torch.device(DEVICE)
+    refs = torch.load(out / "refs.pt", weights_only=False)
+    tag = f"phase 23 rank {rank}"
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) mamba2-2.7b, 20 of 80 heads a rank: the bf16 run, then the
+    # float32 run and its control against one rank's float32 run
+    checks = []
+    torch.cuda.reset_peak_memory_stats()
+    m = LAYOUT_MAMBA
+    cfg = get_config(m["arch"])
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    mesh = make_elastic_mesh(model_parallel=MP_WORLD, device=DEVICE)
+    model = Model(cfg, sharder=make_sharder(cfg, mesh), device=DEVICE)
+    model32 = Model(c32, sharder=make_sharder(c32, mesh), device=DEVICE)
+    sharder = model.sharder
+    midx = sharder.coordinate("model")
+    mgroup = mesh.get_group("model")
+    split = sharder.split("mamba_heads", cfg.mamba_heads)
+    hl = cfg.mamba_heads // split.size
+    h_lo = split.index * hl
+    params = model.init(torch.Generator(DEVICE).manual_seed(m["seed"]))
+    toks, feed = refs["tokens"].to(dev), refs["feed"]
+    exact, one = refs["float32"], refs["one"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _, _ = mamba_run(torch, model, params, toks, m["steps"], feed)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    logits = logits.cpu()
+    # the bf16 logits on every model rank are one all-reduce's bits, so
+    # the greedy tokens are the same on each
+    greedy = logits.argmax(-1)
+    peers = [torch.empty_like(greedy) for _ in range(MP_WORLD)]
+    dist.all_gather(peers, greedy, group=mgroup)
+    checks.append((bool(torch.isfinite(logits).all()) and all(
+        torch.equal(p, greedy) for p in peers),
+        f"{tag} (a): bf16 logits not finite, or greedy tokens differ "
+        "between the model ranks"))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            logits32, h, _ = mamba_run(torch, model32, params, toks,
+                                       m["steps"], feed)
+            with dropped_partial(mamba_lib, torch, midx):
+                cache = model32.init_cache(m["rows"], m["prompt_len"] + 1)
+                _, last = model32.prefill(params, {"tokens": toks}, cache)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    h_f32 = torch.load(out / "h_float32.pt", mmap=True)[:, :, h_lo:h_lo + hl]
+    err32 = max(_rel(a, b) for a, b in zip(logits32.cpu(), exact))
+    h_err = _rel(h.cpu(), h_f32)
+    control = _rel(last[:, 0, :cfg.vocab_size].cpu(), exact[0])
+    same = greedy == one.argmax(-1)
+    rec = {"a": {
+        "heads": hl, "heads_whole": cfg.mamba_heads, "ms": ms,
+        "err_bf16": max(_rel(a, b) for a, b in zip(logits, exact)),
+        "err_bf16_one": max(_rel(a, b) for a, b in zip(one, exact)),
+        "err": err32, "h_err": h_err, "control": control,
+        "tokens": int(same.numel()), "tokens_equal": int(same.sum()),
+        "param_bytes": _tree_bytes(params),
+        "param_bytes_whole": cfg.param_count() * 4}}
+    checks.append((err32 <= LAYOUT_F32_TOL and h_err <= LAYOUT_F32_TOL
+                   < control,
+                   f"{tag} (a): float32 logits {err32:.3e}, h {h_err:.3e} "
+                   f"from one rank's (bound {LAYOUT_F32_TOL}), control "
+                   f"{control:.3e}"))
+    del params, model, model32, logits, logits32, h, h_f32, cache, last
+    free()
+    rec["a"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+
+    # (a) the float32 twin: every leaf replicated over the model axis has
+    # the same gradient bits on every model rank
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        c = dataclasses.replace(cfg, num_layers=LAYOUT_TWIN["layers"],
+                                dtype=torch.float32)
+        model = Model(c, sharder=make_sharder(c, mesh), device=DEVICE)
+        params = model.init(torch.Generator(DEVICE).manual_seed(
+            LAYOUT_TWIN["seed"]))
+        _, grads = value_and_grad(model, params, mp_twin_batch(torch, c))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    defs = dict(iter_leaves(model.defs()))
+    checked = 0
+    for path, g in iter_leaves(grads):
+        d = defs[path]
+        if any("model" in s.axes for s in model.sharder.layout(d.axes,
+                                                               d.shape)):
+            continue
+        peers = [torch.empty_like(g) for _ in range(MP_WORLD)]
+        dist.all_gather(peers, g.contiguous(), group=mgroup)
+        checks.append((all(torch.equal(p.view(torch.int32),
+                                       g.view(torch.int32)) for p in peers),
+                       f"{tag} (a) twin: {path}'s gradient differs between "
+                       "the model ranks"))
+        checked += 1
+    checks.append((checked > 0, f"{tag} (a) twin: no replicated leaf"))
+    rec["a"]["twin_replicated"] = checked
+    del model, params, grads
+    free()
+
+    # (b) smollm-360m on (data 4, model 1): FSDP alone
+    cfg = get_config(MP_TRAIN["arch"])
+    mesh = make_elastic_mesh(model_parallel=1, device=DEVICE)
+    model = Model(cfg, sharder=make_sharder(cfg, mesh), device=DEVICE)
+    didx = model.sharder.coordinate("data")
+    params = model.init(torch.Generator(DEVICE).manual_seed(MP_TRAIN["seed"]))
+    opt = AdamW(lambda step: torch.tensor(0.0))
+    state = opt.init(params)
+    b_bytes = {"param_bytes": _tree_bytes(params),
+               "moment_bytes": _tree_bytes({"m": state.m, "v": state.v}),
+               "param_bytes_whole": cfg.param_count() * 4,
+               "moment_bytes_whole": 2 * cfg.param_count() * 2}
+    del model, params, state
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    flash = KERNEL_WRAPPERS[0]
+    flash.launches = 0
+    loop = train_launcher.main(mp_train_argv(out / "ck4", 1))
+    launches = flash.launches
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x["loss"] for x in loop.history]
+    norms = [x["grad_norm"] for x in loop.history]
+    times = [x["time_s"] * 1e3 for x in loop.history]
+    del loop
+    free()
+    with dropped_slice(collectives, torch, didx):
+        loop = train_launcher.main(mp_train_argv(out / "ck4_control", 1,
+                                                 steps=1))
+    control = train_reading(loop.history, refs)
+    del loop
+    free()
+    ref = refs["train"]
+    loss_rel = train_reading([{"loss": a, "grad_norm": b}
+                              for a, b in zip(losses, norms)], refs)
+    rec["b"] = {"losses": losses, "ref_losses": ref, "loss_rel": loss_rel,
+                "grad_norms": norms, "ref_grad_norms": refs["train_norms"],
+                "control": control, "step_times_ms": times,
+                "step_ms": statistics.median(times[1:]), "peak_bytes": peak,
+                "launches": launches, **b_bytes}
+    want = MP_TRAIN["steps"] * train_flash_calls(cfg, MP_TRAIN["seq"])
+    checks += [(len(losses) == len(ref) == MP_TRAIN["steps"]
+                and all(math.isfinite(x) for x in losses)
+                and loss_rel <= MP_LOSS_BOUND < control,
+                f"{tag} (b): losses {losses} against one rank's {ref} (bound "
+                f"{MP_LOSS_BOUND}; control {control:.3e})"),
+               (launches == want,
+                f"{tag} (b): flash launches {launches} != {want}")]
+    if rank == 0:
+        print(f"{tag}: " + json.dumps(rec), flush=True)
+    for cond, what in checks:
+        require(cond, what)
     return rec
 
 

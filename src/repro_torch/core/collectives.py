@@ -58,11 +58,14 @@ _RECORDS: List[Dict[str, Dict[str, float]]] = []
 def record_traffic():
     """Yield ``{kind: {"count", "operand_bytes", "wire_bytes"}}``, filled
     while the block runs with each collective this rank calls through the
-    port's wrappers (kind ``"all-reduce"`` or ``"all-gather"``).
+    port's wrappers (kind ``"all-reduce"``, ``"all-gather"`` or
+    ``"reduce-scatter"``, the last the backward of the FSDP gather).
     ``operand_bytes`` is this rank's input; ``wire_bytes`` the ring
     algorithm's traffic a rank, 2(g−1)/g of the buffer for an all-reduce
     and (g−1)/g of the gathered result for an all-gather, g the group's
-    size (the JAX dry run's convention)."""
+    size (the JAX dry run's convention).  The port runs a reduce-scatter
+    as an all-reduce of the whole gradient and a narrow, so its wire
+    bytes are an all-reduce's (twice a ring reduce-scatter's)."""
     record: Dict[str, Dict[str, float]] = {}
     _RECORDS.append(record)
     try:
@@ -79,7 +82,7 @@ def note_collective(kind: str, t: torch.Tensor, group) -> None:
     g = dist.get_world_size(group)
     nbytes = float(t.numel() * t.element_size())
     full = nbytes * g if kind == "all-gather" else nbytes
-    wire = (2.0 if kind == "all-reduce" else 1.0) * (g - 1) / g * full
+    wire = (1.0 if kind == "all-gather" else 2.0) * (g - 1) / g * full
     for record in _RECORDS:
         row = record.setdefault(kind, {"count": 0.0, "operand_bytes": 0.0,
                                        "wire_bytes": 0.0})

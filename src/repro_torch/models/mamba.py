@@ -16,6 +16,15 @@ as explicit state.  The counterpart of ``repro/models/mamba.py``.
 The intra-chunk product ``bclm,bclmh,bcmhp->bclhp`` is taken in two steps:
 the (B, nc, Hm, L, L) weights ``g · decay`` first, then one batched
 product over (b, c, h), so no (B, nc, L, L, Hm, P) intermediate is built.
+
+Under a mesh whose layout splits ``mamba_heads`` (over the model axis, as
+GSPMD lays out the JAX ``mamba_layer``), each rank computes its heads:
+``w_zx`` column-parallel, the SSD and the gated per-head norm on local
+heads, ``w_out`` row-parallel.  B, C and Δt come from the replicated
+``w_bcdt`` and feed every rank's heads, so they pass
+:func:`~repro_torch.parallel.collectives.copy_to` (identity forward,
+all-reduce backward): every replicated leaf's gradient is then whole and
+the same bits on every model rank.
 """
 from __future__ import annotations
 
@@ -26,6 +35,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.api import ModelConfig, ParamDef
 from repro_torch.models.common import rmsnorm
+from repro_torch.parallel.collectives import copy_to, reduce_from
+from repro_torch.parallel.sharding import Sharder
 
 CHUNK = 128
 
@@ -138,20 +149,30 @@ def mamba_layer(params, x: torch.Tensor, cfg: ModelConfig, sharder=None, *,
     s == 1), returning the new state (h float32 in ``state.h``'s dtype,
     the conv histories in the compute dtype); else (out, None).
 
-    ``sharder``: the layer's leaves are replicated in the run-time layout
-    (``mamba_heads`` is not split yet), so under a model axis every rank
-    computes the whole layer on its rows, with no collective."""
+    ``sharder``: under a mesh whose layout splits ``mamba_heads``, the
+    leaves with that axis (and the state's ``h`` and ``conv_x``) hold this
+    rank's heads, x is replicated over the heads' group and the output is
+    all-reduced over it (tensor parallelism); where the divisibility
+    fallback replicates the heads, every rank computes the whole layer
+    with no collective."""
     dt_ = cfg.dtype
     b, s, d = x.shape
     hm, p, n = cfg.mamba_heads, cfg.mamba_head_dim, cfg.ssm_state
+    sharder = sharder or Sharder()
+    split = sharder.split("mamba_heads", hm)
+    groups = sharder.groups(split.axes)
+    hl = hm // split.size                    # this rank's heads
+    h_lo = split.index * hl
 
-    zx = (x @ params["w_zx"].to(dt_).reshape(d, hm * 2 * p)) \
-        .view(b, s, hm, 2 * p)
+    zx = (copy_to(x, groups) @ params["w_zx"].to(dt_).reshape(d, hl * 2 * p)) \
+        .view(b, s, hl, 2 * p)
     z, xin = zx[..., :p], zx[..., p:]
     bcdt = x @ params["w_bcdt"].to(dt_)
     bproj = bcdt[..., :n]
     cproj = bcdt[..., n:2 * n]
-    dt_raw = bcdt[..., 2 * n:]
+    # Δt of every head, used for this rank's: the gradient of the other
+    # columns comes from the other ranks
+    dt_raw = copy_to(bcdt[..., 2 * n:], groups)[..., h_lo:h_lo + hl]
 
     xin, nhx = _causal_conv(xin, params["conv_x"].to(dt_),
                             None if state is None else state.conv_x)
@@ -160,12 +181,13 @@ def mamba_layer(params, x: torch.Tensor, cfg: ModelConfig, sharder=None, *,
     cproj, nhc = _causal_conv(cproj, params["conv_C"].to(dt_),
                               None if state is None else state.conv_C)
     xin = F.silu(xin)
-    bproj = F.silu(bproj)
-    cproj = F.silu(cproj)
+    # B and C feed every rank's heads
+    bproj = copy_to(F.silu(bproj), groups)
+    cproj = copy_to(F.silu(cproj), groups)
     dt_soft = F.softplus(dt_raw.float() + params["dt_bias"].float())
 
     h0 = state.h if state is not None else torch.zeros(
-        (b, hm, n, p), dtype=dt_soft.dtype, device=x.device)
+        (b, hl, n, p), dtype=dt_soft.dtype, device=x.device)
 
     if s == 1:
         # decode: the exact single-step recurrence
@@ -193,7 +215,9 @@ def mamba_layer(params, x: torch.Tensor, cfg: ModelConfig, sharder=None, *,
     y = y + params["D_skip"].float()[None, None, :, None] * xin.float()
     y = (y * F.silu(z.float())).to(dt_)                         # gate
     y = rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps)
-    out = y.reshape(b, s, hm * p) @ params["w_out"].to(dt_).reshape(hm * p, d)
+    out = reduce_from(
+        y.reshape(b, s, hl * p) @ params["w_out"].to(dt_).reshape(hl * p, d),
+        groups)
 
     new_state = None
     if state is not None:
@@ -202,12 +226,13 @@ def mamba_layer(params, x: torch.Tensor, cfg: ModelConfig, sharder=None, *,
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, dtype=torch.float32, *,
-                     device="cuda", layers: Optional[int] = None
-                     ) -> MambaState:
+                     device="cuda", layers: Optional[int] = None,
+                     heads: Optional[int] = None) -> MambaState:
     """Zero state for ``batch`` rows; with ``layers``, stacked on a leading
-    axis of that many blocks (the model's cache layout)."""
-    hm, p, n, k = (cfg.mamba_heads, cfg.mamba_head_dim, cfg.ssm_state,
-                   cfg.mamba_conv)
+    axis of that many blocks (the model's cache layout); ``heads``: the
+    heads this rank holds (default all)."""
+    hm = cfg.mamba_heads if heads is None else heads
+    p, n, k = cfg.mamba_head_dim, cfg.ssm_state, cfg.mamba_conv
     lead = (batch,) if layers is None else (layers, batch)
 
     def zeros(*shape):

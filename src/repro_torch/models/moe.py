@@ -167,10 +167,11 @@ def _batch_size(mesh) -> int:
 
 
 def _whole(w: torch.Tensor, d: ParamDef, sharder: Sharder) -> torch.Tensor:
-    """``w``, this rank's block of the leaf ``d``, gathered whole (this
-    rank's slice of the gradient flows back: the whole weight feeds
-    replicated work)."""
-    for dim, s in enumerate(sharder.layout(d.axes, d.shape)):
+    """``w``, this rank's block of the leaf ``d`` as the layer computes
+    (:meth:`Sharder.compute_layout`: after the FSDP gather), gathered
+    whole (this rank's slice of the gradient flows back: the whole weight
+    feeds replicated work)."""
+    for dim, s in enumerate(sharder.compute_layout(d.axes, d.shape)):
         w = gather_from(w, dim, sharder.groups(s.axes))
     return w
 

@@ -21,10 +21,16 @@ projects the frames.
 :func:`~repro_torch.parallel.sharding.make_sharder`) computes what the
 model computes on one device: every rank passes the same global batch
 and keeps its rows (the ``batch`` axis's layout: data parallelism); each
-layer holds its blocks of the parameters (:meth:`Model.init` cuts them
-leaf by leaf) and runs tensor parallel over heads, KV heads, FFN, vocab
-and experts where the layout splits them, with the all-reduces written
-out.  ``sharder=None`` keeps every single-device path as it was.
+rank stores its blocks of the parameters in the JAX layout
+(:meth:`Model.init` cuts them leaf by leaf), cut over the data axis too
+(FSDP): each pattern block's parameters are gathered over the data axis
+at the top of :func:`_apply_block` (inside the recomputed function under
+``remat``, so the gathered weights live while their block runs), the
+embedding, the final norms and the frontend projection at their own use.
+Each layer runs tensor parallel over heads, KV heads, FFN, vocab,
+experts and Mamba heads where the layout splits them, with the
+all-reduces written out.  ``sharder=None`` keeps every single-device path
+as it was.
 """
 from __future__ import annotations
 
@@ -123,7 +129,12 @@ def _apply_block(cfg: ModelConfig, sharder: Sharder,
     float32: the block's summed MoE [aux loss, z-loss]).  A layer with
     ``cross_attn`` attends, after its mixer, to ``enc_out`` (B, S_enc, d),
     non-causal; its K/V are projected from ``enc_out`` at every call.
-    ``rows``: the global batch's row count (x holds this rank's rows)."""
+    ``rows``: the global batch's row count (x holds this rank's rows).
+    The block's parameters are FSDP-gathered here first
+    (:meth:`Sharder.fsdp_gather`)."""
+    rows = x.shape[0] if rows is None else rows
+    params_block = sharder.fsdp_gather(params_block,
+                                       block_defs(cfg, pattern), rows)
     aux = torch.zeros(2, dtype=torch.float32, device=x.device)
     new_caches: Dict[str, Any] = {}
     for i, spec in enumerate(pattern):
@@ -238,9 +249,16 @@ class Model:
         self.cfg = cfg
         self.sharder = sharder if sharder is not None else Sharder()
         self.device = torch.device(device)
+        self._defs = model_defs(cfg)
 
     def defs(self):
         return model_defs(self.cfg)
+
+    def _whole(self, params, name: str, rows: int):
+        """``params[name]`` (a top-level leaf or subtree: the embedding,
+        a final norm, the frontend projection) FSDP-gathered for a
+        (micro)batch of ``rows`` rows, at its use."""
+        return self.sharder.fsdp_gather(params[name], self._defs[name], rows)
 
     def specs(self):
         return param_specs(self.defs())
@@ -274,13 +292,14 @@ class Model:
         token embeddings, after the projected ``prefix_embeds`` (B, P, d)
         for a ``vision`` frontend (S = P + tokens).  This rank's rows."""
         cfg = self.cfg
-        x = embed_tokens(params["embed"], self._rows(batch["tokens"]), cfg,
-                         self.sharder)
+        rows = batch["tokens"].shape[0]
+        x = embed_tokens(self._whole(params, "embed", rows),
+                         self._rows(batch["tokens"]), cfg, self.sharder)
         if cfg.frontend == "vision":
             pe = self._rows(self._batch_input(batch, "prefix_embeds")) \
                 .to(cfg.dtype)
-            x = torch.cat([pe @ params["frontend_proj"].to(cfg.dtype), x],
-                          dim=1)
+            proj = self._whole(params, "frontend_proj", rows)
+            x = torch.cat([pe @ proj.to(cfg.dtype), x], dim=1)
         return self._scaled(x)
 
     @staticmethod
@@ -296,13 +315,15 @@ class Model:
         takes as ``enc_out``)."""
         cfg = self.cfg
         frames = self._batch_input(batch, "frame_embeds")
+        rows = frames.shape[0]
         x = self._rows(frames).to(cfg.dtype)
         if cfg.frontend == "audio":
-            x = x @ params["frontend_proj"].to(cfg.dtype)
+            x = x @ self._whole(params, "frontend_proj", rows).to(cfg.dtype)
         x, _, _ = _run_stack(cfg, self.sharder, cfg.encoder_pattern,
                              params["enc_blocks"], x, self._positions(x),
-                             None, rows=frames.shape[0])
-        return rmsnorm(params["enc_final_norm"], x, cfg.norm_eps)
+                             None, rows=rows)
+        return rmsnorm(self._whole(params, "enc_final_norm", rows), x,
+                       cfg.norm_eps)
 
     def _encoder_output(self, params, batch):
         return self._encode(params, batch) if self.cfg.is_encoder_decoder \
@@ -316,6 +337,7 @@ class Model:
         encoder-decoder model; optional ``positions``, ``segments``.
         Under a mesh the logits are this rank's rows and vocab block."""
         cfg = self.cfg
+        rows = batch["tokens"].shape[0]
         x = self._embed_inputs(params, batch)
         positions = self._rows(batch.get("positions"))
         if positions is None:
@@ -324,10 +346,16 @@ class Model:
         x, _, aux = _run_stack(cfg, self.sharder, cfg.pattern,
                                params["blocks"], x, positions,
                                self._rows(batch.get("segments")),
-                               enc_out=enc_out,
-                               rows=batch["tokens"].shape[0])
-        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return unembed(params["embed"], x, cfg, self.sharder), aux
+                               enc_out=enc_out, rows=rows)
+        return self._logits(params, x, rows), aux
+
+    def _logits(self, params, x: torch.Tensor, rows: int) -> torch.Tensor:
+        """The final norm and the unembedding of the decoder's output x
+        (this rank's rows and vocab block)."""
+        x = rmsnorm(self._whole(params, "final_norm", rows), x,
+                    self.cfg.norm_eps)
+        return unembed(self._whole(params, "embed", rows), x, self.cfg,
+                       self.sharder)
 
     def forward(self, params, batch) -> torch.Tensor:
         """The logits of :meth:`forward_with_aux`."""
@@ -355,7 +383,8 @@ class Model:
         """Stacked per-block caches on the model's device for a global
         batch of ``batch`` rows: KV caches in the compute dtype for
         attention layers, a float32 ``MambaState`` for Mamba layers; under
-        a mesh, this rank's rows and KV heads (:meth:`cache_spec_axes`)."""
+        a mesh, this rank's rows, KV heads and Mamba heads
+        (:meth:`cache_spec_axes`)."""
         cfg = self.cfg
         nb = cfg.num_blocks
         rows = batch // self.sharder.split("batch", batch).size
@@ -363,10 +392,14 @@ class Model:
             // self.sharder.split("kv_heads", cfg.num_kv_heads).size
         shape = (nb, rows, kv, max_len, cfg.head_dim)
 
+        hm = cfg.mamba_heads // self.sharder.split(
+            "mamba_heads", cfg.mamba_heads).size
+
         def one(spec: LayerSpec):
             if spec.mixer == "mamba":
                 return mamba_lib.init_mamba_state(
-                    cfg, rows, torch.float32, device=self.device, layers=nb)
+                    cfg, rows, torch.float32, device=self.device, layers=nb,
+                    heads=hm)
             return KVCache(
                 torch.zeros(shape, dtype=cfg.dtype, device=self.device),
                 torch.zeros(shape, dtype=cfg.dtype, device=self.device),
@@ -410,9 +443,8 @@ class Model:
                                  params["blocks"], x, self._positions(x),
                                  None, cache,
                                  self._encoder_output(params, batch), rows)
-        x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
         return cache, self._whole_logits(
-            unembed(params["embed"], x, cfg, self.sharder), rows)
+            self._logits(params, x[:, -1:], rows), rows)
 
     @torch.no_grad()
     def decode_step(self, params, token: torch.Tensor, cache, pos: int,
@@ -428,13 +460,12 @@ class Model:
                                   "step needs enc_out")
         rows = token.shape[0]
         token = self._rows(token)
-        x = self._scaled(embed_tokens(params["embed"], token, cfg,
-                                      self.sharder))
+        x = self._scaled(embed_tokens(self._whole(params, "embed", rows),
+                                      token, cfg, self.sharder))
         positions = torch.full(token.shape, int(pos), dtype=torch.int64,
                                device=token.device)
         x, cache, _ = _run_stack(cfg, self.sharder, cfg.pattern,
                                  params["blocks"], x, positions, None, cache,
                                  enc_out, rows)
-        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return cache, self._whole_logits(
-            unembed(params["embed"], x, cfg, self.sharder), rows)
+        return cache, self._whole_logits(self._logits(params, x, rows),
+                                         rows)

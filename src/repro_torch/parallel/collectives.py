@@ -13,6 +13,10 @@ layer cuts its work over the group (Megatron's f and g):
   as well, which on a replicated output multiplies it by the group size.
 * :func:`gather_from` — all-gather forward, this rank's slice backward:
   a sharded tensor made whole for replicated work downstream.
+* :func:`fsdp_gather` — all-gather forward over the batch mesh axes of a
+  parameter stored FSDP-cut, reduce-scatter backward: each rank of those
+  axes computed its own rows with the whole weight, so the parameter's
+  gradient is the sum of their partials, of which a rank keeps its slice.
 
 ``groups`` is a tuple of process groups (one per mesh axis of the split;
 a sum over several axes runs over each in turn); an empty tuple makes
@@ -88,6 +92,47 @@ class _GatherFrom(torch.autograd.Function):
                 + dist.get_rank(group)
         return grad.narrow(ctx.dim, index * ctx.block,
                            ctx.block).contiguous(), None, None
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cuts):
+        ctx.cuts = cuts
+        ctx.blocks = tuple(x.shape[dim] for dim, _, _ in cuts)
+        for dim, groups, _ in cuts:
+            for group in reversed(groups):
+                x = all_gather_dim(x, dim, group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        # the reduce-scatter, as an all-reduce and a narrow (one code path
+        # for gloo and NCCL): the sum over every summed group first, then
+        # this rank's slice of each gathered dimension
+        out = grad.contiguous().clone()
+        for _, groups, summed in ctx.cuts:
+            for group, add in zip(groups, summed):
+                if add:
+                    note_collective("reduce-scatter", out, group)
+                    dist.all_reduce(out, group=group)
+        for (dim, groups, _), block in zip(ctx.cuts, ctx.blocks):
+            index = 0
+            for group in groups:
+                index = index * dist.get_world_size(group) \
+                    + dist.get_rank(group)
+            out = out.narrow(dim, index * block, block)
+        return out.contiguous(), None
+
+
+def fsdp_gather(x: torch.Tensor, cuts: Sequence) -> torch.Tensor:
+    """``x``, a parameter block stored cut over batch mesh axes, made
+    whole over them.  ``cuts``: (dimension, groups, summed) per gathered
+    dimension, ``groups`` in the split's row-major order (the block order
+    of :meth:`Sharder.split`) and ``summed`` a flag per group: whether the
+    backward sums the gradient over it (the batch is split over that axis,
+    so each rank holds a partial) or, where every rank of the group
+    computed the same rows, only takes this rank's slice."""
+    return _FsdpGather.apply(x, tuple(cuts)) if cuts else x
 
 
 def copy_to(x: torch.Tensor, groups: Sequence) -> torch.Tensor:

@@ -16,13 +16,18 @@ resolve without 256 ranks.
 
 Where the JAX package hands a spec to GSPMD, the port keeps local blocks
 and writes the collectives out (:mod:`repro_torch.parallel.collectives`).
-The run-time layout (:meth:`Sharder.layout`) is the resolved spec with two
-axes not sharded yet: the parameters' ``"embed": "data"`` (their FSDP form;
-parameters are replicated over the batch axes) and ``mamba_heads`` (Mamba
-layers compute replicated on every rank).  Which collective runs is read
+The run-time layout (:meth:`Sharder.layout`) is the resolved spec itself,
+divisibility fallback included: every parameter, optimizer moment and
+cache leaf holds the block of the JAX ``NamedSharding.shard_shape``.
+Parameters store their ``"embed": "data"`` dimension cut over the batch
+mesh axes (FSDP, ZeRO-3); a layer computes on the blocks of
+:meth:`Sharder.compute_layout`, where :meth:`Sharder.fsdp_gather` has
+made those dimensions whole again (its backward is the reduce-scatter of
+the gradient), so the layers' tensor parallelism over the model axis is
+the same with or without a data axis.  Which collective runs is read
 from the resolved layout, never from the architecture's name; a dimension
-that the divisibility fallback replicates is computed whole on every rank,
-with no collective.
+that the divisibility fallback replicates is computed whole on every
+rank, with no collective.
 """
 from __future__ import annotations
 
@@ -43,8 +48,8 @@ DEFAULT_RULES: Dict[str, MeshAxes] = {
     "seq_shard": "model",      # opt-in sequence parallelism
     # "embed" is the d_model dim of weight matrices: sharding it over the
     # data axis gives 2-D (data × model) fully-sharded parameters and
-    # optimizer state (ZeRO-3/FSDP); the port's run-time layout keeps
-    # parameters replicated over the batch axes for now
+    # optimizer state (ZeRO-3/FSDP): Sharder.fsdp_gather makes a block's
+    # parameters whole over the data axis where a layer uses them
     "embed": "data",
     "heads": "model",
     "kv_heads": "model",
@@ -61,8 +66,6 @@ DEFAULT_RULES: Dict[str, MeshAxes] = {
 }
 
 BATCH_AXES = ("pod", "data")
-# logical axes the run-time layout keeps replicated (see the module doc)
-RUNTIME_REPLICATED = ("mamba_heads",)
 
 
 class MeshShape:
@@ -196,26 +199,102 @@ class Sharder:
     def layout(self, axes: Sequence[Optional[str]],
                shape: Sequence[int]) -> Tuple[Split, ...]:
         """Each dimension's :class:`Split` at run time: the resolved spec
-        with ``RUNTIME_REPLICATED`` axes replicated and, except on the
-        ``batch`` axis, the batch mesh axes dropped."""
+        (how each rank stores its block)."""
+        return self._layout(axes, shape, stored=True)
+
+    def compute_layout(self, axes: Sequence[Optional[str]],
+                       shape: Sequence[int]) -> Tuple[Split, ...]:
+        """The splits a layer computes in: :meth:`layout` with every
+        dimension that :meth:`fsdp_gather` gathers made whole over the
+        batch mesh axes (the model-axis split stays)."""
+        return self._layout(axes, shape, stored=False)
+
+    def _layout(self, axes, shape, stored: bool) -> Tuple[Split, ...]:
         if self.mesh is None:
             return (REPLICATED,) * len(shape)
         if len(axes) != len(shape):
             raise ValidationError(f"{len(axes)} axes for rank-{len(shape)} "
                                   "shape")
-        return tuple(self.split(a, d) for a, d in zip(axes, shape))
+        return tuple(self._split(a, d, stored) for a, d in zip(axes, shape))
 
-    def _split_axes(self, axis: Optional[str], dim: int
+    def _split_axes(self, axis: Optional[str], dim: int, stored: bool = True
                     ) -> Tuple[Tuple[str, ...], int]:
         """The mesh axes logical ``axis`` (global size ``dim``) is split
-        over at run time, and their shard count."""
-        if self.mesh is None or axis in RUNTIME_REPLICATED:
+        over, and their shard count: stored, the resolved spec's entry;
+        else less the batch mesh axes that the FSDP gather takes away."""
+        if self.mesh is None:
             return (), 1
         present = _entry_axes(self._resolve(axis, dim))
-        if axis != "batch":
-            present = tuple(t for t in present if t not in BATCH_AXES)
+        if not stored:
+            present = present[:len(present) - len(self._fsdp_axes(axis,
+                                                                   present))]
         sizes = mesh_sizes(self.mesh)
         return present, math.prod(sizes[t] for t in present)
+
+    @staticmethod
+    def _fsdp_axes(axis: Optional[str], present: Tuple[str, ...]
+                   ) -> Tuple[str, ...]:
+        """The batch mesh axes of a dimension's split that the FSDP gather
+        gathers: those of every logical axis but ``batch``.  They must
+        come last in the split (row-major blocks: gathering them gives the
+        block of the axes before them), else :class:`ValidationError`."""
+        if axis == "batch":
+            return ()
+        tail = tuple(t for t in present if t in BATCH_AXES)
+        if tail and present[len(present) - len(tail):] != tail:
+            raise ValidationError(
+                f"logical axis {axis!r} splits over {present}: the batch "
+                f"mesh axes {BATCH_AXES} must come after the others")
+        return tail
+
+    def _fsdp_dims(self, axes: Sequence[Optional[str]],
+                   shape: Sequence[int]
+                   ) -> Tuple[Tuple[int, Tuple[str, ...]], ...]:
+        """(dimension, batch mesh axes) of each dimension of a leaf that
+        :meth:`fsdp_gather` gathers (splits of size 1 left out)."""
+        out = []
+        sizes = mesh_sizes(self.mesh) if self.mesh is not None else {}
+        for dim, s in enumerate(self.layout(axes, shape)):
+            gathered = tuple(t for t in self._fsdp_axes(axes[dim], s.axes)
+                             if sizes[t] > 1)
+            if gathered:
+                out.append((dim, gathered))
+        return tuple(out)
+
+    def fsdp_gather(self, params, defs, rows: int):
+        """The FSDP gather of a tree of blocks (``defs``: its ParamDef
+        tree, global shapes): each leaf whose layout splits a dimension
+        other than ``batch`` over the batch mesh axes is all-gathered over
+        those axes alone, so that it holds its :meth:`compute_layout`
+        block; the other leaves are returned as they are.  Backward
+        (:func:`~repro_torch.parallel.collectives.fsdp_gather`) sums the
+        gradient over each gathered axis that splits the (micro)batch of
+        ``rows`` rows (each rank holds its rows' share) and keeps this
+        rank's slice: a reduce-scatter.  Collective: every rank of those
+        axes calls it, in the same order."""
+        if self.mesh is None:
+            return params
+        from repro_torch.parallel.collectives import fsdp_gather
+        split_rows = set(self.split("batch", rows).axes)
+
+        def one(t, d):
+            cuts = tuple((dim, self.groups(names),
+                          tuple(n in split_rows for n in names))
+                         for dim, names in self._fsdp_dims(d.axes, d.shape))
+            return fsdp_gather(t, cuts) if cuts else t
+        return _map_tree(one, params, defs,
+                         is_leaf=lambda x: isinstance(x, torch.Tensor))
+
+    def grad_sum_groups(self, axes: Sequence[Optional[str]],
+                        shape: Sequence[int], rows: int) -> Tuple[object, ...]:
+        """The groups that a gradient block of a leaf (logical ``axes``,
+        global ``shape``) is still to be summed over after the backward of
+        a (micro)batch of ``rows`` rows: the batch's split axes (each rank
+        holds its rows' share) less those its FSDP gather summed it
+        over."""
+        cut = {a for _, names in self._fsdp_dims(axes, shape) for a in names}
+        return self.groups(tuple(a for a in self.split("batch", rows).axes
+                                 if a not in cut))
 
     def block_shape(self, axes: Sequence[Optional[str]],
                     shape: Sequence[int]) -> Tuple[int, ...]:
@@ -228,9 +307,14 @@ class Sharder:
                      for a, d in zip(axes, shape))
 
     def split(self, axis: Optional[str], dim: int) -> Split:
-        """One dimension of :meth:`layout`: logical ``axis`` of global size
-        ``dim``."""
-        present, size = self._split_axes(axis, dim)
+        """How a layer's dimension, logical ``axis`` of global size
+        ``dim``, is cut when it computes: one dimension of
+        :meth:`compute_layout` (the ``batch`` axis, and every axis with no
+        batch mesh axis in its split, as :meth:`layout` cuts it)."""
+        return self._split(axis, dim, stored=False)
+
+    def _split(self, axis: Optional[str], dim: int, stored: bool) -> Split:
+        present, size = self._split_axes(axis, dim, stored)
         if size == 1:
             return REPLICATED              # no axis, or axes of size 1
         sizes = mesh_sizes(self.mesh)

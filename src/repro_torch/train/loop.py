@@ -21,12 +21,15 @@ by autograd, then AdamW's update written into the parameters in place.
 
 Under a mesh (a model with a sharder) every rank draws the same global
 batch and the model keeps its rows; each rank's loss is the global
-mean, so its gradient holds its own rows' share: after the microbatch
-accumulation the gradients are summed over the batch's data group (every
-leaf is replicated over the batch axes at run time), the global norm
-all-reduces the squares of split leaves (:func:`~repro_torch.train.
-optimizer.global_norm`), and checkpoints hold the gathered arrays, in the
-JAX layout, written by rank 0; a restore cuts each rank's blocks.
+mean, so its gradient holds its own rows' share.  A leaf stored cut over
+a batch mesh axis (FSDP) has its gradient summed over that axis by the
+reduce-scatter of its gather's backward; after the microbatch
+accumulation each leaf's gradient is summed over the batch axes that do
+not cut it (:func:`data_parallel_sum`).  The global norm all-reduces the
+squares of split leaves (:func:`~repro_torch.train.optimizer.
+global_norm`), AdamW updates each rank's blocks in place, and
+checkpoints hold the gathered arrays, in the JAX layout, written by rank
+0; a restore cuts each rank's blocks.
 """
 from __future__ import annotations
 
@@ -123,12 +126,16 @@ def make_grad_accum_loss(model: Model, microbatches: int):
 
 
 def data_parallel_sum(grads, model: Model, rows: int):
-    """``grads`` summed over the data group that splits a (micro)batch of
-    ``rows`` rows (``grads`` itself where the batch is not split)."""
-    groups = model.sharder.groups(model.sharder.split("batch", rows).axes)
-    if not groups:
+    """``grads`` (this rank's blocks) summed over the batch mesh axes that
+    split a (micro)batch of ``rows`` rows, less those a leaf is stored
+    cut over: the FSDP gather's backward summed it over them already
+    (``grads`` itself where the batch is not split)."""
+    sharder = model.sharder
+    if not sharder.split("batch", rows).axes:
         return grads
-    return tree_map(lambda g: all_reduce_sum(g, groups), grads)
+    return tree_map(lambda g, d: all_reduce_sum(
+        g, sharder.grad_sum_groups(d.axes, d.shape, rows)), grads,
+        model.defs())
 
 
 def make_train_step(model: Model, opt: AdamW, microbatches: int = 1):

@@ -5,7 +5,6 @@ meshes (the JAX side over ``AbstractMesh``es, as in
 in a fake world, in a subprocess (the fake process group is the
 process's default group)."""
 import json
-import math
 import os
 import pathlib
 import subprocess
@@ -29,9 +28,7 @@ from repro.train.optimizer import cosine_schedule as jcosine
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config
 from repro_torch.launch import steps
 from repro_torch.models import Model
-from repro_torch.models.api import iter_leaves
-from repro_torch.parallel.sharding import (BATCH_AXES, RUNTIME_REPLICATED,
-                                           MeshShape, make_sharder)
+from repro_torch.parallel.sharding import MeshShape, make_sharder
 from repro_torch.train.optimizer import AdamW, cosine_schedule
 
 jax.config.update("jax_platform_name", "cpu")
@@ -67,27 +64,12 @@ def _port_leaves(tree, prefix=""):
     return out
 
 
-def _runtime_block(spec, axes, shape, sizes):
-    """The block of the run-time layout from the JAX spec: batch mesh axes
-    only on the ``batch`` axis, ``mamba_heads`` replicated."""
-    out = []
-    for entry, axis, dim in zip(tuple(spec) + (None,) * len(shape), axes,
-                                shape):
-        names = () if entry is None else \
-            (entry,) if isinstance(entry, str) else tuple(entry)
-        if axis in RUNTIME_REPLICATED:
-            names = ()
-        elif axis != "batch":
-            names = tuple(n for n in names if n not in BATCH_AXES)
-        out.append(dim // math.prod(sizes[n] for n in names))
-    return tuple(out)
-
-
 @pytest.mark.parametrize("mesh", sorted(MESHES))
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_sds_blocks_equal_jax_shard_shapes(arch, mesh):
+    """Every params, opt, batch, cache, token, enc_out and scalar leaf's
+    block is the JAX ``shard_shape``, FSDP and Mamba heads included."""
     sizes, names = MESHES[mesh]
-    size_of = dict(zip(names, sizes))
     cfg, jcfg = get_config(arch), jget_config(arch)
     sharder = make_sharder(cfg, MeshShape(sizes, names))
     jsharder = jmake_sharder(jcfg, AbstractMesh(sizes, names))
@@ -97,11 +79,6 @@ def test_sds_blocks_equal_jax_shard_shapes(arch, mesh):
     b, s = shape.global_batch, shape.seq_len
     opt = AdamW(cosine_schedule(3e-4, 100, 10_000))
     jopt = JAdamW(jcosine(3e-4, 100, 10_000))
-    param_axes = {p: d.axes for p, d in iter_leaves(model.defs())}
-    cache_axes = {}
-    for name, state in model.cache_spec_axes().items():
-        for field, axes in zip(state._fields, state):
-            cache_axes[f"{name}/{field}"] = axes
     trees = {
         "params": (steps.sds_params(model, sharder),
                    jsteps.sds_params(jmodel, jsharder)),
@@ -117,7 +94,6 @@ def test_sds_blocks_equal_jax_shard_shapes(arch, mesh):
                     jsteps.sds_enc_out(jcfg, b, s, jsharder)),
         "scalar": (steps.sds_scalar(sharder), jsteps.sds_scalar(jsharder)),
     }
-    differ = set()
     for kind, (mine, theirs) in trees.items():
         mine, theirs = _port_leaves(mine), _jax_leaves(theirs)
         assert mine.keys() == theirs.keys(), kind
@@ -126,28 +102,10 @@ def test_sds_blocks_equal_jax_shard_shapes(arch, mesh):
             where = f"{kind}:{path}"
             assert leaf.shape == tuple(want.shape), where
             assert str(leaf.dtype).split(".")[-1] == want.dtype.name, where
-            jspec = want.sharding.spec
-            assert tuple(leaf.layout.spec) == tuple(jspec), where
-            shard = tuple(want.sharding.shard_shape(want.shape))
-            block = tuple(leaf.block.shape)
+            assert tuple(leaf.layout.spec) == tuple(want.sharding.spec), where
             assert leaf.block.device.type == "meta"
-            if block == shard:
-                continue
-            # the run-time layout's two queued axes: the parameters'
-            # "embed": "data" (FSDP) and Mamba's heads stay replicated
-            if kind in ("params", "opt"):
-                axes = param_axes[path.split("/", 1)[1]
-                                  if kind == "opt" else path]
-            else:
-                axes = cache_axes.get(path) if kind == "cache" else None
-            assert axes is not None, where
-            assert "embed" in axes or "mamba_heads" in axes, where
-            assert block == _runtime_block(jspec, axes, leaf.shape,
-                                           size_of), where
-            differ.add(kind)
-    assert differ <= {"params", "opt", "cache"}
-    if "mamba" not in {sp.mixer for sp in cfg.pattern}:
-        assert "cache" not in differ
+            assert tuple(leaf.block.shape) \
+                == tuple(want.sharding.shard_shape(want.shape)), where
 
 
 _CELLS = textwrap.dedent("""
