@@ -282,8 +282,11 @@ Phases (any failure exits non-zero and prints no result line):
     and depth on (data 1, model 4), each rank holding its blocks (drawn
     leaf by leaf from the seeded generator): one prefill wave of 4 x 2048
     tokens for ``moe_impl`` auto (which picks ``ep``: 40 % 4 = 0), ``cap``
-    and ``ffn``: last-position logits within ``MP_BF16_ERR_BOUND`` of a
-    float32 run of the same weights (relative to its max), greedy tokens equal to the one rank's wherever the
+    and ``ffn``, and on the einsum path ``gspmd`` (the experts over the
+    model axis, as the rules resolve) and ``gspmd capshard`` (the
+    capacity slots over it, the expert weights stored whole), each
+    mode's collectives per rank printed by kind: last-position logits
+    within ``MP_BF16_ERR_BOUND`` of a float32 run of the same weights (relative to its max), greedy tokens equal to the one rank's wherever the
     float32 run's top-1 margin exceeds twice both errors, the drop
     fraction and the tokens whose experts differ from one rank's (and the
     float32 run's) in each layer printed, 32 flash launches a prefill on
@@ -609,7 +612,16 @@ SHARDED_TIMEOUT_S = 300        # a collective waiting longer fails the rank
 MP_WORLD = 4
 MP_TIMEOUT_S = 600
 MP_SERVE = dict(arch="granite-moe-3b-a800m", rows=4, prompt_len=2048,
-                modes=("auto", "cap", "ffn"), seed=SEED + 110)
+                modes=("auto", "cap", "ffn", "gspmd", "gspmd capshard"),
+                seed=SEED + 110)
+# the config fields of each phase 21 (b) mode that is not a moe_impl:
+# "gspmd capshard" is the einsum path with the capacity slots split over
+# the model axis (the JAX layout sweep's v_capshard, the experts
+# replicated so that no mesh axis is mapped twice)
+MP_MODE_FIELDS = {"gspmd capshard": dict(
+    moe_impl="gspmd", sharding_overrides=(("experts", None),
+                                          ("expert_ffn", None),
+                                          ("moe_cap", "model")))}
 MP_SMOLLM_SEED = SEED + 111
 MP_TRAIN = dict(arch="smollm-360m", tp=2, batch=4, seq=4096, steps=3,
                 ckpt_every=2, seed=SEED + 120)
@@ -3994,6 +4006,14 @@ class Smoke:
                   f"rank {rec['ref_drop']:.5f}); flash launches per rank "
                   f"{[r['b'][mode]['launches'] for r in ranks]}; float32 "
                   f"2-layer twin rel {rec['twin_b'][mode]:.3e}", flush=True)
+            traffic = [r["b"][mode]["traffic"] for r in ranks]
+            print(f"phase 21 (b) {mode}: the prefill's collectives per "
+                  "rank (record_traffic; kind: counts, wire bytes of ranks "
+                  "0-3) " + "; ".join(
+                      f"{k}: {[t[k]['count'] for t in traffic]}, "
+                      f"{[t[k]['wire_bytes'] for t in traffic]}"
+                      for k in sorted({k for t in traffic for k in t})),
+                  flush=True)
         print(f"phase 21 (b) control: {MP_CONTROL_MODE} with rank 0's "
               f"partial left out of every layer's reduction, last logits "
               f"{rec['b_control']:.3e} from the float32 run (above the "
@@ -4949,6 +4969,14 @@ class dropped_partial:
         self.moe.reduce_from = self.real
 
 
+def mp_mode_config(cfg, mode: str):
+    """``cfg`` as phase 21 (b) runs ``mode`` (``MP_SERVE["modes"]``)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, **MP_MODE_FIELDS.get(
+        mode, {"moe_impl": mode}))
+
+
 def mp_flash_check(torch, cfg, sharder, rows: int, plen: int) -> float:
     """Phase 21 (b): the flash kernel at this rank's launch shapes in the
     granite prefill (its local q and KV heads, bf16, causal blocks of
@@ -4994,12 +5022,13 @@ def mp_layer_check(torch, cfg, sharder, midx: int) -> dict:
     output against a float64 evaluation of the einsum path's own bins,
     records and weights (its ``_apply`` arguments), within ``MP_LAYER_RATIO`` x the
     one-rank einsum path's error; then the control, one rank's partial
-    left out of every reduction, which must read above that bound.
-    Returns the errors relative to the reference's max."""
-    import dataclasses
-
+    left out of every reduction, which must read above that bound.  A
+    mode whose rules store the weights otherwise takes the same weights
+    in its own layout.  Returns the errors relative to the reference's
+    max."""
     from repro_torch.models import moe
     from repro_torch.models.api import init_params
+    from repro_torch.parallel.sharding import make_sharder
 
     defs = moe.moe_defs(cfg)
     rows, plen = MP_SERVE["rows"], MP_SERVE["prompt_len"]
@@ -5020,7 +5049,7 @@ def mp_layer_check(torch, cfg, sharder, midx: int) -> dict:
         one = moe.moe_layer(whole, x, cfg)[0]
     finally:
         moe._apply = real
-    xs, bt, w, (expert, slot, gate) = seen.pop("args")
+    xs, bt, w, (expert, slot, gate) = seen.pop("args")[:4]
     want = real(xs.double(), bt, {n: t.double() for n, t in w.items()},
                 (expert, slot, gate.double())).reshape(one.shape)
     scale = float(want.abs().max())
@@ -5030,11 +5059,16 @@ def mp_layer_check(torch, cfg, sharder, midx: int) -> dict:
     rec = {"one": err(one)}
     bound = MP_LAYER_RATIO * rec["one"]
     for impl in MP_SERVE["modes"]:
-        c = dataclasses.replace(cfg, moe_impl=impl)
-        rec[impl] = err(moe.moe_layer(local, x, c, sharder)[0])
+        c = mp_mode_config(cfg, impl)
+        sh, w = make_sharder(c, sharder.mesh), local
+        if sh.rules != sharder.rules:
+            w = init_params(defs, torch.float32, torch.Generator(
+                DEVICE).manual_seed(MP_LAYER_SEED), device=DEVICE,
+                local=sh.local)
+        rec[impl] = err(moe.moe_layer(w, x, c, sh)[0])
         with dropped_partial(moe, torch, midx):
-            rec[f"{impl} control"] = err(moe.moe_layer(local, x, c,
-                                                       sharder)[0])
+            rec[f"{impl} control"] = err(moe.moe_layer(w, x, c, sh)[0])
+        del w
         require(rec[impl] <= bound < rec[f"{impl} control"],
                 f"phase 21 (b) one MoE layer, {impl}: bf16 error "
                 f"{rec[impl]:.3e}, control {rec[f'{impl} control']:.3e}, "
@@ -5125,6 +5159,7 @@ def model_parallel_work(torch, rank: int, out) -> dict:
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
+    from repro_torch.core.collectives import record_traffic
     from repro_torch.kernels.flash_attention import KERNEL_WRAPPERS
     from repro_torch.launch import train as train_launcher
     from repro_torch.launch.mesh import make_elastic_mesh
@@ -5156,7 +5191,19 @@ def model_parallel_work(torch, rank: int, out) -> dict:
     base = Model(cfg, sharder=make_sharder(cfg, mesh4), device=DEVICE)
     midx = base.sharder.coordinate("model")
     mgroup = mesh4.get_group("model")
-    params = base.init(torch.Generator(DEVICE).manual_seed(MP_SERVE["seed"]))
+    held = {}
+
+    def weights(model):
+        """The seed's weights in ``model``'s layout; one layout's held at
+        a time (a mode whose rules store the expert weights replicated
+        holds 12 GB a rank)."""
+        if held.get("rules") != model.sharder.rules:
+            held.clear()
+            free()
+            held["params"] = model.init(torch.Generator(DEVICE).manual_seed(
+                MP_SERVE["seed"]))
+            held["rules"] = model.sharder.rules
+        return held["params"]
     ref = refs["serve"]
     toks = ref["tokens"].to(dev)
     rows, plen = toks.shape
@@ -5169,12 +5216,14 @@ def model_parallel_work(torch, rank: int, out) -> dict:
     real = moe.moe_layer
 
     def prefill(impl, control=False):
-        """One wave of ``moe_impl`` impl: (logits, ms, flash launches,
-        drop fractions, expert choices a layer, the number of layers whose
-        MoE output differs between the model ranks); with ``control``
-        rank 0's partial is left out of every layer's reduction."""
-        c = dataclasses.replace(cfg, moe_impl=impl)
+        """One wave of mode ``impl``: (logits, ms, flash launches, drop
+        fractions, expert choices a layer, the number of layers whose MoE
+        output differs between the model ranks, this rank's collective
+        traffic by kind); with ``control`` rank 0's partial is left out of
+        every layer's reduction."""
+        c = mp_mode_config(cfg, impl)
         model = Model(c, sharder=make_sharder(c, mesh4), device=DEVICE)
+        params = weights(model)
         drops, choices, bits = [], [], []
 
         def counted(*args, **kwargs):
@@ -5191,7 +5240,8 @@ def model_parallel_work(torch, rank: int, out) -> dict:
         try:
             drop = dropped_partial(moe, torch, midx) if control \
                 else contextlib.nullcontext()
-            with recorded_choices(moe, choices), drop:
+            with recorded_choices(moe, choices), drop, \
+                    record_traffic() as traffic:
                 _, logits = model.prefill(params, {"tokens": toks}, cache)
             sync()
         finally:
@@ -5202,13 +5252,13 @@ def model_parallel_work(torch, rank: int, out) -> dict:
         hi = all_reduce_max(bits, (mgroup,))
         lo = -all_reduce_max(-bits, (mgroup,))
         return (got, ms, flash.launches, drops, choices,
-                int((hi != lo).sum()))
+                int((hi != lo).sum()),
+                {k: dict(v) for k, v in traffic.items()})
 
     for impl in MP_SERVE["modes"]:
-        mode = moe.select_moe_mode(
-            dataclasses.replace(cfg, moe_impl=impl), mesh4,
-            moe._capacity(rows * plen, cfg))
-        got, ms, launches, drops, choices, differ = prefill(impl)
+        mode = moe.select_moe_mode(mp_mode_config(cfg, impl), mesh4,
+                                   moe._capacity(rows * plen, cfg))
+        got, ms, launches, drops, choices, differ, traffic = prefill(impl)
         rel = float((got - want).abs().max() / scale)
         err = float((got - exact).abs().max() / scale)
         same = got.argmax(dim=-1) == want.argmax(dim=-1)
@@ -5223,7 +5273,8 @@ def model_parallel_work(torch, rank: int, out) -> dict:
             "tokens_equal": int(same.sum()),
             "tokens_decided": int(decided.sum()),
             "drop": float(torch.stack(drops).mean()),
-            "routing_moved": moved, "routing_moved_float32": moved32}
+            "routing_moved": moved, "routing_moved_float32": moved32,
+            "traffic": traffic}
         if rank == 0:
             print(f"{tag} (b) {impl}: " + json.dumps(rec["b"][impl]),
                   flush=True)
@@ -5247,7 +5298,8 @@ def model_parallel_work(torch, rank: int, out) -> dict:
     rec["ref_drop"] = ref["drop"]
     rec["ref_routing_moved_float32"] = ref["routing_moved_float32"]
     sharder = base.sharder
-    del params, base
+    held.clear()
+    del base
     free()
     rec["flash_err"] = mp_flash_check(torch, cfg, sharder, rows, plen)
     rec["layer"] = mp_layer_check(torch, cfg, sharder, midx)
@@ -5259,12 +5311,11 @@ def model_parallel_work(torch, rank: int, out) -> dict:
         c = dataclasses.replace(cfg, num_layers=MP_TWIN["layers"],
                                 dtype=torch.float32)
         ref = refs["serve_twin"]
-        params = Model(c, sharder=make_sharder(c, mesh4),
-                       device=DEVICE).init(
-            torch.Generator(DEVICE).manual_seed(MP_TWIN["seed"]))
         for impl in MP_SERVE["modes"]:
-            ci = dataclasses.replace(c, moe_impl=impl)
+            ci = mp_mode_config(c, impl)
             model = Model(ci, sharder=make_sharder(ci, mesh4), device=DEVICE)
+            params = model.init(torch.Generator(DEVICE).manual_seed(
+                MP_TWIN["seed"]))
             _, logits = model.prefill(params, {"tokens": ref["tokens"].to(dev)},
                                       model.init_cache(MP_TWIN["rows"],
                                                        MP_TWIN["seq"] + 8))

@@ -11,20 +11,25 @@ Dispatch is matching the paper's way:
   4. records of rank below the capacity are scattered into (E, capacity)
      expert bins (the emission); the rest are dropped.
 
-The counterpart of the JAX package's ``repro/models/moe.py``.  Without a
-mesh (or where :func:`select_moe_mode` says "gspmd") the experts run on
-the einsum path: grouped products over every expert, the weights whole
-(gathered from their blocks under a mesh, every rank computing the
-same).  Under a mesh the manual modes of the JAX package's ``shard_map``
-bodies run on this rank's blocks, with the reductions written out:
+The counterpart of the JAX package's ``repro/models/moe.py``.  Under a
+mesh each rank computes its block of the expert work (the bins (b, E,
+cap, d), their products, the expert outputs), cut by one rule,
+:func:`work_splits`: on the einsum path (``moe_impl="gspmd"``, or no
+manual mode fits, or the batch does not split over the batch axes) as
+the JAX constraints ``("batch", "experts", "moe_cap", "expert_ffn")``
+resolve through the rules (``sharding_overrides`` included), in the
+manual modes as the JAX ``shard_map`` bodies fix them.  The reductions
+GSPMD or the bodies insert are written out:
 
-* ``ep``:  experts split over the model axis: the local experts' bins,
-           their GEMMs and a local scatter, then one all-reduce of the
-           (b, s, d) partial output;
-* ``cap``: the capacity slots split over the model axis, the (small)
-           expert weights gathered whole; the same all-reduce;
-* ``ffn``: the expert-FFN dim split; the all-reduce is over the
-           (b, E, cap, d) expert outputs, before the combine.
+* an ``experts`` split (``ep``; the einsum path where E divides the model
+  axis): the local experts' bins and weights, one all-reduce of the
+  (b, s, d) partial output;
+* a ``moe_cap`` split (``cap``; an override of ``moe_cap``): the local
+  capacity slots, the weights whole (``copy_to``: their gradient sums
+  over the split); the same all-reduce;
+* an ``expert_ffn`` split (``ffn``; the einsum path where E does not
+  divide the model axis): the local f-block of the weights, the
+  all-reduce over the (b, E, cap, d) expert outputs before the combine.
 
 All reductions run in the compute dtype, as the JAX ``psum`` does.  Aux
 outputs follow Switch / GShard: load-balancing loss and the router
@@ -47,11 +52,17 @@ from repro_torch.core.errors import ValidationError
 from repro_torch.models.api import ModelConfig, ParamDef
 from repro_torch.parallel.collectives import (all_reduce_sum, copy_to,
                                               gather_from, reduce_from)
-from repro_torch.parallel.sharding import (BATCH_AXES, Sharder,
-                                           mesh_axis_names, mesh_sizes)
+from repro_torch.parallel.sharding import (BATCH_AXES, REPLICATED, Sharder,
+                                           Split, mesh_axis_names,
+                                           mesh_sizes)
 
 MESH_MODES = ("ep", "cap", "ffn")
 MODES = ("auto", "gspmd") + MESH_MODES
+# the logical axes of the expert work (b, E, cap, f), to which the JAX
+# einsum path constrains its bins, products and expert outputs
+WORK_AXES = ("batch", "experts", "moe_cap", "expert_ffn")
+# the one of them that each manual body splits over the model axis
+_MANUAL_AXIS = {"ep": "experts", "cap": "moe_cap", "ffn": "expert_ffn"}
 
 
 def moe_defs(cfg: ModelConfig):
@@ -166,14 +177,32 @@ def _batch_size(mesh) -> int:
     return math.prod(sizes[a] for a in BATCH_AXES if a in sizes)
 
 
-def _whole(w: torch.Tensor, d: ParamDef, sharder: Sharder) -> torch.Tensor:
-    """``w``, this rank's block of the leaf ``d`` as the layer computes
-    (:meth:`Sharder.compute_layout`: after the FSDP gather), gathered
-    whole (this rank's slice of the gradient flows back: the whole weight
-    feeds replicated work)."""
-    for dim, s in enumerate(sharder.compute_layout(d.axes, d.shape)):
-        w = gather_from(w, dim, sharder.groups(s.axes))
-    return w
+def _block(t: torch.Tensor, d: ParamDef, sharder: Sharder, want=None,
+           work: Tuple[str, ...] = ()) -> torch.Tensor:
+    """The block of the leaf ``d`` that this rank's work uses, from ``t``,
+    its :meth:`Sharder.compute_layout` block.  ``want``: the work's
+    :class:`Split` of each logical axis it cuts (by default none: the
+    leaf whole).  A dimension cut as ``want`` cuts it is used as it is,
+    any other gathered whole (its gradient: this rank's slice) and cut
+    again.  Over the mesh axes of ``work`` (the work's split) that the
+    block does not follow, the leaf feeds only this rank's share of the
+    work: ``copy_to``, so that its gradient sums over them."""
+    follows, recut = (), []
+    for dim, (axis, have) in enumerate(zip(
+            d.axes, sharder.compute_layout(d.axes, d.shape))):
+        split = (want or {}).get(axis, REPLICATED)
+        if have == split:
+            follows += have.axes
+        else:
+            t = gather_from(t, dim, sharder.groups(have.axes))
+            recut.append((dim, split))
+    t = copy_to(t, sharder.groups(tuple(a for a in work
+                                        if a not in follows)))
+    for dim, split in recut:
+        if split.size > 1:
+            n = t.shape[dim] // split.size
+            t = t.narrow(dim, split.index * n, n)
+    return t
 
 
 def _apply(x, bin_token, w, records, ye_groups=()) -> torch.Tensor:
@@ -184,7 +213,7 @@ def _apply(x, bin_token, w, records, ye_groups=()) -> torch.Tensor:
     gate), each (b, s·k), every (token, choice) record's bin among these
     and its gate (0 for a record dropped or held by another rank).
     ``ye_groups``: the groups that sum the expert outputs before the
-    combine (``ffn``'s partial products over its block of f).
+    combine (an expert_ffn split's partial products over its f-block).
 
     The combine gathers each record's expert output and sums a token's k
     records in their order: no atomic adds, so an output that every rank
@@ -206,55 +235,54 @@ def _apply(x, bin_token, w, records, ye_groups=()) -> torch.Tensor:
     return contrib.reshape(b, s, -1, d).sum(dim=2)
 
 
-def _mesh_blocks(w, bin_token, records, cfg, sharder: Sharder, mode: str):
-    """The manual bodies' (``ep`` / ``cap`` / ``ffn``) cut of the work:
-    this rank's bins, records and weights from its blocks ``w`` and the
-    whole dispatch (bins (b, E, cap)).  Returns (bin_token, records, w,
-    the model groups)."""
-    e, cap = bin_token.shape[1], bin_token.shape[2]
-    msize = mesh_sizes(sharder.mesh)["model"]
-    mgroups = sharder.groups(("model",)) if msize > 1 else ()
-    midx = sharder.coordinate("model") if msize > 1 else 0
+def work_splits(cfg: ModelConfig, sharder: Sharder, mode: str, b: int,
+                cap: int) -> Tuple[Split, Split, Split]:
+    """The :class:`Split` of the experts, the capacity slots and the
+    expert FFN dimension of this rank's block of the expert work (b, E,
+    cap, f), b the global batch's dispatch groups: on the einsum path as
+    the JAX constraints ``WORK_AXES`` resolve (:class:`ValidationError`
+    where one mesh axis is mapped twice, as JAX refuses it); in a manual
+    mode as its ``shard_map`` spec fixes them (its axis over model)."""
+    shape = (b, cfg.num_experts, cap, cfg.d_ff)
+    if mode in MESH_MODES:
+        axis = _MANUAL_AXIS[mode]
+        dim = shape[WORK_AXES.index(axis)]
+        msize = mesh_sizes(sharder.mesh).get("model", 1)
+        if dim % msize:
+            raise ValidationError(f"{cfg.name}: moe_impl {mode!r} needs the "
+                                  f"{axis} dimension ({dim}) divisible by "
+                                  f"the model axis ({msize})")
+        rules = dict(sharder.rules, experts=None, moe_cap=None,
+                     expert_ffn=None)
+        rules[axis] = "model"
+        sharder = Sharder(sharder.mesh, rules)
+    return sharder.cut(WORK_AXES, shape)[1:]
+
+
+def _cut(w, bin_token, records, cfg, sharder: Sharder, splits):
+    """This rank's bins, records and weights, cut from the whole dispatch
+    (bins (b, E, cap)) and its weight blocks ``w`` as ``splits``
+    (experts, moe_cap, expert_ffn) say: the local experts (the expert
+    index shifted, a gate of 0 for other ranks'), the local slots, the
+    local f-block of the weights.  Returns (bin_token, records, w)."""
+    es, cs, fs = splits
+    *index, gate = records                  # each record's expert, slot
+    # the replicated gates, cut to this rank's bins
+    gate = copy_to(gate, sharder.groups(es.axes + cs.axes))
+    for dim, split in ((1, es), (2, cs)):
+        if split.size > 1:
+            n = bin_token.shape[dim] // split.size
+            lo = split.index * n
+            bin_token = bin_token.narrow(dim, lo, n)
+            i = index[dim - 1]
+            gate = torch.where((i >= lo) & (i < lo + n), gate, 0.0)
+            index[dim - 1] = i - lo
     defs = moe_defs(cfg)
-    expert, slot, gate = records
-    if mode != "ffn":       # the replicated gates, cut to this rank's bins
-        gate = copy_to(gate, mgroups)
-    if mode == "ep":
-        es = sharder.split("experts", e)
-        if es.size != msize or es.axes not in ((), ("model",)):
-            raise ValidationError(f"{cfg.name}: moe_impl 'ep' needs the "
-                                  f"experts ({e}) split over the model axis "
-                                  f"({msize}); the layout splits {es.axes}")
-        el = e // msize
-        e0 = es.index * el
-        bin_token = bin_token[:, e0:e0 + el]
-        gate = torch.where((expert >= e0) & (expert < e0 + el), gate, 0.0)
-        expert = expert - e0
-    elif mode == "cap":
-        if cap % msize:
-            raise ValidationError(f"{cfg.name}: moe_impl 'cap' needs the "
-                                  f"capacity {cap} divisible by the model "
-                                  f"axis ({msize})")
-        for name in w:      # one replicating gather in the compute dtype
-            w[name] = copy_to(_whole(w[name], defs[name], sharder), mgroups)
-        cl = cap // msize
-        c0 = midx * cl
-        bin_token = bin_token[..., c0:c0 + cl]
-        gate = torch.where((slot >= c0) & (slot < c0 + cl), gate, 0.0)
-        slot = slot - c0
-    else:                   # ffn: each rank its block of the expert FFN
-        fs = sharder.split("expert_ffn", cfg.d_ff)
-        if fs.size != msize:
-            if cfg.d_ff % msize:
-                raise ValidationError(f"{cfg.name}: moe_impl 'ffn' needs "
-                                      f"d_ff {cfg.d_ff} divisible by the "
-                                      f"model axis ({msize})")
-            fl = cfg.d_ff // msize
-            for name, dim in (("w_gate", 2), ("w_up", 2), ("w_down", 1)):
-                whole = copy_to(_whole(w[name], defs[name], sharder),
-                                mgroups)
-                w[name] = whole.narrow(dim, midx * fl, fl)
-    return bin_token, (expert, slot, gate), w, mgroups
+    work = es.axes + cs.axes + fs.axes
+    w = {name: _block(t, defs[name], sharder,
+                      {"experts": es, "expert_ffn": fs}, work)
+         for name, t in w.items()}
+    return bin_token, (*index, gate), w
 
 
 def moe_layer(params, x: torch.Tensor, cfg: ModelConfig,
@@ -289,7 +317,7 @@ def moe_layer(params, x: torch.Tensor, cfg: ModelConfig,
     bgroups = sharder.groups(sharder.split("batch", bglob).axes)
 
     defs = moe_defs(cfg)
-    router = _whole(params["router"].to(dt), defs["router"], sharder)
+    router = _block(params["router"].to(dt), defs["router"], sharder)
     logits = (x @ router).float()                             # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, choice = top_k(probs, k)                       # (B, S, k)
@@ -331,16 +359,16 @@ def moe_layer(params, x: torch.Tensor, cfg: ModelConfig,
         # batch axes, else the einsum path (e.g. batch-1 decode)
         if (bglob // g_rows) % _batch_size(mesh):
             mode = "gspmd"
+    # this rank's block of the expert work; the reductions that GSPMD
+    # inserts written out: the expert outputs summed over an expert_ffn
+    # split before the combine, the (b, s, d) partial output over an
+    # experts or moe_cap split
+    es, cs, fs = splits = work_splits(cfg, sharder, mode, bglob // g_rows,
+                                      cap)
     w = {name: params[name].to(dt) for name in ("w_gate", "w_up", "w_down")}
-    if mode in MESH_MODES:
-        bin_token, records, w, mgroups = _mesh_blocks(
-            w, bin_token, records, cfg, sharder, mode)
-        x = copy_to(x.to(dt), mgroups)
-        out = _apply(x, bin_token, w, records,
-                     mgroups if mode == "ffn" else ())
-        if mode != "ffn":   # partial over this rank's experts or slots
-            out = reduce_from(out, mgroups)
-    else:                   # the einsum path: the weights whole everywhere
-        w = {name: _whole(t, defs[name], sharder) for name, t in w.items()}
-        out = _apply(x, bin_token, w, records)
+    bin_token, records, w = _cut(w, bin_token, records, cfg, sharder,
+                                 splits)
+    x = copy_to(x.to(dt), sharder.groups(es.axes + cs.axes + fs.axes))
+    out = _apply(x, bin_token, w, records, sharder.groups(fs.axes))
+    out = reduce_from(out, sharder.groups(es.axes + cs.axes))
     return out.to(dt).reshape(b0, s0, d), aux

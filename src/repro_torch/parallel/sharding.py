@@ -133,6 +133,17 @@ def _entry_axes(entry: MeshAxes) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+def _unique(spec: PartitionSpec) -> PartitionSpec:
+    """``spec``, or :class:`ValidationError` where it names one mesh axis
+    on two dimensions."""
+    names = [a for entry in spec for a in _entry_axes(entry)]
+    twice = sorted({a for a in names if names.count(a) > 1})
+    if twice:
+        raise ValidationError(f"{spec!r} maps the mesh axes {twice} to "
+                              "more than one dimension")
+    return spec
+
+
 @dataclasses.dataclass
 class Sharder:
     """Turns logical axis names into specs; inert when mesh is None."""
@@ -174,21 +185,37 @@ class Sharder:
 
     def named(self, axes: Sequence[Optional[str]],
               shape: Optional[Sequence[int]] = None) -> Optional[Layout]:
+        """The :class:`Layout` of ``axes``; :class:`ValidationError` where
+        the spec maps one mesh axis to two dimensions (the JAX
+        ``NamedSharding`` raises ``DuplicateSpecError``)."""
         if self.mesh is None:
             return None
-        return Layout(self.mesh, self.spec(axes, shape))
+        return Layout(self.mesh, _unique(self.spec(axes, shape)))
 
     def constrain(self, x: torch.Tensor,
                   axes: Sequence[Optional[str]]) -> torch.Tensor:
         """The identity on a tensor laid out per ``axes`` (the port's
         layers keep their blocks local); raises on a rank mismatch, as the
-        JAX ``with_sharding_constraint`` wrapper does."""
+        JAX ``with_sharding_constraint`` wrapper does, and on a spec that
+        maps one mesh axis to two dimensions."""
         if self.mesh is None:
             return x
         if len(axes) != x.dim():
             raise ValidationError(f"{len(axes)} axes for rank-{x.dim()} "
                                   "array")
+        _unique(self.spec(axes, x.shape))
         return x
+
+    def cut(self, axes: Sequence[Optional[str]],
+            shape: Sequence[int]) -> Tuple[Split, ...]:
+        """How a layer cuts a tensor of global ``shape`` that the JAX
+        package constrains to ``axes``: each dimension's :class:`Split` of
+        the resolved spec (:meth:`layout`), the work GSPMD gives this rank.
+        :class:`ValidationError` where the spec maps one mesh axis to two
+        dimensions, as :meth:`constrain`."""
+        if self.mesh is not None:
+            _unique(self.spec(axes, shape))
+        return self.layout(axes, shape)
 
     def replicated(self) -> Optional[Layout]:
         if self.mesh is None:

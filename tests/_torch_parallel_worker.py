@@ -5,8 +5,8 @@ it got (outputs gathered whole, gradients summed over the data group and
 gathered).  Imports torch and the port only (the spawned ranks never load
 JAX).
 
-Jobs: ``layers`` (a world of 8, mesh 2 × 4: the MoE modes, context
-parallelism, the compressed reduction), ``model`` (a world of 4, mesh
+Jobs: ``layers`` (a world of 8, mesh 2 × 4: the MoE modes and the einsum
+path's work split, context parallelism, the compressed reduction), ``model`` (a world of 4, mesh
 2 × 2: whole reduced models), ``train`` (a world of 4: the training loop
 restored from a checkpoint, the two launchers), ``fsdp`` (a world of 4,
 meshes data 2 × model 2 and pod 2 × data 2 × model 1: the FSDP layout's
@@ -64,6 +64,23 @@ def moe_base(pkg_reduce, pkg_get):
         num_experts_per_token=2, moe_capacity_factor=8.0)
 
 
+# the capacity-slot split of the JAX layout sweep (``v_capshard`` of
+# benchmarks/hillclimb.py) with the experts replicated, so that no mesh
+# axis is mapped twice where E divides the model axis
+CAPSHARD = (("experts", None), ("expert_ffn", None), ("moe_cap", "model"))
+# the einsum path's cases on the mesh 2 x 4 whose work split is measured:
+# (config fields replaced on moe_base, the rows of x taken)
+EINSUM_CASES = {
+    "moe gspmd": ({"moe_impl": "gspmd"}, 4),
+    "moe gspmd capshard": ({"moe_impl": "gspmd",
+                            "sharding_overrides": CAPSHARD}, 4),
+    # 6 experts do not divide model 4: expert_ffn goes over model
+    "moe gspmd e6": ({"moe_impl": "gspmd", "num_experts": 6}, 4),
+    # one row does not split over data 2: ep falls back to the einsum path
+    "moe batch 1": ({"moe_impl": "ep"}, 1),
+}
+
+
 def model_config(name: str, pkg_reduce, pkg_get):
     arch, fields = MODEL_CASES[name]
     return dataclasses.replace(pkg_reduce(pkg_get(arch)), **fields)
@@ -78,8 +95,11 @@ def _tensors(tree):
 def _moe_case(mesh, cfg, params_np, x_np, grads: bool = True):
     """One moe_layer call on the FSDP-gathered blocks, as a model's block
     makes it: (out whole, aux, grads of sum(out²) + aux loss summed over
-    the data group and gathered); x in ``cfg.dtype``; without ``grads``
-    the whole output alone."""
+    the data group and gathered, and of the moe_layer call this rank's
+    collectives by kind and its flops by op); x in ``cfg.dtype``; without
+    ``grads`` the whole output alone.  With no mesh, one device's run."""
+    from torch.utils.flop_counter import FlopCounterMode
+
     sharder = make_sharder(cfg, mesh)
     defs = moe_lib.moe_defs(cfg)
     specs = param_specs(defs)
@@ -87,9 +107,12 @@ def _moe_case(mesh, cfg, params_np, x_np, grads: bool = True):
                       shard_params(_tensors(params_np), sharder, specs))
     x = torch.from_numpy(x_np).to(cfg.dtype)
     rows = x.shape[0]
-    out, aux = moe_lib.moe_layer(sharder.fsdp_gather(params, defs, rows),
-                                 sharder.local(x, ("batch", None, None)),
-                                 cfg, sharder, batch=rows)
+    gathered = sharder.fsdp_gather(params, defs, rows)
+    counter = FlopCounterMode(display=False)
+    with record_traffic() as traffic, counter:
+        out, aux = moe_lib.moe_layer(gathered,
+                                     sharder.local(x, ("batch", None, None)),
+                                     cfg, sharder, batch=rows)
     if not grads:
         return {"out": sharder.gather(out.detach(), ("batch", None, None),
                                       x.shape)}
@@ -104,7 +127,10 @@ def _moe_case(mesh, cfg, params_np, x_np, grads: bool = True):
                                                               torch.float32))
     whole = sharder.gather(out.detach(), ("batch", None, None), x.shape)
     return {"out": whole, "grads": grads,
-            "aux": {k: float(v) for k, v in aux.items()}}
+            "aux": {k: float(v) for k, v in aux.items()},
+            "traffic": {k: dict(v) for k, v in traffic.items()},
+            "flops": {str(op): int(n) for op, n
+                      in counter.get_flop_counts()["Global"].items()}}
 
 
 def _sum(t, groups):
@@ -129,11 +155,21 @@ def _layers(spec) -> dict:
             mesh, dataclasses.replace(base, moe_impl=impl,
                                       dtype=torch.bfloat16),
             spec["moe_params"], spec["moe_x"], grads=False)
-    # a batch of 1 row does not split over data 2: ep falls back to the
-    # einsum path, every rank computing the whole batch
-    out["moe batch 1"] = _moe_case(
-        mesh, dataclasses.replace(base, moe_impl="ep"), spec["moe_params"],
-        spec["moe_x"][:1])
+    out["einsum bf16"] = _moe_case(
+        None, dataclasses.replace(base, dtype=torch.bfloat16),
+        spec["moe_params"], spec["moe_x"], grads=False)
+    out["moe bf16 gspmd capshard"] = _moe_case(
+        mesh, dataclasses.replace(base, dtype=torch.bfloat16,
+                                  **EINSUM_CASES["moe gspmd capshard"][0]),
+        spec["moe_params"], spec["moe_x"], grads=False)
+    # the einsum path's work split as the JAX constraints resolve ("moe
+    # gspmd" above: the experts over model)
+    for key, (fields, rows) in EINSUM_CASES.items():
+        if key == "moe gspmd":
+            continue
+        cfg = dataclasses.replace(base, **fields)
+        params = spec["moe6_params" if cfg.num_experts == 6 else "moe_params"]
+        out[key] = _moe_case(mesh, cfg, params, spec["moe_x"][:rows])
     # dispatch groups of 4 rows shrink to 2 (so that they split over data
     # 2); capacity factor 1.0: drops, which depend on the groups
     out["moe group shrink"] = _moe_case(

@@ -5,7 +5,9 @@ sharded ``Model``) against the JAX package on the CPU.
   and cache leaf's resolved spec on meshes 16 × 16, 2 × 16 × 16 and 2 × 4
   equals the JAX ``make_sharder(cfg, AbstractMesh(...)).spec(axes,
   shape)`` entry for entry; ``rules_for_config`` and ``select_moe_mode``
-  agree.
+  agree; the MoE einsum path's activation specs of three MoE archs under
+  the JAX layout sweep's variants, and the refusal of a spec that maps
+  one mesh axis twice.
 * **Quantization** (in this process): ``quantize_int8`` /
   ``dequantize_int8`` bit for bit.
 * **Layers** (a gloo world of 8 CPU ranks, mesh data 2 × model 4,
@@ -13,7 +15,9 @@ sharded ``Model``) against the JAX package on the CPU.
   bodies on an Auto mesh of 8 host devices (one subprocess, built like
   ``repro.launch.mesh.make_host_mesh``; a bare ``jax.make_mesh`` makes
   Explicit axes): the MoE modes ``ep`` / ``cap`` / ``ffn`` / ``gspmd`` and
-  their gradients, the ``b % bs`` fall-back and the dispatch groups'
+  their gradients, the einsum path's cut of the expert work (experts,
+  capacity slots or expert FFN over model: each rank's flops and
+  collectives), the ``b % bs`` fall-back and the dispatch groups'
   shrink; ring and halo attention; ``compressed_psum``.
 * **Models** (a gloo world of 4 ranks, mesh data 2 × model 2): reduced
   smollm-360m, granite-moe-3b-a800m (``ep``), gemma2-2b, mamba2-2.7b,
@@ -38,6 +42,9 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 from jax.sharding import AbstractMesh
+from jax.sharding import NamedSharding as JaxNamedSharding
+from jax.sharding import PartitionSpec as JaxP
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduce_config as jax_reduce_config
@@ -50,17 +57,19 @@ from repro.parallel.sharding import make_sharder as jax_make_sharder
 from repro.parallel.sharding import rules_for_config as jax_rules
 from repro_torch.configs import ARCH_IDS, get_config, reduce_config
 from repro_torch.convert import model_params_from_arrays
+from repro_torch.core.errors import ValidationError
 from repro_torch.models import Model
 from repro_torch.models import moe
 from repro_torch.models.api import iter_leaves
 from repro_torch.models.transformer import model_defs
 from repro_torch.parallel import compression
-from repro_torch.parallel.sharding import (MeshShape, PartitionSpec,
+from repro_torch.parallel.sharding import (MeshShape, PartitionSpec, Sharder,
                                            make_sharder, rules_for_config)
 from repro_torch.train.loop import value_and_grad
 from _torch_model_parity import numpy_params
-from _torch_parallel_worker import (DECODE_STEPS, FLOAT64_TWINS, MODEL_CASES,
-                                    model_config, moe_base, run_world)
+from _torch_parallel_worker import (CAPSHARD, DECODE_STEPS, EINSUM_CASES,
+                                    FLOAT64_TWINS, MODEL_CASES, model_config,
+                                    moe_base, run_world)
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -175,6 +184,101 @@ def test_rules_and_moe_mode_equal_jax(arch, mesh):
                                            cap), (impl, cap)
 
 
+# the MoE layer's variants in the JAX layout sweep (benchmarks/
+# hillclimb.py): the rules as they are, the einsum path, the capacity
+# slots over model (``v_capshard``, which maps model twice where the rules
+# put the experts on it), and the einsum path with CAPSHARD
+MOE_VARIANTS = {
+    "baseline": {},
+    "gspmd": {"moe_impl": "gspmd"},
+    "capshard": {"sharding_overrides": (("expert_ffn", None),
+                                        ("moe_cap", "model"))},
+    "gspmd capshard": {"moe_impl": "gspmd", "sharding_overrides": CAPSHARD},
+}
+MOE_ARCHS = ("granite-moe-3b-a800m", "grok-1-314b", "jamba-1.5-large-398b")
+
+
+def _moe_constraints(cfg, rows: int):
+    """(axes, shape) of each tensor that the JAX einsum path constrains,
+    for ``rows`` dispatch groups of CACHE_LEN tokens."""
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    cap = moe._capacity(CACHE_LEN, cfg)
+    return [(("batch", "experts", "moe_cap", None), (rows, e, cap, d)),
+            (("batch", "experts", "moe_cap", "expert_ffn"),
+             (rows, e, cap, f)),
+            (moe.WORK_AXES, (rows, e, cap, f)),
+            (("batch", None, None), (rows, CACHE_LEN, d))]
+
+
+@pytest.mark.parametrize("variant", sorted(MOE_VARIANTS))
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_constraint_specs_equal_jax(arch, mesh, variant):
+    """The MoE activations' specs and block shapes equal the JAX
+    ``make_sharder(cfg, AbstractMesh).spec`` and ``NamedSharding``'s shard
+    shape; a spec that JAX refuses (one mesh axis on two dimensions)
+    raises :class:`ValidationError` in the port's ``named``,
+    ``constrain`` and ``cut``."""
+    sizes, names = MESHES[mesh]
+    fields = MOE_VARIANTS[variant]
+    cfg = dataclasses.replace(get_config(arch), **fields)
+    jcfg = dataclasses.replace(jax_get_config(arch), **fields)
+    sharder = make_sharder(cfg, MeshShape(sizes, names))
+    jmesh = AbstractMesh(sizes, names)
+    jsharder = jax_make_sharder(jcfg, jmesh)
+    refused = 0
+    for rows in (CACHE_ROWS, 1):
+        for axes, shape in _moe_constraints(cfg, rows):
+            spec = sharder.spec(axes, shape)
+            assert tuple(spec) == tuple(jsharder.spec(axes, shape)), axes
+            try:
+                jnamed = jsharder.named(axes, shape)
+            except Exception as exc:     # not a ValueError in JAX
+                assert type(exc).__name__ == "DuplicateSpecError", exc
+                for call in (lambda: sharder.named(axes, shape),
+                             lambda: sharder.constrain(
+                                 torch.empty(shape, device="meta"), axes),
+                             lambda: sharder.cut(axes, shape)):
+                    with pytest.raises(ValidationError, match="more than one"):
+                        call()
+                refused += 1
+                continue
+            assert sharder.named(axes, shape).spec == spec
+            assert sharder.block_shape(axes, shape) \
+                == tuple(jnamed.shard_shape(shape)), axes
+    # v_capshard maps model twice where the rules put the experts on it
+    assert bool(refused) == (variant == "capshard"
+                             and cfg.num_experts % sizes[-1] == 0)
+
+
+def test_a_mesh_axis_mapped_twice_is_refused_as_in_jax():
+    """``named`` / ``constrain`` of a spec that names one mesh axis on two
+    dimensions: JAX's ``NamedSharding`` raises ``DuplicateSpecError``, the
+    port :class:`ValidationError`; the same axes once each pass."""
+    sizes, names = (2, 4), ("data", "model")
+    rules = {"batch": "data", "experts": "model", "moe_cap": "model",
+             "expert_ffn": None}
+    sharder = Sharder(MeshShape(sizes, names), dict(rules))
+    axes = ("batch", "experts", "moe_cap", "expert_ffn")
+    shape = (4, 8, 16, 8)
+    spec = sharder.spec(axes, shape)
+    assert tuple(spec) == ("data", "model", "model", None)
+    with pytest.raises(Exception, match="duplicate") as exc:
+        JaxNamedSharding(AbstractMesh(sizes, names), JaxP(*spec))
+    assert exc.type.__name__ == "DuplicateSpecError"
+    with pytest.raises(ValidationError, match=r"\['model'\]"):
+        sharder.named(axes, shape)
+    with pytest.raises(ValidationError, match="more than one"):
+        sharder.constrain(torch.zeros(shape), axes)
+    with pytest.raises(ValidationError, match="more than one"):
+        sharder.constrain(torch.zeros((4, 8)), ("experts", "moe_cap"))
+    ok = Sharder(MeshShape(sizes, names), dict(rules, moe_cap=None))
+    assert ok.named(axes, shape).spec == PartitionSpec("data", "model",
+                                                       None, None)
+    t = torch.zeros(shape)
+    assert ok.constrain(t, axes) is t
+
+
 def test_sharder_without_a_mesh_is_inert():
     cfg = get_config("granite-moe-3b-a800m")
     sharder = make_sharder(cfg, None)
@@ -258,16 +362,16 @@ _REFERENCE = textwrap.dedent("""
               for k in ("router", "w_gate", "w_up", "w_down")}
     x = jnp.asarray(a["moe_x"])
 
-    def moe(tag, cfg, x, sharder):
+    def moe(tag, cfg, x, sharder, p=params):
         def loss(p):
             o, aux = moe_lib.moe_layer(p, x, cfg, sharder)
             return jnp.sum(o ** 2) + aux["moe_aux_loss"], (o, aux)
         fn = jax.jit(jax.value_and_grad(loss, has_aux=True))
         if sharder.mesh is None:
-            (_, (o, aux)), g = fn(params)
+            (_, (o, aux)), g = fn(p)
         else:
             with mesh:
-                (_, (o, aux)), g = fn(params)
+                (_, (o, aux)), g = fn(p)
         out[tag + "/out"] = o
         for k, v in g.items():
             out[tag + "/grad/" + k] = v
@@ -297,6 +401,22 @@ _REFERENCE = textwrap.dedent("""
     cfg = dataclasses.replace(base, moe_impl="ep", moe_group_rows=4,
                               moe_capacity_factor=1.0)
     moe("moe group shrink", cfg, x, make_sharder(cfg, mesh))
+    # the einsum path on the mesh: the capacity slots over model, and 6
+    # experts (which do not divide model 4: expert_ffn over model)
+    capshard = (("experts", None), ("expert_ffn", None),
+                ("moe_cap", "model"))
+    cfg = dataclasses.replace(base, moe_impl="gspmd",
+                              sharding_overrides=capshard)
+    moe("moe gspmd capshard", cfg, x, make_sharder(cfg, mesh))
+    forward("moe bf16 gspmd capshard",
+            dataclasses.replace(cfg, dtype=jnp.bfloat16),
+            make_sharder(cfg, mesh))
+    params6 = {k: jnp.asarray(a["moe6_" + k])
+               for k in ("router", "w_gate", "w_up", "w_down")}
+    cfg = dataclasses.replace(base, moe_impl="gspmd", num_experts=6)
+    moe("moe gspmd e6", cfg, x, make_sharder(cfg, mesh), params6)
+    moe("einsum e6", dataclasses.replace(base, num_experts=6), x, Sharder(),
+        params6)
 
     spec = cp_specs(mesh)
     q, k, v = (jnp.asarray(a[n]) for n in ("cp_q", "cp_k", "cp_v"))
@@ -330,16 +450,23 @@ _REFERENCE = textwrap.dedent("""
 """)
 
 
-def _moe_inputs():
-    rng = np.random.default_rng(27)
+def _moe_params(rng, e: int):
     cfg = moe_base(reduce_config, get_config)
-    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    d, f = cfg.d_model, cfg.d_ff
     params = {"router": rng.standard_normal((d, e)) / np.sqrt(d),
               "w_gate": rng.standard_normal((e, d, f)) / np.sqrt(d),
               "w_up": rng.standard_normal((e, d, f)) / np.sqrt(d),
               "w_down": rng.standard_normal((e, f, d)) / np.sqrt(f)}
-    params = {k: v.astype(np.float32) for k, v in params.items()}
-    return params, rng.standard_normal((4, 64, d)).astype(np.float32)
+    return {k: v.astype(np.float32) for k, v in params.items()}
+
+
+def _moe_inputs():
+    """(params of 4 experts, x, params of 6 experts)."""
+    rng = np.random.default_rng(27)
+    cfg = moe_base(reduce_config, get_config)
+    params = _moe_params(rng, cfg.num_experts)
+    x = rng.standard_normal((4, 64, cfg.d_model)).astype(np.float32)
+    return params, x, _moe_params(np.random.default_rng(30), 6)
 
 
 def _cp_inputs():
@@ -404,11 +531,12 @@ def runs(tmp_path_factory):
     """(layers: [8 ranks' results], model: [4 ranks' results], the JAX
     references of the layers)."""
     tmp = tmp_path_factory.mktemp("parallel")
-    params, x = _moe_inputs()
-    layer_spec = {"moe_params": params, "moe_x": x, **_cp_inputs(),
-                  "cp_cases": CP_CASES, **_comp_inputs()}
+    params, x, params6 = _moe_inputs()
+    layer_spec = {"moe_params": params, "moe_x": x, "moe6_params": params6,
+                  **_cp_inputs(), "cp_cases": CP_CASES, **_comp_inputs()}
     np.savez(tmp / "ref_in.npz",
              **{f"moe_{k}": v for k, v in params.items()}, moe_x=x,
+             **{f"moe6_{k}": v for k, v in params6.items()},
              **_cp_inputs(), **_comp_inputs(),
              cp_cases=np.array(CP_CASES, dtype=object))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
@@ -438,38 +566,44 @@ def _same_on_every_rank(ranks, key):
         assert torch.equal(res[key]["out"], ranks[0][key]["out"]), key
 
 
-@pytest.mark.parametrize("impl", ["ep", "cap", "ffn", "gspmd"])
+@pytest.mark.parametrize("impl", ["ep", "cap", "ffn", "gspmd",
+                                  "gspmd capshard", "gspmd e6"])
 def test_moe_mode_equals_jax(runs, impl):
+    """Each mode on the mesh against the JAX one on the Auto mesh and the
+    JAX einsum path on one device (of 6 experts for ``gspmd e6``)."""
     layers, _, ref = runs
     key = f"moe {impl}"
+    one = "einsum e6" if impl == "gspmd e6" else "einsum"
     got = layers[0][key]
     _same_on_every_rank(layers, key)
     np.testing.assert_allclose(got["out"].numpy(), ref[f"{key}/out"],
                                **MOE_TOL)
-    np.testing.assert_allclose(got["out"].numpy(), ref["einsum/out"],
+    np.testing.assert_allclose(got["out"].numpy(), ref[f"{one}/out"],
                                **MOE_TOL)
     for name, g in got["grads"].items():
         np.testing.assert_allclose(g.numpy(), ref[f"{key}/grad/{name}"],
                                    **MOE_GRAD_TOL, err_msg=name)
-        np.testing.assert_allclose(g.numpy(), ref[f"einsum/grad/{name}"],
+        np.testing.assert_allclose(g.numpy(), ref[f"{one}/grad/{name}"],
                                    **MOE_GRAD_TOL, err_msg=name)
     for name, v in got["aux"].items():
         np.testing.assert_allclose(v, ref[f"{key}/aux/{name}"], **MOE_TOL)
 
 
-@pytest.mark.parametrize("impl", ["ep", "cap", "ffn", "gspmd"])
+@pytest.mark.parametrize("impl", ["ep", "cap", "ffn", "gspmd",
+                                  "gspmd capshard"])
 def test_moe_mode_bf16_equals_jax(runs, impl):
     """In bf16 (the full-size compute dtype; the reductions in bf16 in
     both packages) each mode lies within MOE_BF16_ULPS bf16 units of the
     largest output from the JAX mode, and no further from the port's
-    einsum path than the JAX mode lies from the JAX einsum path, plus one
-    unit: ``ffn``'s partial products, rounded to bf16 before their sum,
-    add as much error in the port as in the reference."""
+    einsum path on one device (no mesh) than the JAX mode lies from the
+    JAX einsum path, plus one unit: ``ffn``'s partial products, rounded
+    to bf16 before their sum, add as much error in the port as in the
+    reference."""
     layers, _, ref = runs
     key = f"moe bf16 {impl}"
     _same_on_every_rank(layers, key)
     got = layers[0][key]["out"].float().numpy()
-    one = layers[0]["moe bf16 gspmd"]["out"].float().numpy()
+    one = layers[0]["einsum bf16"]["out"].float().numpy()
     unit = 2.0 ** -8 * np.abs(ref["einsum bf16"]).max()
     assert np.abs(got - ref[key]).max() <= MOE_BF16_ULPS * unit
     assert np.abs(got - one).max() \
@@ -478,9 +612,10 @@ def test_moe_mode_bf16_equals_jax(runs, impl):
 
 @pytest.mark.parametrize("key", ["moe batch 1", "moe group shrink"])
 def test_moe_fallback_and_group_shrink_equal_jax(runs, key):
-    """A batch of 1 row takes the einsum path on every rank; dispatch
-    groups of 4 rows shrink to 2 so that they split over data 2 (with
-    drops at capacity factor 1, which depend on the groups)."""
+    """A batch of 1 row takes the einsum path (each model rank its
+    experts, every data rank the same row); dispatch groups of 4 rows
+    shrink to 2 so that they split over data 2 (with drops at capacity
+    factor 1, which depend on the groups)."""
     layers, _, ref = runs
     got = layers[0][key]
     _same_on_every_rank(layers, key)
@@ -493,6 +628,51 @@ def test_moe_fallback_and_group_shrink_equal_jax(runs, key):
         np.testing.assert_allclose(v, ref[f"{key}/aux/{name}"], **MOE_TOL)
     if key == "moe group shrink":
         assert got["aux"]["moe_drop_fraction"] > 0
+
+
+# each EINSUM_CASES case's split of the expert work on data 2 x model 4
+# (the grouped batch rows' split times the experts / moe_cap /
+# expert_ffn split), and the all-gathers of its moe_layer call: the
+# router's alone, where the rules split the experts (32 x 1 float32 a
+# rank); the expert weights are never gathered
+EINSUM_SPLIT = {"moe gspmd": 2 * 4, "moe gspmd capshard": 2 * 4,
+                "moe gspmd e6": 2 * 4, "moe batch 1": 1 * 4}
+EINSUM_GATHER_BYTES = {"moe gspmd": [32 * 1 * 4], "moe gspmd capshard": [],
+                       "moe gspmd e6": [], "moe batch 1": [32 * 1 * 4]}
+
+
+def _bmm_flops(flops: dict) -> int:
+    return sum(n for op, n in flops.items() if op.split(".")[-1] == "bmm")
+
+
+@pytest.mark.parametrize("key", sorted(EINSUM_CASES))
+def test_moe_einsum_path_computes_this_ranks_block(runs, key):
+    """On the mesh, each rank's expert products (FlopCounterMode's bmm
+    flops of its moe_layer call) are the one-device einsum path's on the
+    same inputs over the split's size, as the JAX constraints cut them;
+    no expert weight is all-gathered."""
+    layers, _, _ = runs
+    fields, rows = EINSUM_CASES[key]
+    # one device: the einsum path, nothing cut
+    cfg = dataclasses.replace(moe_base(reduce_config, get_config),
+                              **dict(fields, moe_impl="gspmd",
+                                     sharding_overrides=()))
+    params, x, params6 = _moe_inputs()
+    params = params6 if cfg.num_experts == 6 else params
+    counter = FlopCounterMode(display=False)
+    with counter, torch.no_grad():
+        moe.moe_layer({k: torch.from_numpy(v) for k, v in params.items()},
+                      torch.from_numpy(x[:rows]), cfg)
+    whole = _bmm_flops({str(op): n for op, n
+                        in counter.get_flop_counts()["Global"].items()})
+    assert whole > 0
+    for res in layers:
+        assert _bmm_flops(res[key]["flops"]) * EINSUM_SPLIT[key] == whole
+        gathers = res[key]["traffic"].get("all-gather")
+        got = [] if gathers is None else [gathers["operand_bytes"]]
+        assert got == EINSUM_GATHER_BYTES[key]
+        if gathers is not None:
+            assert gathers["count"] == 1
 
 
 @pytest.mark.parametrize("case", sorted(CP_CASES))

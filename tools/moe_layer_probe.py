@@ -57,7 +57,7 @@ def run(rank: int, port: int, src: str, layers: int) -> None:
 
         def hooked(p, x, cf, sharder=None, **kw):
             res = real(p, x, cf, sharder, **kw)
-            whole = {n: moe._whole(t, defs[n], sharder) for n, t in p.items()}
+            whole = {n: moe._block(t, defs[n], sharder) for n, t in p.items()}
             one = real(whole, x, dataclasses.replace(cf, moe_impl="auto"))[0]
             bits = res[0].contiguous().view(torch.int16).sum(dtype=torch.int64)
             hi, lo = bits.clone(), -bits
