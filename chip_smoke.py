@@ -91,10 +91,12 @@ Phases (any failure exits non-zero and prints no result line):
    ``tests/test_kernels_attention.py`` (GQA 2:1 and 4:1, MQA with 5 heads),
    windows of 64, 100 and 128, softcap 30 and 50, segments, q_offset > 0, a
    global block, 32-blocks, 512-blocks (eight q tiles per block, with and
-   without a window), D = 64, 128 and 256, D = 16 and 96, which the
-   wrapper zero-pads to the next built width, and D = 257, 320, 512 and
+   without a window), D = 64, 128 and 256, D = 16, which the wrapper
+   zero-pads to the next built width, D = 96, which runs its own wgmma +
+   TMA kernel (``flash_attention_fwd_d96_kernel``), and D = 257, 320, 512 and
    593, which run the wide bf16 kernel (every feature at D = 320; the
-   float32 cases all run the float32 kernel); and non-causal: Sq == Skv
+   float32 cases all run the float32 kernel), one launch a case; and
+   non-causal: Sq == Skv
    at 64-blocks with GQA and segments, at 512-blocks with D = 64 and 96,
    Sq = 1024 / Skv = 2048 and Sq = 2048 / Skv = 1024 at 512-blocks, a
    window with a global block, and D = 128, 256 (softcap 50) and 320
@@ -111,9 +113,12 @@ Phases (any failure exits non-zero and prints no result line):
     one (window 4096), each beside the same function in one
     ``flex_attention`` call (compiled; a tanh score_mod and a causal or
     sliding-window block mask), the yardstick.  Then row 6c: phi-3-vision's
-    widths (B = 4, H = Hkv = 32, S = 2048, D = 96 zero-padded to 128,
-    causal 512-blocks) through ``ops.flash_attention`` (one launch,
-    counted), beside SDPA.  Then row 6d: the wide bf16 kernel at
+    widths (B = 4, H = Hkv = 32, S = 2048, D = 96, causal 512-blocks) on
+    the wgmma + TMA kernel through ``ops.flash_attention`` (one launch,
+    counted), timed over the whole wrapper call, beside SDPA and, in turns
+    (new, padded, padded, new), the padded route that served D = 96 before
+    it (zero-padding to 128, the D = 128 instance, the slice back).  Then
+    row 6d: the wide bf16 kernel at
     B = 1, H = Hkv = 8, S = 4096, D = 512, causal 512-blocks, through
     ``ops.flash_attention`` (one launch, counted), beside SDPA; row 6e:
     the same shapes in float32 on the float32 kernel (within 2e-5 of its
@@ -198,12 +203,13 @@ Phases (any failure exits non-zero and prints no result line):
     (the 8-layer hybrid block) and grok-1-314b (softcap 30) card against
     CPU the same way (64-token prompts, 4 decode steps).
 17. phi-3-vision-4.2b at full width and depth (32 layers, 32 heads of 96:
-    bf16 flash through the wrapper's zero-padding to 128, row 6c; random
+    bf16 flash on the wgmma + TMA kernel at D = 96, row 6c; random
     float32 weights from a seeded generator, bf16 compute) through
     ``Model.prefill`` and ``decode_step`` (its serving engine takes token
     prompts only): 4 sequences of 576 ``prefix_embeds`` and 1472 text
     tokens (2048 positions), two prefills (cold, warm) with 32 flash
-    launches each, counted at the ``kernels.ops`` call site, then 16
+    launches each, counted at the ``kernels.ops`` call site, every one on
+    the ``"wgmma"`` route, then 16
     greedy decode steps (max_len 2560): tokens below the vocabulary,
     finite logits; prefill ms, decode ms a step, tokens/s of the warm
     wave; a profiled prefill and 4 decode steps (device time by class,
@@ -351,6 +357,9 @@ the last line, by the card's name and power limit.
 ``python3 chip_smoke.py --model-parallel-cards`` runs phase 21 alone with
 its world of 4 on NCCL across 4 cards, one rank a card.
 
+``python3 chip_smoke.py --flash-d96 [SRC]`` runs row 6c and phase 17
+alone the same way, on the route that port takes for bf16 at D = 96.
+
 ``python3 chip_smoke.py --flash-f32-rows [SRC]`` runs rows 6e and 6f
 alone (each beside SDPA in float32 with TF32 off and its bound), on the
 port under SRC (another checkout's ``src/``, default this one's), so
@@ -486,9 +495,10 @@ FLASH_CASES = (
     (2, 4, 2, 128, 128, 256, 32, {"window": 40, "softcap": 50.0,
                                   "segments": True}),
     (1, 4, 2, 512, 1536, 256, 512, {"window": 700, "softcap": 50.0}),
-    # widths with no instance, zero-padded by the wrapper in bf16: 16 -> 64
-    # and 96 -> 128 (phi-3-vision), with every feature, causal, and 512-blocks
-    # with a window and q_offset
+    # a width with no instance, zero-padded by the wrapper in bf16 (16 ->
+    # 64), with every feature; D = 96 (phi-3-vision), which runs its own
+    # wgmma + TMA kernel in bf16: causal, every feature with GQA 3:1 at
+    # 32-blocks, and 512-blocks with a window and q_offset
     (1, 4, 2, 128, 128, 16, 32, {"window": 40, "softcap": 30.0,
                                  "segments": True}),
     (1, 4, 2, 256, 256, 96, 64, {}),
@@ -508,7 +518,7 @@ FLASH_CASES = (
     (2, 2, 1, 96, 96, 593, 32, {"window": 40}),
     # non-causal (an encoder's self-attention, cross-attention): Sq == Skv
     # at 64-blocks with GQA and segments; at 512-blocks, D = 64 and D = 96
-    # (padded); seamless-m4t-medium's cross-attention (Sq = 1024, Skv =
+    # (the wgmma kernel); seamless-m4t-medium's cross-attention (Sq = 1024, Skv =
     # 2048) and queries longer than the keys (Sq = 2048, Skv = 1024) at
     # 512-blocks; a window with a global block; D = 128, 256 (softcap) and
     # 320 (the wide kernel) with Sq != Skv
@@ -577,6 +587,9 @@ SOURCES = dict.fromkeys(
     "src/repro_torch/kernels/csrc/sbm_sweep.cu")
 SOURCES["bitmatch"] = "src/repro_torch/kernels/csrc/bitmatch.cu"
 SOURCES["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
+# bf16 at D = 96 (row 6c, phase 17): the wgmma + TMA kernel
+SOURCES["flash_attention_wgmma"] = \
+    "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
 # phase 14: the DDM surface.  (a) the matching benchmark's bf/rank cell
 # (benchmarks/matching.py: n = m = 1e5, alpha = 100, uniform, L = 1e6);
 # grid_count's cap that holds every cell there, and bf_count's block
@@ -727,7 +740,7 @@ SWEEP_KERNELS = ("block_sums_kernel", "emission_kernel",
                  "delta_bitmask_kernel", "emit_pairs_kernel")
 # SASS opcodes counted per kernel: tensor cores, cp.async, ldmatrix, and
 # the float32 kernel's FFMA and shared loads
-SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "LDSM", "FFMA", "LDS")
+SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "LDSM", "FFMA", "LDS", "UTMALDG")
 
 
 class SmokeFailure(Exception):
@@ -847,6 +860,10 @@ def wide_flash_dynamic_smem(d: int) -> int:
 # width: kF32SmemBytes of flash_attention.cu (a three-stage ring of Q/K
 # chunks, 2 x 64 rows x 36 floats, and P^T, 64 x 68 floats)
 F32_FLASH_SMEM = (3 * 2 * 64 * 36 + 64 * 68) * 4
+# dynamic shared memory of the D = 96 wgmma kernel (kSmemBytes of
+# flash_attention_wgmma.cu): 1,024 B of alignment slack, Q (128 x 96
+# bf16), three stages of K and V (128 x 96 each), the mbarriers
+WGMMA_FLASH_SMEM = 1024 + 128 * 96 * 2 + 3 * 2 * 128 * 96 * 2 + 64
 
 
 def attention_layers(cfg) -> int:
@@ -926,7 +943,8 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
-    rows_only = argv[:1] == ["--flash-f32-rows"]
+    rows_only = argv[0] if argv[:1] in (["--flash-f32-rows"],
+                                        ["--flash-d96"]) else None
     src = pathlib.Path(argv[1]).resolve() if rows_only and len(argv) > 1 \
         else ROOT / "src"
     if not torch.cuda.is_available():
@@ -937,8 +955,10 @@ def main(argv=None) -> int:
               "missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    if rows_only:
+    if rows_only == "--flash-f32-rows":
         return flash_f32_rows(torch, src)
+    if rows_only == "--flash-d96":
+        return flash_d96(torch, src)
     if argv[:1] == ["--model-parallel-cards"]:
         return model_parallel_cards(torch)
     if argv[:1] == ["--layout"]:
@@ -1012,6 +1032,33 @@ def model_parallel_cards(torch) -> int:
     smoke.model_parallel(card, cards=True)
     print("timings_ms: " + json.dumps(
         {k: round(v, 3) for k, v in smoke.phase_ms.items()}))
+    print(card)
+    return 0
+
+
+def flash_d96(torch, src) -> int:
+    """``chip_smoke.py --flash-d96 [SRC]``: row 6c and phase 17 alone, on
+    the port whose ``src/`` directory is SRC (default this checkout's), on
+    whichever route that port takes for bf16 at D = 96 (``"wgmma"`` here,
+    ``"padded"`` before), so that two commits are timed in one call on
+    one card."""
+    card = card_line()
+    print(card, flush=True)
+    smoke = Smoke(torch)
+    smoke.build()
+    route = smoke.flash_route(96, torch.bfloat16)[0]
+    smoke.flash_via_ops("flash_attention_d96", PHI3_FLASH,
+                        "phi-3-vision widths", SEED + 18, route, True)
+    smoke.serve_phi3(route)
+    prof = smoke.phi3_numbers["profile"]["prefill"]
+    print(json.dumps({
+        "src": str(src), "card": card, "route": route,
+        "kernels": list(smoke.rows.values()),
+        "phase_17": {k: smoke.phi3_numbers[k] for k in (
+            "prefill_ms", "flash_calls_device_ms_per_prefill",
+            "flash_launches_by_route", "flash_share_of_prefill_device_time")},
+        "prefill_device_ms_per_step": prof["device_ms_per_step"]},
+        default=str))
     print(card)
     return 0
 
@@ -1215,6 +1262,18 @@ class Smoke:
                             and res["sass"]["LDGSTS"] > 0,
                             f"{name}: no tensor-core or cp.async instruction "
                             f"in its SASS: {res['sass']}")
+            if name == "flash_attention_fwd_d96_kernel":
+                res["dynamic_smem"] = WGMMA_FLASH_SMEM
+                if sass is not None:
+                    res["sass"] = sass.get(name, dict.fromkeys(SASS_OPS, 0))
+                    # wgmma fed by TMA, no mma.sync and no cp.async
+                    require(res["sass"]["HGMMA"] > 0
+                            and res["sass"]["UTMALDG"] > 0
+                            and res["sass"]["HMMA"] == 0
+                            and res["sass"]["LDGSTS"] == 0,
+                            f"{name}: no wgmma or TMA instruction, or "
+                            f"mma.sync or cp.async, in its SASS: "
+                            f"{res['sass']}")
             if name.startswith("flash_attention_fwd_f32_kernel"):
                 res["dynamic_smem"] = F32_FLASH_SMEM
                 if sass is not None:
@@ -2020,7 +2079,7 @@ class Smoke:
     def flash_battery(self):
         torch = self.torch
         gen = torch.Generator().manual_seed(SEED + 8)
-        worst, noncausal = {}, {}
+        worst, noncausal, routes = {}, {}, {}
         for dtype in (torch.float32, torch.bfloat16):
             bf16 = dtype == torch.bfloat16
             for B, H, Hkv, Sq, Skv, D, blk, feats in FLASH_CASES:
@@ -2033,21 +2092,28 @@ class Smoke:
                                                    generator=gen), dim=1) \
                         .values.to(torch.int32).to(self.dev)
                 key = str(dtype)[6:]
+                route = self.flash_route(D, dtype)[0]
                 what = (f"{key} B={B} H={H}/{Hkv} Sq={Sq} Skv={Skv} D={D} "
-                        f"block={blk} {feats}")
+                        f"block={blk} {feats} ({route})")
                 tols = (FLASH_TOL[key],) + ((flash_full_tol(v),) if bf16
                                             else ())
+                before = self.flash.launches
                 _, err = self.flash_check(
                     what, q, k, v, seg, blk, window=feats.get("window"),
                     softcap=feats.get("softcap"),
                     num_global_blocks=feats.get("num_global_blocks", 0),
                     tols=tols, causal=feats.get("causal", True))
+                require(self.flash.launches == before + 1,
+                        f"flash {what}: {self.flash.launches - before} "
+                        f"launches, not 1")
+                routes[route] = routes.get(route, 0) + 1
                 worst[key] = max(worst.get(key, 0.0), err)
                 if not feats.get("causal", True):
                     noncausal[key] = max(noncausal.get(key, 0.0), err)
         print(f"flash battery: {len(FLASH_CASES)} cases x 2 dtypes, kernel "
               f"== plain == dense oracle (bf16: scores of std "
-              f"{FLASH_FULL_Q_GAIN}, also within flash_full_tol); max "
+              f"{FLASH_FULL_Q_GAIN}, also within flash_full_tol), one "
+              f"launch each, cases by route {routes}; max "
               f"|kernel - plain| {worst}, of the "
               f"{sum(not f.get('causal', True) for *_, f in FLASH_CASES)} "
               f"non-causal cases {noncausal}", flush=True)
@@ -2158,7 +2224,7 @@ class Smoke:
               f"{lib_err:.4g}", flush=True)
         del q, k, v, got, lib_out
         self.flash_via_ops("flash_attention_d96", PHI3_FLASH,
-                           "phi-3-vision widths", SEED + 18, "padded", True)
+                           "phi-3-vision widths", SEED + 18, "wgmma", True)
         self.flash_via_ops("flash_attention_d512", WIDE_FLASH,
                            "wide head", SEED + 20, "wide", False)
         self.flash_via_ops("flash_attention_d512_f32", WIDE_FLASH,
@@ -2217,8 +2283,10 @@ class Smoke:
         """A flash row at widths no config's path runs (``c``): kernel ==
         plain (``flash_row``), the wrapper's ``route`` for the width, one
         counted launch through the public ``ops.flash_attention``, SDPA on
-        the same tensors beside it.  Rows 6c (D = 96, zero-padded to 128,
-        timed over the whole wrapper call as SDPA is over its own), 6d
+        the same tensors beside it.  Rows 6c (D = 96 on the wgmma + TMA
+        kernel, timed over the whole wrapper call as SDPA is over its own,
+        and in turns beside the padded route it replaced:
+        ``padded_route_turns``), 6d
         (D = 512, the wide bf16 kernel), 6e (D = 512 in float32, the
         float32 kernel, beside SDPA with TF32 off) and 6f (smollm-360m's
         prefill shapes in float32)."""
@@ -2264,11 +2332,61 @@ class Smoke:
                         f"{'' if bf16 else ', float32'})",
                    launches=self.flash.launches, max_abs_err=err,
                    library_ms=lib_ms)
+        if route == "wgmma":
+            row["source"] = SOURCES["flash_attention_wgmma"]
+            row.update(self.padded_route_turns(q, k, v, blk, got))
         self.rows[key] = row
         print(f"  sdpa (is_causal{'' if bf16 else ', TF32 off'}; the same "
               f"function): {row['library_ms']:.4f} ms, max |kernel - sdpa| "
               f"{lib_err:.4g}; ops.flash_attention launches 1; {card_line()}",
               flush=True)
+
+    def padded_route_turns(self, q, k, v, blk: int, got) -> dict:
+        """Row 6c's width on the route that served it before the wgmma
+        kernel: q, k, v zero-padded to 128 (``_pad_head_dim``), the D = 128
+        instance with the scale of the true width, the output sliced back,
+        as one wrapper-level call.  Its output against the wgmma kernel's
+        within ``flash_full_tol`` (both are held to the plain version
+        already); the two whole calls timed by CUDA events in turns (new,
+        padded, padded, new), and the padded call's kernel alone."""
+        from repro_torch.kernels.flash_attention import _pad_head_dim
+
+        torch = self.torch
+        S, D = q.shape[2], q.shape[3]
+        idx, cnt, _ = self.ops.build_block_structure(S, S, block_q=blk,
+                                                     block_k=blk)
+        sched = (torch.from_numpy(idx), torch.from_numpy(cnt))
+        kw = dict(scale=D ** -0.5, causal=True, block_q=blk, block_k=blk)
+
+        def new():
+            return self.flash(q, k, v, *sched, **kw)
+
+        def padded():
+            pq, pk, pv = _pad_head_dim(q, k, v, 128)
+            return self.flash(pq, pk, pv, *sched, **kw)[..., :D].contiguous()
+
+        out = padded()
+        torch.cuda.synchronize()
+        atol, rtol = flash_full_tol(v)
+        diff = (out.float() - got.float()).abs()
+        require(bool((diff <= atol + rtol * got.float().abs()).all()),
+                f"flash D={D}: the padded route differs from the wgmma "
+                f"kernel by {float(diff.max())}")
+        turns = [(name, self.time_ms(fn, 20)) for name, fn in
+                 (("wgmma", new), ("padded", padded), ("padded", padded),
+                  ("wgmma", new))]
+        pq, pk, pv = _pad_head_dim(q, k, v, 128)
+        kernel_ms = self.time_ms(lambda: self.flash(pq, pk, pv, *sched, **kw),
+                                 20, "flash_attention_fwd_bf16_kernel")
+        res = {"turns_ms": turns, "padded_ms": [t for n, t in turns
+                                                if n == "padded"],
+               "padded_kernel_ms": kernel_ms}
+        print(f"  in turns, whole wrapper calls (CUDA events): "
+              + ", ".join(f"{n} {t:.4f}" for n, t in turns)
+              + f" ms; the padded route's D = 128 kernel alone "
+              f"{kernel_ms:.4f} ms ({self.timing_source.get('flash_attention_fwd_bf16_kernel')}); "
+              f"max |padded - wgmma| {float(diff.max()):.4g}", flush=True)
+        return res
 
     def serve_path(self, spec: dict, seed: int):
         """One ``ServeEngine`` run of ``spec`` at full width and depth;
@@ -2786,7 +2904,7 @@ class Smoke:
         frames = spec.get("frames", 0)
         want = prefill_flash_calls(cfg, spec["prompt_len"], frames)
         vocab = cfg.vocab_size
-        by_call, events = {}, []
+        by_call, events, by_route = {}, [], {}
 
         def counted(q, k, *args, causal=True, **kw):
             before = wrapper.launches
@@ -2797,7 +2915,11 @@ class Smoke:
             end.record()
             events.append((start, end))
             key = (q.shape[2], k.shape[2], causal)
-            by_call[key] = by_call.get(key, 0) + wrapper.launches - before
+            n = wrapper.launches - before
+            by_call[key] = by_call.get(key, 0) + n
+            # the kernel the wrapper picks for this width and dtype
+            route = self.flash_route(q.shape[3], q.dtype)[0]
+            by_route[route] = by_route.get(route, 0) + n
             return out
 
         def timed(fn):
@@ -2868,6 +2990,8 @@ class Smoke:
             "flash_launches_per_prefill": {
                 f"{site} Sq={sq} Skv={skv} causal={c}": n
                 for (site, sq, skv, c), n in want.items()},
+            # both prefills, by the kernel that served them
+            "flash_launches_by_route": by_route,
         }
         print(f"{cfg.name}: full width ({cfg.param_count()} params, "
               f"{cfg.num_layers} layers"
@@ -2894,11 +3018,11 @@ class Smoke:
         torch.cuda.empty_cache()
         return numbers, launches, want
 
-    def serve_phi3(self):
+    def serve_phi3(self, route: str = "wgmma"):
         """Phase 17: phi-3-vision-4.2b at full width and depth (32 heads of
-        96: the bf16 flash kernel through the wrapper's zero-padding to
-        128, row 6c), 32 flash launches a prefill, then a 2-layer float32
-        twin (card vs CPU)."""
+        96: the bf16 wgmma + TMA kernel at D = 96, row 6c), 32 flash
+        launches a prefill, every one on the ``"wgmma"`` route, then a
+        2-layer float32 twin (card vs CPU)."""
         import dataclasses
 
         from repro_torch.configs import get_config
@@ -2907,7 +3031,11 @@ class Smoke:
         t0 = time.perf_counter()
         self.phi3_numbers, self.phi3_launches, calls = self.drive_model(
             SERVE_PHI3, SEED + 60)
-        self.rows["flash_attention_d96"]["launches"] = sum(calls.values())
+        routes = self.phi3_numbers["flash_launches_by_route"]
+        require(routes == {route: 2 * sum(calls.values())},
+                f"phi-3-vision-4.2b: flash launches by route {routes}, "
+                f"expected all {2 * sum(calls.values())} on {route}")
+        self.rows["flash_attention_d96"]["launches"] = routes[route]
         cfg = get_config(SERVE_PHI3["arch"])
         self.phi3_numbers["twin"] = self.twin(
             dataclasses.replace(cfg, num_layers=ENCDEC_TWIN["layers"],

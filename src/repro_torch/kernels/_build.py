@@ -30,7 +30,7 @@ from repro_torch.core.errors import KernelError, ValidationError
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "sbm_sweep.cu", CSRC / "bitmatch.cu",
-           CSRC / "flash_attention.cu")
+           CSRC / "flash_attention.cu", CSRC / "flash_attention_wgmma.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,6 +53,9 @@ SIGNATURES = {
     "bitmatch_words": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _I, _P),
+    "flash_attention_fwd_wgmma": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _F,
+                                  _P),
 }
 
 _lock = threading.Lock()

@@ -33,8 +33,9 @@
 // Three kernels:
 //
 // * bfloat16 at D = 64, 128, 256 (flash_attention_fwd_bf16_kernel, the
-//   serving path; the wrapper zero-pads other bf16 widths up to 256): tensor
-//   cores.  One warpgroup of 128 threads per 64-row q tile; warp w owns q
+//   serving path; the wrapper zero-pads other bf16 widths up to 256 but 96,
+//   which runs its own wgmma + TMA kernel, csrc/flash_attention_wgmma.cu):
+//   tensor cores.  One warpgroup of 128 threads per 64-row q tile; warp w owns q
 //   rows 16w .. 16w + 15.
 //     - S = Q K^T and O += P V are mma.sync.m16n8k16 bf16 -> f32 with the
 //       accumulators in registers (O: 16 x D per warp, D / 2 floats a

@@ -1,7 +1,9 @@
 """Wrapper of the hand-written CUDA kernels for block-sparse flash attention.
 
 :func:`flash_attention_kernel` launches ``flash_attention_fwd``
-(``csrc/flash_attention.cu``), the port of the Pallas TPU kernel
+(``csrc/flash_attention.cu``) or, at bf16 D = 96,
+``flash_attention_fwd_wgmma`` (``csrc/flash_attention_wgmma.cu``), the
+ports of the Pallas TPU kernel
 ``_flash_kernel`` of the JAX package's ``repro/kernels/flash_attention.py``:
 the forward pass over a per-query-block KV schedule (``kv_index`` /
 ``kv_count``, from :func:`repro_torch.kernels.ops.build_block_structure`),
@@ -13,6 +15,13 @@ launch in every case:
 
 * bfloat16, D = 64, 128 or 256: a built instance on the tensor cores
   (``mma.sync`` bf16 -> f32, P rounded to bf16 before P·V).
+* bfloat16, D = 96 (phi-3-vision's heads): ``flash_attention_fwd_wgmma``
+  (``csrc/flash_attention_wgmma.cu``), a Hopper kernel at the width itself:
+  ``wgmma`` for both products, K/V tiles by TMA into a three-stage ring on
+  mbarriers, a producer warpgroup and two consumer warpgroups, the
+  96-wide rows as three 32-column panels in the 64-byte swizzle.  No
+  padding, no copy in (unless a tensor is not 16-byte aligned, which TMA
+  needs: then it is cloned) and no slice out.
 * bfloat16, any other D up to 256: zero-padded to the next instance on the
   way in and cut back on the way out (:func:`_pad_head_dim`), which is
   exact: a zero column adds 0 to every q·k score and its output column is
@@ -64,6 +73,7 @@ from repro_torch.kernels import ref as ref_lib
 from repro_torch.kernels.flash_vjp import flash_attention_vjp
 
 HEAD_DIMS_ON_CARD = (64, 128, 256)     # the bf16 tensor-core instances
+WGMMA_HEAD_DIMS = (96,)                # the bf16 wgmma + TMA kernel's width
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: ``kRtMaxD`` of ``csrc/flash_attention.cu``: the widest head the port
 #: takes in either dtype (the wide bf16 kernel's shared memory would hold
@@ -74,9 +84,10 @@ RT_MAX_HEAD_DIM = 593
 def flash_route(d: int, dtype: torch.dtype) -> tuple:
     """(route, width): the kernel that serves head width ``d`` of ``dtype``
     on the card and the width it runs at.  ``"instance"`` (bf16 at 64, 128,
-    256), ``"padded"`` (bf16 at any other width up to 256, zero-padded to
-    the next instance), ``"wide"`` (bf16 from 257, the tensor-core kernel
-    with the width at run time) or ``"runtime"`` (float32 at any width, the
+    256), ``"wgmma"`` (bf16 at 96, the wgmma + TMA kernel at that width),
+    ``"padded"`` (bf16 at any other width up to 256, zero-padded to the
+    next instance), ``"wide"`` (bf16 from 257, the tensor-core kernel with
+    the width at run time) or ``"runtime"`` (float32 at any width, the
     float32 register-tile kernel); up to ``RT_MAX_HEAD_DIM``, above which it
     raises :class:`ValidationError`."""
     if d > RT_MAX_HEAD_DIM:
@@ -86,6 +97,8 @@ def flash_route(d: int, dtype: torch.dtype) -> tuple:
             f"shared memory), got {d}")
     if dtype != torch.bfloat16:
         return "runtime", d
+    if d in WGMMA_HEAD_DIMS:
+        return "wgmma", d
     if d > HEAD_DIMS_ON_CARD[-1]:
         return "wide", d
     width = min(w for w in HEAD_DIMS_ON_CARD if w >= d)
@@ -185,6 +198,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     route, d_pad = flash_route(d, q.dtype)
     if route == "padded":
         q, k, v = _pad_head_dim(q, k, v, d_pad)
+    elif route == "wgmma":              # TMA reads 16-byte aligned rows
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out[..., :d]
@@ -193,17 +209,21 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # pageable → device, stream-ordered: the host does not wait for the card
     kv_index = kv_index.to(q.device, non_blocking=True)
     kv_count = kv_count.to(q.device, non_blocking=True)
-    rc = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_index.data_ptr(),
-        kv_count.data_ptr(),
-        q_segments.data_ptr() if use_segments else None,
-        kv_segments.data_ptr() if use_segments else None,
-        out.data_ptr(), b, h, hkv, sq, skv, d_pad, kv_index.shape[1],
-        block_q, block_k, q_offset, float(scale), int(causal),
-        -1 if window is None else int(window),
-        0.0 if softcap is None else float(softcap),
-        _DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
-    _build.check(rc, "flash_attention_fwd")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_index.data_ptr(),
+            kv_count.data_ptr(),
+            q_segments.data_ptr() if use_segments else None,
+            kv_segments.data_ptr() if use_segments else None,
+            out.data_ptr(), b, h, hkv, sq, skv, d_pad, kv_index.shape[1],
+            block_q, block_k, q_offset, float(scale), int(causal),
+            -1 if window is None else int(window),
+            0.0 if softcap is None else float(softcap))
+    stream = _build.stream_handle(q.device)
+    if route == "wgmma":
+        rc = lib.flash_attention_fwd_wgmma(*args, stream)
+        _build.check(rc, "flash_attention_fwd_wgmma")
+    else:
+        rc = lib.flash_attention_fwd(*args, _DTYPE_CODES[q.dtype], stream)
+        _build.check(rc, "flash_attention_fwd")
     flash_attention_kernel.launches += 1
     return out if d_pad == d else out[..., :d].contiguous()
 

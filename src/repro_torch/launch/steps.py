@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.configs import ShapeDef, batch_shapes
 from repro_torch.models.api import ModelConfig, ParamDef
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import Model, make_cache
 from repro_torch.parallel.sharding import Layout, Sharder
 from repro_torch.train.loop import make_train_step
 from repro_torch.train.optimizer import AdamState, AdamW
@@ -135,8 +135,11 @@ def sds_batch(cfg: ModelConfig, shape: ShapeDef, sharder: Sharder):
 def sds_cache(model: Model, sharder: Sharder, batch: int, max_len: int):
     """The cache of :meth:`Model.init_cache` for a global batch of
     ``batch`` rows: its global leaves built on the ``meta`` device, cut
-    per :meth:`Model.cache_spec_axes`."""
-    whole = Model(model.cfg, device="meta").init_cache(batch, max_len)
+    per :meth:`Model.cache_spec_axes` (as the JAX ``sds_cache`` takes
+    ``jax.eval_shape`` of the model's own ``init_cache``; no second
+    ``Model`` is built, so a manual MoE mode passes)."""
+    whole = make_cache(model.cfg, batch, max_len, sharder=Sharder(),
+                       device="meta")
     axes_tree = model.cache_spec_axes()
     return {name: type(state)(*(
         _spec(sharder, axes, leaf.shape, leaf.dtype)

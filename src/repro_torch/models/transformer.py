@@ -224,6 +224,34 @@ def _run_stack(cfg: ModelConfig, sharder: Sharder,
     return x, stacked_caches, aux
 
 
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               sharder: Sharder, device) -> Dict[str, Any]:
+    """:meth:`Model.init_cache` of a model of ``cfg`` under ``sharder``
+    on ``device``, without building the model (``Model.__init__`` refuses
+    a manual MoE mode with no mesh): ``sharder=Sharder()`` gives the
+    global leaves, as the dry run's ``sds_cache`` takes them."""
+    nb = cfg.num_blocks
+    rows = batch // sharder.split("batch", batch).size
+    kv = cfg.num_kv_heads \
+        // sharder.split("kv_heads", cfg.num_kv_heads).size
+    shape = (nb, rows, kv, max_len, cfg.head_dim)
+
+    hm = cfg.mamba_heads // sharder.split(
+        "mamba_heads", cfg.mamba_heads).size
+
+    def one(spec: LayerSpec):
+        if spec.mixer == "mamba":
+            return mamba_lib.init_mamba_state(
+                cfg, rows, torch.float32, device=device, layers=nb,
+                heads=hm)
+        return KVCache(
+            torch.zeros(shape, dtype=cfg.dtype, device=device),
+            torch.zeros(shape, dtype=cfg.dtype, device=device),
+            torch.zeros(nb, dtype=torch.int32))
+
+    return {f"layer{i}": one(s) for i, s in enumerate(cfg.pattern)}
+
+
 class Model:
     """A thin class over a parameter dict: static config, sharder and
     device only.
@@ -385,27 +413,8 @@ class Model:
         attention layers, a float32 ``MambaState`` for Mamba layers; under
         a mesh, this rank's rows, KV heads and Mamba heads
         (:meth:`cache_spec_axes`)."""
-        cfg = self.cfg
-        nb = cfg.num_blocks
-        rows = batch // self.sharder.split("batch", batch).size
-        kv = cfg.num_kv_heads \
-            // self.sharder.split("kv_heads", cfg.num_kv_heads).size
-        shape = (nb, rows, kv, max_len, cfg.head_dim)
-
-        hm = cfg.mamba_heads // self.sharder.split(
-            "mamba_heads", cfg.mamba_heads).size
-
-        def one(spec: LayerSpec):
-            if spec.mixer == "mamba":
-                return mamba_lib.init_mamba_state(
-                    cfg, rows, torch.float32, device=self.device, layers=nb,
-                    heads=hm)
-            return KVCache(
-                torch.zeros(shape, dtype=cfg.dtype, device=self.device),
-                torch.zeros(shape, dtype=cfg.dtype, device=self.device),
-                torch.zeros(nb, dtype=torch.int32))
-
-        return {f"layer{i}": one(s) for i, s in enumerate(cfg.pattern)}
+        return make_cache(self.cfg, batch, max_len, sharder=self.sharder,
+                          device=self.device)
 
     def cache_spec_axes(self) -> Any:
         """Logical axes for every cache leaf (mirrors :meth:`init_cache`)."""

@@ -223,11 +223,13 @@ def test_schedule_decides_the_answer():
 
 @pytest.mark.parametrize("d", [16, 96])
 def test_padded_head_dim_equals_unpadded_and_pallas(d):
-    """What the wrapper launches on the card at a width it has no instance
-    for: q, k, v zero-padded to the next built width, the scale fixed from
-    the true width, the output cut back.  Replayed by the plain version
-    here, it equals the unpadded replay and the Pallas kernel (interpret
-    mode) at the true width."""
+    """The plain version at a width with no tensor-core instance equals the
+    Pallas kernel (interpret mode) at the true width (within ``TOL``, two
+    float32 computations), and so does its replay zero-padded to the next
+    instance (the scale fixed from the true width, the output cut back),
+    which is what the wrapper launches on the card at D = 16.  D = 96 runs
+    its own kernel at its own width on the card (the ``"wgmma"`` route):
+    no padding there."""
     B, H, Hkv, S, blk = 2, 4, 2, 128, 32
     q, k, v = _qkv(d, B, H, Hkv, S, S, d)
     seg = _segments(d + 1, B, S)
@@ -239,8 +241,9 @@ def test_padded_head_dim_equals_unpadded_and_pallas(d):
                                              window=40)
     sched = (torch.from_numpy(idx), torch.from_numpy(cnt), _t(seg), _t(seg))
     kw = dict(scale=d ** -0.5, block_q=blk, block_k=blk, q_offset=0, **feats)
-    route, d_pad = flash_route(d, torch.bfloat16)
-    assert (route, d_pad) == ("padded", 64 if d <= 64 else 128)
+    d_pad = 64 if d <= 64 else 128
+    assert flash_route(d, torch.bfloat16) \
+        == (("wgmma", 96) if d == 96 else ("padded", d_pad))
     pq, pk, pv = _pad_head_dim(_t(q), _t(k), _t(v), d_pad)
     assert pq.shape[-1] == pk.shape[-1] == pv.shape[-1] == d_pad
     assert torch.equal(pq[..., :d], _t(q)) and not pq[..., d:].any()
@@ -284,16 +287,19 @@ def test_plain_flash_equals_pallas_interpret_above_256(d, dtype):
                                    else "runtime", d)
 
 
-ROUTE_WIDTHS = [16, 64, 96, 128, 200, 256, 257, 320, 512, 593, 594, 1024]
+ROUTE_WIDTHS = [16, 64, 96, 128, 200, 256, 257, 320, 512, 593, 594, 1024,
+                80, 112]
 
 
 @pytest.mark.parametrize("d,route", zip(ROUTE_WIDTHS, [
-    "padded", "instance", "padded", "instance", "padded", "instance",
-    "wide", "wide", "wide", "wide", None, None]))
+    "padded", "instance", "wgmma", "instance", "padded", "instance",
+    "wide", "wide", "wide", "wide", None, None, "padded", "padded"]))
 def test_flash_route_by_head_width(d, route):
-    """The wrapper's routing of bf16 on the card: an instance, zero-padding
-    to the next instance, or the wide tensor-core kernel above 256 at the
-    width itself, up to the largest width whose run-time-width tiles fit a
+    """The wrapper's routing of bf16 on the card: an instance, the wgmma +
+    TMA kernel at 96 (phi-3-vision's width, no padding), zero-padding to
+    the next instance at the other widths up to 256 (80 and 112 beside 96
+    still pad), or the wide tensor-core kernel above 256 at the width
+    itself, up to the largest width whose run-time-width tiles fit a
     block's shared memory, which the refusal names."""
     assert RT_MAX_HEAD_DIM == 593
     if route is None:

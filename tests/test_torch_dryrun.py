@@ -4,6 +4,7 @@ meshes (the JAX side over ``AbstractMesh``es, as in
 ``tests/test_torch_parallel.py``), and ``launch.dryrun``'s cells and CLI
 in a fake world, in a subprocess (the fake process group is the
 process's default group)."""
+import dataclasses
 import json
 import os
 import pathlib
@@ -37,6 +38,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 DECODE = "decode_32k"
+#: granite-moe-3b-a800m in each manual MoE mode: the cache specs must not
+#: build a second, mesh-less ``Model`` (which refuses these modes)
+MOE_MODES = ("ep", "cap", "ffn")
+SDS_CASES = list(ARCH_IDS) + [f"granite-moe-3b-a800m:{m}" for m in MOE_MODES]
 
 
 def _key(entry) -> str:
@@ -65,12 +70,17 @@ def _port_leaves(tree, prefix=""):
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", SDS_CASES)
 def test_sds_blocks_equal_jax_shard_shapes(arch, mesh):
     """Every params, opt, batch, cache, token, enc_out and scalar leaf's
-    block is the JAX ``shard_shape``, FSDP and Mamba heads included."""
+    block is the JAX ``shard_shape``, FSDP and Mamba heads included; an
+    ``arch:mode`` case sets ``moe_impl``."""
     sizes, names = MESHES[mesh]
+    arch, _, mode = arch.partition(":")
     cfg, jcfg = get_config(arch), jget_config(arch)
+    if mode:
+        cfg = dataclasses.replace(cfg, moe_impl=mode)
+        jcfg = dataclasses.replace(jcfg, moe_impl=mode)
     sharder = make_sharder(cfg, MeshShape(sizes, names))
     jsharder = jmake_sharder(jcfg, AbstractMesh(sizes, names))
     model = Model(cfg, sharder=sharder, device="meta")
@@ -109,7 +119,7 @@ def test_sds_blocks_equal_jax_shard_shapes(arch, mesh):
 
 
 _CELLS = textwrap.dedent("""
-    import json, sys
+    import dataclasses, json, sys
     from repro_torch.configs import get_config, reduce_config, ShapeDef
     from repro_torch.launch import dryrun
     out = {}
@@ -120,6 +130,13 @@ _CELLS = textwrap.dedent("""
         out[kind] = dryrun.run_cell(arch, "reduced", False, cfg=cfg,
                                     shape=shape,
                                     mesh=((2, 4), ("data", "model")))
+    granite = reduce_config(get_config("granite-moe-3b-a800m"))
+    for mode in ("ep", "cap", "ffn"):
+        out[mode] = dryrun.run_cell(
+            "granite-moe-3b-a800m", "reduced", False,
+            cfg=dataclasses.replace(granite, moe_impl=mode),
+            shape=ShapeDef("reduced", 64, 8, "decode"),
+            mesh=((2, 2), ("data", "model")))
     rc = dryrun.main(["--arch", "smollm-360m", "--shape",
                       "decode_32k,long_500k", "--mesh", "single",
                       "--out", sys.argv[1]])
@@ -157,6 +174,14 @@ def test_run_cell_and_cli_in_a_fake_world(tmp_path):
         assert rec["args_bytes"]["total"] \
             == sum(v for k, v in rec["args_bytes"].items() if k != "total")
         assert rec["peak_live_bytes"] >= rec["args_bytes"]["params"]
+    for mode in ("ep", "cap", "ffn"):       # the manual MoE modes' decode
+        rec = out[mode]
+        assert keys <= rec.keys(), mode
+        assert (rec["mesh"], rec["devices"], rec["kind"]) == ("2x2", 4,
+                                                              "decode")
+        assert rec["args_bytes"]["cache"] > 0, mode
+        assert rec["cost"]["flops"] > 0 and rec["trace_s"] > 0, mode
+        assert rec["collectives"]["by_op"]["all-reduce"]["count"] > 0, mode
     assert out["train"]["args_bytes"]["moments"] > 0
     assert out["decode"]["args_bytes"]["cache"] > 0
     assert out["rc"] == 0

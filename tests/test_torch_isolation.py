@@ -141,6 +141,56 @@ def test_wrappers_validate_and_do_not_count_plain_runs():
                                block_k=32)
 
 
+@pytest.mark.parametrize("rc", [0, 700])
+def test_d96_launches_its_own_kernel_and_never_falls_back(monkeypatch, rc):
+    """The launch contract of bf16 D = 96 without a card: the wrapper,
+    made to take its card branch (``_build.on_card`` answers yes for
+    q/k/v), calls ``flash_attention_fwd_wgmma`` once with the tensors
+    themselves at width 96 (no padded copy), returns the output it handed
+    the kernel (no slice), and counts the launch; on a CUDA error code it
+    raises ``KernelError`` and counts nothing, and neither the padded
+    route's entry point nor the plain version runs in either case."""
+    from repro_torch.core.errors import KernelError
+    from repro_torch.kernels import _build
+
+    calls = []
+
+    class FakeLib:
+        def flash_attention_fwd_wgmma(self, *args):
+            calls.append(args)
+            return rc
+
+        def flash_attention_fwd(self, *args):
+            raise AssertionError("the padded route's entry point ran")
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(_build, "library", FakeLib)
+    monkeypatch.setattr(_build, "on_card",
+                        lambda *ts, dtype: dtype != torch.int32)
+    monkeypatch.setattr(_build, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(tref, "ref_flash_attention", no_plain)
+    q, k, v = (torch.zeros((1, 2, 64, 96), dtype=torch.bfloat16)
+               for _ in range(3))
+    idx, cnt, _ = tops.build_block_structure(64, 64, block_q=32, block_k=32)
+    idx, cnt = torch.from_numpy(idx), torch.from_numpy(cnt)
+    before = flash_attention_kernel.launches
+    if rc:
+        with pytest.raises(KernelError, match="flash_attention_fwd_wgmma"):
+            flash_attention_kernel(q, k, v, idx, cnt, block_q=32, block_k=32)
+        assert flash_attention_kernel.launches == before
+    else:
+        out = flash_attention_kernel(q, k, v, idx, cnt, block_q=32,
+                                     block_k=32)
+        assert flash_attention_kernel.launches == before + 1
+        assert out.shape == q.shape and out.data_ptr() == calls[0][7]
+    (args,) = calls
+    assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert args[8:14] == (1, 2, 2, 64, 64, 96)    # B, H, Hkv, Sq, Skv, D
+    assert len(args) == len(_build.SIGNATURES["flash_attention_fwd_wgmma"])
+
+
 def test_delta_bitmask_block_limit_is_the_kernels_alone():
     """Above ``BITMASK_MAX_BLOCK`` only the kernel refuses (the
     ``cuda``-marked test checks that); on the CPU the plain version takes
@@ -565,7 +615,7 @@ def test_kernels_match_plain_versions_on_the_card():
             assert got.dtype == dt
             torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                        atol=tol)
-    # D = 96 runs zero-padded to the D = 128 instance, one launch
+    # D = 96 in float32 runs the float32 kernel, one launch
     idx, cnt, _ = tops.build_block_structure(64, 64, block_q=32, block_k=32)
     idx, cnt = torch.from_numpy(idx), torch.from_numpy(cnt)
     q, k, v = (torch.randn((1, 2, 64, 96), generator=gen).cuda()
@@ -579,6 +629,47 @@ def test_kernels_match_plain_versions_on_the_card():
     torch.testing.assert_close(got, tref.ref_flash_attention(q, k, v, idx, cnt,
                                                              **kw),
                                rtol=2e-5, atol=2e-5)
+    # D = 96 in bf16 runs the wgmma + TMA kernel at its own width, one
+    # launch each: GQA, window, softcap, segments, q_offset, blocks of 32
+    # to 512 (32 and 64 below its 128-row q tile), non-causal, and q one
+    # element off 16-byte alignment (the wrapper clones it for TMA); scores
+    # of std 4, within 2e-2 and the bound of chip_smoke.flash_full_tol
+    for h, hkv, sq, skv, blk, window, softcap, segs, causal, shift in (
+            (6, 2, 96, 192, 32, 40, 30.0, True, True, 0),
+            (4, 4, 256, 256, 64, None, None, False, True, 0),
+            (3, 1, 512, 1536, 512, 300, None, False, True, 0),
+            (4, 2, 256, 512, 128, None, 50.0, True, True, 1),
+            (4, 4, 1024, 1024, 512, None, None, False, False, 0)):
+        qf = torch.randn((2, h, sq, 96), generator=gen) * 4.0 / 96 ** 0.25
+        buf = torch.empty(qf.numel() + shift, device="cuda",
+                          dtype=torch.bfloat16)
+        q = buf[shift:].view(qf.shape)
+        q.copy_(qf)
+        k = (torch.randn((2, hkv, skv, 96), generator=gen) / 96 ** 0.25) \
+            .cuda().to(torch.bfloat16)
+        v = torch.randn((2, hkv, skv, 96), generator=gen).cuda() \
+            .to(torch.bfloat16)
+        seg = torch.sort(torch.randint(0, 3, (2, skv), generator=gen),
+                         dim=1).values.to(torch.int32).cuda() \
+            if segs else None
+        qseg = None if seg is None else seg[:, skv - sq:].contiguous()
+        idx, cnt, _ = tops.build_block_structure(
+            sq, skv, block_q=blk, block_k=blk, causal=causal, window=window)
+        args = (q, k, v, torch.from_numpy(idx), torch.from_numpy(cnt), qseg,
+                seg)
+        kw = dict(scale=96 ** -0.5, causal=causal, window=window,
+                  softcap=softcap, block_q=blk, block_k=blk,
+                  q_offset=skv - sq if causal else 0)
+        before = flash_attention_kernel.launches
+        got = flash_attention_kernel(*args, **kw)
+        assert flash_attention_kernel.launches == before + 1
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        want = tref.ref_flash_attention(*args, **kw).float()
+        torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+        delta = 2.0 ** -9 * float(v.float().abs().max())
+        bound = (1 + 2.0 ** -8) * delta + 1e-4 \
+            + 2.0 ** -7 / (1 - 2.0 ** -8) * want.abs()
+        assert bool(((got.float() - want).abs() <= bound).all())
     # D = 257 to 593: float32 on the scalar run-time-width kernel, bf16 on
     # the wide tensor-core kernel (scores of std 4, held also to the bound
     # of chip_smoke.flash_full_tol), one launch each (window, softcap,
