@@ -24,7 +24,6 @@ over one ``DeviceMesh`` dimension.
 """
 from __future__ import annotations
 
-import time
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -38,6 +37,7 @@ from repro_torch.core.errors import ValidationError
 from repro_torch.core.intervals import Extents, intersect_1d
 from repro_torch.core.sweep import sbm_count, sbm_count_exact
 from repro_torch.kernels import bitmatch as bitmatch_kernels
+from repro_torch.perf import spans
 
 METHODS = ("sweep", "bitmatrix", "blocked")
 
@@ -188,26 +188,26 @@ def enumerate_matches_ddim_planned(
     """
     if method not in METHODS:
         raise ValidationError(f"unknown method {method!r}")
-    t0 = time.perf_counter()
     gen = generator_dim
-    if subs.size == 0 or upds.size == 0:
-        estimate, regime = 0, method
-    elif method == "bitmatrix":
-        estimate, regime = int(bitmatrix_count(subs, upds)), "bitmatrix"
-    elif subs.ndim_space == 1 or method == "blocked":
-        estimate = (sbm_count_exact(subs, upds, num_segments=num_segments)
-                    if method == "sweep" else None)
-        regime = method
-    else:
-        if gen is None:
-            gen, counts = select_dimension(subs, upds,
-                                           num_segments=num_segments)
-            estimate = counts[gen]
+    with spans.span("plan.probe", timed=True) as probe:
+        if subs.size == 0 or upds.size == 0:
+            estimate, regime = 0, method
+        elif method == "bitmatrix":
+            estimate, regime = int(bitmatrix_count(subs, upds)), "bitmatrix"
+        elif subs.ndim_space == 1 or method == "blocked":
+            estimate = (sbm_count_exact(subs, upds,
+                                        num_segments=num_segments)
+                        if method == "sweep" else None)
+            regime = method
         else:
-            estimate = int(sbm_count(subs.dim(gen), upds.dim(gen),
-                                     num_segments=num_segments))
-        regime = f"sweep_dim{gen}"
-    probe_s = time.perf_counter() - t0
+            if gen is None:
+                gen, counts = select_dimension(subs, upds,
+                                               num_segments=num_segments)
+                estimate = counts[gen]
+            else:
+                estimate = int(sbm_count(subs.dim(gen), upds.dim(gen),
+                                         num_segments=num_segments))
+            regime = f"sweep_dim{gen}"
 
     def fn(s, u, *, max_pairs):
         return enumerate_matches_ddim(
@@ -216,7 +216,7 @@ def enumerate_matches_ddim_planned(
 
     return runtime_lib.execute_enumeration(
         fn, subs, upds, estimate=estimate, policy=policy, engine="ddim",
-        regime=regime, probe_seconds=probe_s, recorder=recorder)
+        regime=regime, probe_seconds=probe.seconds, recorder=recorder)
 
 
 # ---------------------------------------------------------------------------

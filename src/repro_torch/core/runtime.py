@@ -19,11 +19,13 @@ beyond* ``max_pairs`` *are dropped but still counted; callers check*
 * **Bulk-regime policy** — :class:`BulkRegimePolicy` owns the
   dense/device/sort thresholds of the incremental engine's stacked rematch.
 
-This module is host-only (stdlib + numpy).
+This module is host-only (stdlib + numpy; :mod:`repro_torch.perf.spans`
+imports torch only while spans record).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from collections import deque
 from typing import Callable, Deque, Dict, List, Optional, Set, Tuple
@@ -31,6 +33,7 @@ from typing import Callable, Deque, Dict, List, Optional, Set, Tuple
 import numpy as np
 
 from repro_torch.core.errors import CapacityError, ValidationError
+from repro_torch.perf import spans
 
 Pair = Tuple[int, int]
 PairSet = Set[Pair]
@@ -235,6 +238,10 @@ class StatsRecorder:
 # The executor — the one count-then-retry loop
 # ---------------------------------------------------------------------------
 
+# the id of each call of execute_enumeration (a match) in its spans
+_matches = itertools.count()
+
+
 def execute_enumeration(
     fn: Callable,
     subs,
@@ -254,7 +261,10 @@ def execute_enumeration(
     The first attempt's capacity is ``capacity`` verbatim when given, else
     :func:`initial_capacity` from ``estimate``/policy.  ``count > max_pairs``
     means the buffer was short; the count is exact, so one growth step to
-    its ladder bucket converges.  Returns ``(buffer, count, stats)``.
+    its ladder bucket converges.  Each attempt is a ``plan.attempt`` span
+    (:mod:`repro_torch.perf.spans`) with the call's ``match`` id and its
+    capacity; its host seconds are the ``emit`` phase.  Returns
+    ``(buffer, count, stats)``.
     Raises :class:`CapacityError` on a hard-cap violation or when
     ``policy.max_attempts`` is exhausted.
     """
@@ -264,12 +274,14 @@ def execute_enumeration(
     cap = (int(capacity) if capacity is not None
            else initial_capacity(estimate, policy))
     builds_before = kernel_builds()
+    match = next(_matches)
     for attempt in range(max(policy.max_attempts, 1)):
         stats.attempts.append(cap)
-        t0 = time.perf_counter()
-        buf, count = fn(subs, upds, max_pairs=cap)
-        c = int(count)                       # device sync: closes the phase
-        stats.add_phase("emit", time.perf_counter() - t0)
+        with spans.span("plan.attempt", timed=True, match=match,
+                        capacity=cap) as phase:
+            buf, count = fn(subs, upds, max_pairs=cap)
+            c = int(count)                   # device sync: closes the phase
+        stats.add_phase("emit", phase.seconds)
         if c <= cap:
             stats.count = c
             stats.capacity = cap

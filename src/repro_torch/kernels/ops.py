@@ -7,6 +7,11 @@ the block schedule on the host (:func:`build_block_structure`, numpy) and
 runs :mod:`repro_torch.kernels.flash_attention` over it, under autograd
 through its ``FlashAttentionFunction`` when a CUDA q, k or v requires
 grad.
+
+The sweeps' phases are spans of :mod:`repro_torch.perf.spans`
+(``sweep.count``; in :func:`sbm_enumerate_kernel` ``sweep.passes_ab``,
+``sweep.segment_max``, ``sweep.bitmasks``, ``sweep.scan``,
+``sweep.pass_c``, ``sweep.stitch``), recorded only under a profiler.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from repro_torch.core.sweep import _indicator_deltas, _pad_stream, encode_endpoi
 from repro_torch.kernels.flash_attention import (FlashAttentionFunction,
                                                  flash_attention_kernel)
 from repro_torch.kernels import sbm_sweep as sweep_kernels
+from repro_torch.perf import spans
 
 COUNT_BLOCK = 2048
 # One segment of pass C holds ceil(n/32) words per mask per segment, six
@@ -41,9 +47,10 @@ def sbm_count_kernel(subs: Extents, upds: Extents, *,
     and B), as an exact 0-d int64 tensor."""
     if subs.size == 0 or upds.size == 0:
         return _empty_count(subs.lo.device)
-    ep = _pad_stream(encode_endpoints(subs, upds), block_size)
-    deltas = torch.stack(_indicator_deltas(ep))          # (4, total)
-    _, _, k = sweep_kernels.sweep_count(deltas, block_size=block_size)
+    with spans.span("sweep.count"):
+        ep = _pad_stream(encode_endpoints(subs, upds), block_size)
+        deltas = torch.stack(_indicator_deltas(ep))      # (4, total)
+        _, _, k = sweep_kernels.sweep_count(deltas, block_size=block_size)
     return k
 
 
@@ -147,27 +154,33 @@ def sbm_enumerate_kernel(subs: Extents, upds: Extents, *, max_pairs: int,
     if n == 0 or m == 0:
         return (torch.full((max_pairs, 2), -1, dtype=torch.int32, device=dev),
                 _empty_count(dev))
-    if dev.type == "cuda":
-        block_size = card_segment(block_size, n, m)
-    ep = _pad_stream(encode_endpoints(subs, upds), block_size)
-    deltas = torch.stack(_indicator_deltas(ep))
-    # pass B's per-endpoint counts stay here: pass C derives the same counts
-    # inside each block from its records and entering popcounts, in the
-    # same scans that give it the single-pair members (csrc/sbm_sweep.cu)
-    emit, seg_totals, k_total = sweep_kernels.sweep_count(
-        deltas, block_size=block_size)
-    cap = max(int(seg_totals.max()), 1)
-
-    up = ep.is_upper.to(torch.int32)
-    sadd, sdel, uadd, udel = _type_bitmasks(ep, up, n, m, block_size)
-    sub_active0 = prefix_lib.delta_scan_exclusive(sadd, sdel)
-    upd_active0 = prefix_lib.delta_scan_exclusive(uadd, udel)
-    out_i, out_j = sweep_kernels.emit_pairs(
-        ep.owner.clamp(min=0), up, ep.is_sub.to(torch.int32),
-        (ep.owner >= 0).to(torch.int32), sub_active0, upd_active0,
-        block_size=block_size, cap=cap)
-    pairs = _stitch_blocks(out_i, out_j, seg_totals, k_total,
-                           max_pairs=max_pairs, cap=cap)
+    with spans.span("sweep.passes_ab"):
+        if dev.type == "cuda":
+            block_size = card_segment(block_size, n, m)
+        ep = _pad_stream(encode_endpoints(subs, upds), block_size)
+        deltas = torch.stack(_indicator_deltas(ep))
+        # pass B's per-endpoint counts stay here: pass C derives the same
+        # counts inside each block from its records and entering popcounts,
+        # in the same scans that give it the single-pair members
+        # (csrc/sbm_sweep.cu)
+        emit, seg_totals, k_total = sweep_kernels.sweep_count(
+            deltas, block_size=block_size)
+    with spans.span("sweep.segment_max"):
+        cap = max(int(seg_totals.max()), 1)
+    with spans.span("sweep.bitmasks"):
+        up = ep.is_upper.to(torch.int32)
+        sadd, sdel, uadd, udel = _type_bitmasks(ep, up, n, m, block_size)
+    with spans.span("sweep.scan"):
+        sub_active0 = prefix_lib.delta_scan_exclusive(sadd, sdel)
+        upd_active0 = prefix_lib.delta_scan_exclusive(uadd, udel)
+    with spans.span("sweep.pass_c"):
+        out_i, out_j = sweep_kernels.emit_pairs(
+            ep.owner.clamp(min=0), up, ep.is_sub.to(torch.int32),
+            (ep.owner >= 0).to(torch.int32), sub_active0, upd_active0,
+            block_size=block_size, cap=cap)
+    with spans.span("sweep.stitch"):
+        pairs = _stitch_blocks(out_i, out_j, seg_totals, k_total,
+                               max_pairs=max_pairs, cap=cap)
     return pairs, k_total
 
 

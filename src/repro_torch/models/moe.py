@@ -36,6 +36,12 @@ outputs follow Switch / GShard: load-balancing loss and the router
 z-loss, over the whole batch (their sums all-reduced over the batch axes
 when the batch is split).
 
+The layer's phases are spans of :mod:`repro_torch.perf.spans`
+(``moe.route``, ``moe.dispatch``, and in :func:`_apply` ``moe.gather``,
+``moe.experts``, ``moe.combine``, the gather and the combine timed on the
+device too), with the counters ``moe.records`` and ``moe.dropped``; all
+recorded only under a profiler.
+
 Top-k takes a stable descending sort of the router probabilities, so
 among equal probabilities the lower expert index comes first, as
 ``jax.lax.top_k`` orders them (``torch.topk`` leaves ties unordered).
@@ -55,6 +61,7 @@ from repro_torch.parallel.collectives import (all_reduce_sum, copy_to,
 from repro_torch.parallel.sharding import (BATCH_AXES, REPLICATED, Sharder,
                                            Split, mesh_axis_names,
                                            mesh_sizes)
+from repro_torch.perf import spans
 
 MESH_MODES = ("ep", "cap", "ffn")
 MODES = ("auto", "gspmd") + MESH_MODES
@@ -222,17 +229,20 @@ def _apply(x, bin_token, w, records, ye_groups=()) -> torch.Tensor:
     b, s, d = x.shape
     el, cl = bin_token.shape[1], bin_token.shape[2]
     rows = torch.arange(b, device=x.device)[:, None]
-    xg = x[rows, bin_token.reshape(b, el * cl)].reshape(b, el, cl, d) \
-        .transpose(0, 1).reshape(el, b * cl, d)
-    g = torch.bmm(xg, w["w_gate"])
-    u = torch.bmm(xg, w["w_up"])
-    ye = torch.bmm(F.silu(g) * u, w["w_down"])
-    ye = ye.reshape(el, b, cl, d).transpose(0, 1)         # (b, El, Cl, d)
-    ye = reduce_from(ye, ye_groups).reshape(b, el * cl, d)
-    expert, slot, gate = records
-    got = ye[rows, (expert * cl + slot).clamp(0, el * cl - 1)]
-    contrib = got * gate[..., None].to(ye.dtype)           # (b, s·k, d)
-    return contrib.reshape(b, s, -1, d).sum(dim=2)
+    with spans.span("moe.gather", device=x.is_cuda):
+        xg = x[rows, bin_token.reshape(b, el * cl)].reshape(b, el, cl, d) \
+            .transpose(0, 1).reshape(el, b * cl, d)
+    with spans.span("moe.experts"):
+        g = torch.bmm(xg, w["w_gate"])
+        u = torch.bmm(xg, w["w_up"])
+        ye = torch.bmm(F.silu(g) * u, w["w_down"])
+        ye = ye.reshape(el, b, cl, d).transpose(0, 1)     # (b, El, Cl, d)
+        ye = reduce_from(ye, ye_groups).reshape(b, el * cl, d)
+    with spans.span("moe.combine", device=x.is_cuda):
+        expert, slot, gate = records
+        got = ye[rows, (expert * cl + slot).clamp(0, el * cl - 1)]
+        contrib = got * gate[..., None].to(ye.dtype)       # (b, s·k, d)
+        return contrib.reshape(b, s, -1, d).sum(dim=2)
 
 
 def work_splits(cfg: ModelConfig, sharder: Sharder, mode: str, b: int,
@@ -317,58 +327,70 @@ def moe_layer(params, x: torch.Tensor, cfg: ModelConfig,
     bgroups = sharder.groups(sharder.split("batch", bglob).axes)
 
     defs = moe_defs(cfg)
-    router = _block(params["router"].to(dt), defs["router"], sharder)
-    logits = (x @ router).float()                             # (B, S, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, choice = top_k(probs, k)                       # (B, S, k)
-    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    with spans.span("moe.route"):
+        router = _block(params["router"].to(dt), defs["router"], sharder)
+        logits = (x @ router).float()                         # (B, S, E)
+        probs = torch.softmax(logits, dim=-1)
+        gate_vals, choice = top_k(probs, k)                   # (B, S, k)
+        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
 
-    # aux losses (Switch §4: load balance; ST-MoE: router z-loss), means
-    # over the whole batch: their sums all-reduced before the product
-    if not bgroups:
-        density = F.one_hot(choice[..., 0], e).float().mean(dim=(0, 1))
-        density_proxy = probs.mean(dim=(0, 1))
-        z_loss = torch.logsumexp(logits, dim=-1).square().mean()
-    else:
-        tokens = float(bglob * s0)
-        density = all_reduce_sum(F.one_hot(choice[..., 0], e).float()
-                                 .sum(dim=(0, 1)), bgroups) / tokens
-        density_proxy = reduce_from(probs.sum(dim=(0, 1)), bgroups) / tokens
-        z_loss = reduce_from(torch.logsumexp(logits, dim=-1).square().sum(),
-                             bgroups) / tokens
-    aux_loss = e * (density * density_proxy).sum()
+        # aux losses (Switch §4: load balance; ST-MoE: router z-loss),
+        # means over the whole batch: their sums all-reduced before the
+        # product
+        if not bgroups:
+            density = F.one_hot(choice[..., 0], e).float().mean(dim=(0, 1))
+            density_proxy = probs.mean(dim=(0, 1))
+            z_loss = torch.logsumexp(logits, dim=-1).square().mean()
+        else:
+            tokens = float(bglob * s0)
+            density = all_reduce_sum(F.one_hot(choice[..., 0], e).float()
+                                     .sum(dim=(0, 1)), bgroups) / tokens
+            density_proxy = reduce_from(probs.sum(dim=(0, 1)),
+                                        bgroups) / tokens
+            z_loss = reduce_from(torch.logsumexp(logits, dim=-1).square()
+                                 .sum(), bgroups) / tokens
+        aux_loss = e * (density * density_proxy).sum()
 
-    bins, kept, slot = sort_based_dispatch(choice.reshape(b, s * k), cap, e)
-    # bins: (B, E, C) record indices into the s*k records of the row; each
-    # record's (expert, slot, gate), the gate 0 where it was dropped
-    bin_token = bins.clamp(min=0).to(torch.int64) // k        # record → token
-    records = (choice.reshape(b, s * k), slot.to(torch.int64),
-               torch.where(kept, gate_vals.reshape(b, s * k), 0.0))
-    if bgroups:
-        dropped = 1.0 - all_reduce_sum(kept.float().sum(), bgroups) \
-            / float(bglob * s0 * k)
-    else:
-        dropped = 1.0 - kept.float().mean()
-    aux = {"moe_aux_loss": aux_loss, "moe_z_loss": z_loss,
-           "moe_drop_fraction": dropped}
+    with spans.span("moe.dispatch"):
+        bins, kept, slot = sort_based_dispatch(choice.reshape(b, s * k), cap,
+                                               e)
+        # bins: (B, E, C) record indices into the s*k records of the row;
+        # each record's (expert, slot, gate), the gate 0 where it was
+        # dropped
+        bin_token = bins.clamp(min=0).to(torch.int64) // k    # record → token
+        records = (choice.reshape(b, s * k), slot.to(torch.int64),
+                   torch.where(kept, gate_vals.reshape(b, s * k), 0.0))
+        if bgroups:
+            dropped = 1.0 - all_reduce_sum(kept.float().sum(), bgroups) \
+                / float(bglob * s0 * k)
+        else:
+            dropped = 1.0 - kept.float().mean()
+        if spans.active():
+            # this rank's records and the dropped ones, summed on the device
+            spans.count("moe.records", kept.numel())
+            spans.count("moe.dropped",
+                        kept.numel() - kept.sum(dtype=torch.int64))
+        aux = {"moe_aux_loss": aux_loss, "moe_z_loss": z_loss,
+               "moe_drop_fraction": dropped}
 
-    mode = select_moe_mode(cfg, mesh, cap)
-    if mode in MESH_MODES:
-        check_moe_mode(cfg, mesh)
-        # the manual bodies need the batch to split exactly over the
-        # batch axes, else the einsum path (e.g. batch-1 decode)
-        if (bglob // g_rows) % _batch_size(mesh):
-            mode = "gspmd"
-    # this rank's block of the expert work; the reductions that GSPMD
-    # inserts written out: the expert outputs summed over an expert_ffn
-    # split before the combine, the (b, s, d) partial output over an
-    # experts or moe_cap split
-    es, cs, fs = splits = work_splits(cfg, sharder, mode, bglob // g_rows,
-                                      cap)
-    w = {name: params[name].to(dt) for name in ("w_gate", "w_up", "w_down")}
-    bin_token, records, w = _cut(w, bin_token, records, cfg, sharder,
-                                 splits)
-    x = copy_to(x.to(dt), sharder.groups(es.axes + cs.axes + fs.axes))
+        mode = select_moe_mode(cfg, mesh, cap)
+        if mode in MESH_MODES:
+            check_moe_mode(cfg, mesh)
+            # the manual bodies need the batch to split exactly over the
+            # batch axes, else the einsum path (e.g. batch-1 decode)
+            if (bglob // g_rows) % _batch_size(mesh):
+                mode = "gspmd"
+        # this rank's block of the expert work; the reductions that GSPMD
+        # inserts written out: the expert outputs summed over an
+        # expert_ffn split before the combine, the (b, s, d) partial output
+        # over an experts or moe_cap split
+        es, cs, fs = splits = work_splits(cfg, sharder, mode,
+                                          bglob // g_rows, cap)
+        w = {name: params[name].to(dt)
+             for name in ("w_gate", "w_up", "w_down")}
+        bin_token, records, w = _cut(w, bin_token, records, cfg, sharder,
+                                     splits)
+        x = copy_to(x.to(dt), sharder.groups(es.axes + cs.axes + fs.axes))
     out = _apply(x, bin_token, w, records, sharder.groups(fs.axes))
     out = reduce_from(out, sharder.groups(es.axes + cs.axes))
     return out.to(dt).reshape(b0, s0, d), aux

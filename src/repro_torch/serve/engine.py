@@ -11,6 +11,11 @@ decodes one batched greedy token per step until every request of the wave
 has its budget or its EOS.  The same scheduling as the JAX package's
 ``repro/serve/engine.py``; here the wave's cache is updated in place.
 
+Each wave's phases are spans of :mod:`repro_torch.perf.spans`
+(``serve.wave`` and within it ``serve.admit``, ``serve.upload``,
+``serve.init_cache``, ``serve.prefill``, ``serve.sample``: the argmax and
+its host sync, ``serve.decode``), recorded only under a profiler.
+
 Prompts are token lists only, as in the JAX engine: a model with a
 frontend (vision prefix, audio frames) or an encoder is refused (see
 :func:`check_servable`); drive it through ``Model.prefill`` /
@@ -28,6 +33,7 @@ import torch
 from repro_torch.core.errors import ValidationError
 from repro_torch.models.api import ModelConfig
 from repro_torch.models.transformer import Model
+from repro_torch.perf import spans
 
 
 def check_servable(cfg: ModelConfig) -> None:
@@ -72,6 +78,7 @@ class ServeEngine:
         self.device = model.device
         self.queue: deque[Request] = deque()
         self.results: Dict[int, Result] = {}
+        self._waves = 0
 
     def submit(self, req: Request) -> None:
         if len(req.prompt) + req.max_new_tokens > self.max_len:
@@ -87,16 +94,21 @@ class ServeEngine:
         if len(lengths) != 1:
             raise ValidationError("waves are length-bucketed")
         pos = lengths.pop()
-        toks = torch.from_numpy(np.stack([np.asarray(r.prompt, np.int64)
-                                          for r in wave])).to(self.device)
-        cache = self.model.init_cache(len(wave), self.max_len)
-        cache, logits = self.model.prefill(self.params, {"tokens": toks},
-                                           cache)
+        with spans.span("serve.upload"):
+            toks = torch.from_numpy(np.stack([np.asarray(r.prompt, np.int64)
+                                              for r in wave])).to(self.device)
+        with spans.span("serve.init_cache"):
+            cache = self.model.init_cache(len(wave), self.max_len)
+        with spans.span("serve.prefill"):
+            cache, logits = self.model.prefill(self.params, {"tokens": toks},
+                                               cache)
         outputs: List[List[int]] = [[] for _ in wave]
         done = [False] * len(wave)
-        cur = self._argmax(logits)
         for _ in range(max(r.max_new_tokens for r in wave)):
-            for i, (r, t) in enumerate(zip(wave, cur[:, 0].tolist())):
+            with spans.span("serve.sample"):
+                cur = self._argmax(logits)
+                served = cur[:, 0].tolist()
+            for i, (r, t) in enumerate(zip(wave, served)):
                 if done[i]:
                     continue
                 outputs[i].append(t)
@@ -105,27 +117,32 @@ class ServeEngine:
                     done[i] = True
             if all(done) or pos + 1 >= self.max_len:
                 break
-            cache, logits = self.model.decode_step(self.params, cur, cache,
-                                                   pos)
-            cur = self._argmax(logits)
+            with spans.span("serve.decode"):
+                cache, logits = self.model.decode_step(self.params, cur,
+                                                       cache, pos)
             pos += 1
         for i, r in enumerate(wave):
             self.results[r.rid] = Result(r.rid, outputs[i], len(r.prompt))
 
     def run(self) -> Dict[int, Result]:
-        """Drain the queue (length-bucketed wave batching)."""
+        """Drain the queue (length-bucketed wave batching).  Each wave is
+        a ``serve.wave`` span with the wave's id and its requests'."""
         while self.queue:
-            head_len = len(self.queue[0].prompt)
-            wave, rest = [], deque()
-            while self.queue and len(wave) < self.num_slots:
-                r = self.queue.popleft()
-                if len(r.prompt) == head_len:
-                    wave.append(r)
-                else:
-                    rest.append(r)
-            rest.extend(self.queue)
-            self.queue = rest
-            self._run_wave(wave)
+            with spans.span("serve.wave", wave=self._waves) as wave_span:
+                self._waves += 1
+                with spans.span("serve.admit"):
+                    head_len = len(self.queue[0].prompt)
+                    wave, rest = [], deque()
+                    while self.queue and len(wave) < self.num_slots:
+                        r = self.queue.popleft()
+                        if len(r.prompt) == head_len:
+                            wave.append(r)
+                        else:
+                            rest.append(r)
+                    rest.extend(self.queue)
+                    self.queue = rest
+                wave_span.tag(requests=[r.rid for r in wave])
+                self._run_wave(wave)
         return self.results
 
 
