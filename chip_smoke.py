@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. Print the card (``nvidia-smi``), build the kernels from
-   ``src/repro_torch/kernels/csrc`` (the four sweep kernels, the
+   ``src/repro_torch/kernels/csrc`` (the five sweep kernels, the
    bit-matrix AND and the flash kernels; one nvcc per source, in parallel)
    and print the build time.
 2. Kernel parity at full size on the paper-§5 uniform workloads
@@ -16,7 +16,10 @@ Phases (any failure exits non-zero and prints no result line):
    their plain versions exactly, the delta-bitmask kernel also on the
    records of ``ref.off_contract_records`` (a lower twice, an upper
    twice, an upper before its lower, a dropped lower, one owner's lower
-   in two segments); at n = m = 1e6 it is timed (full size A) beside its
+   in two segments); the delta-scan kernel equals the plain loop
+   (``prefix.delta_scan_exclusive``) on both extent types' words, also
+   with Del widened to share every bit of Add; at n = m = 1e6 the
+   delta-bitmask kernel is timed (full size A) beside its
    plain version and its byte bound, its launches counted in the pass-C
    engine's run;
    pass C equals its plain replay at a reduced size (printed) and, at
@@ -53,7 +56,11 @@ Phases (any failure exits non-zero and prints no result line):
    path (an entering set that says a lower's extent is already open, a
    lower seen twice, stray bits in every entering set, and those with a
    cap that cuts) pass C must equal its plain replay element for element,
-   with a nonzero count of blocks that took the general path.
+   with a nonzero count of blocks that took the general path.  Then the
+   delta-scan kernel at ``ddm-paper.match-a100``'s shape (n = m = 5e5,
+   alpha = 100: 489 segments of 15,625 words a side): held against the
+   plain loop, both sides' device time beside the loop's and the byte
+   bound, and two launches in one ``ops.sbm_enumerate_kernel`` match.
 5. The bit-matrix AND kernel against its plain version and the numpy brute
    force: the shapes of ``tests/test_kernels_bitmatch.py`` and d = 5 and 8
    (the kernel's run-time-d form), an unbounded
@@ -72,7 +79,7 @@ Phases (any failure exits non-zero and prints no result line):
    n = m = 1e5 tall-thin regions (α = 1), the same steps and churn as
    phase 3 (moved regions keep the tall-thin shape) against a
    ``device="cpu"`` twin; the regime ``sweep_dim1`` and the ``device``
-   rematch must show in ``stats()``, and the four sweep kernels' launch
+   rematch must show in ``stats()``, and the five sweep kernels' launch
    counts, zeroed before, must all be > 0.  Then a service rebuild above
    the budget: n = m = 1e7 regions (α = 1) registered in bulk, the cold
    ``match_count()`` (passes A and B) equal to ``len(pairs())``, which
@@ -174,7 +181,7 @@ Phases (any failure exits non-zero and prints no result line):
     ``replay_journal``'s into a ``device="cpu"`` service, a forced
     degraded read (``grid_count`` for d = 1, ``probe_count`` for d = 2)
     equals the same estimator on the replay's state, a healthy read is
-    exact; the four sweep kernels' launch counts, zeroed before the load,
+    exact; the five sweep kernels' launch counts, zeroed before the load,
     are > 0 after it; flush p50/p99 and the admission counters printed.
     (d) Every engine of ``repro_torch.api.engines_for(d)``, d = 1, 2, 3,
     on ``cuda`` extents through ``check_engine``: edge cases (ties,
@@ -357,6 +364,9 @@ the last line, by the card's name and power limit.
 ``python3 chip_smoke.py --model-parallel-cards`` runs phase 21 alone with
 its world of 4 on NCCL across 4 cards, one rank a card.
 
+``python3 chip_smoke.py --delta-scan`` runs phase 4's delta-scan kernel at
+``ddm-paper.match-a100``'s shape alone.
+
 ``python3 chip_smoke.py --flash-d96 [SRC]`` runs row 6c and phase 17
 alone the same way, on the route that port takes for bf16 at D = 96.
 
@@ -401,6 +411,8 @@ REDUCED_N = 20_000             # pass C against its Python replay
 # a block's shared memory and live in global memory
 PASS_C_FULL_N = 1_000_000
 MAIN_N = 100_000               # the service's regions per side
+# ddm-paper.match-a100's regions per side and alpha (the delta scan's row)
+SCAN_CELL = (500_000, 100.0)
 # a service rebuild above the pass-C engine's scratch budget (2 GiB: the
 # route changes at n = m ~ 1.48e6), on the rank-table engine
 ABOVE_BUDGET_N = 10_000_000
@@ -579,11 +591,13 @@ REPLACES = {
     "emission": "src/repro/kernels/sbm_sweep.py:63",
     "delta_bitmasks": "src/repro/kernels/sbm_sweep.py:126",
     "emit_pairs": "src/repro/kernels/sbm_sweep.py:205",
+    # no Pallas kernel: the JAX package scans with lax.associative_scan
+    "delta_scan": "src/repro/core/prefix.py:140",
     "bitmatch": "src/repro/kernels/bitmatch.py:40",
     "flash_attention": "src/repro/kernels/flash_attention.py:33",
 }
 SOURCES = dict.fromkeys(
-    ("block_sums", "emission", "delta_bitmasks", "emit_pairs"),
+    ("block_sums", "emission", "delta_bitmasks", "delta_scan", "emit_pairs"),
     "src/repro_torch/kernels/csrc/sbm_sweep.cu")
 SOURCES["bitmatch"] = "src/repro_torch/kernels/csrc/bitmatch.cu"
 SOURCES["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -737,7 +751,8 @@ LAYOUT_TIMEOUT_S = 600
 DEVICE = "cuda"
 # the sweep kernels' names in a profile (the rebuild trace sums each)
 SWEEP_KERNELS = ("block_sums_kernel", "emission_kernel",
-                 "delta_bitmask_kernel", "emit_pairs_kernel")
+                 "delta_bitmask_kernel", "delta_scan_kernel",
+                 "emit_pairs_kernel")
 # SASS opcodes counted per kernel: tensor cores, cp.async, ldmatrix, and
 # the float32 kernel's FFMA and shared loads
 SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "LDSM", "FFMA", "LDS", "UTMALDG")
@@ -963,6 +978,8 @@ def main(argv=None) -> int:
         return model_parallel_cards(torch)
     if argv[:1] == ["--layout"]:
         return layout_alone(torch)
+    if argv[:1] == ["--delta-scan"]:
+        return delta_scan_alone(torch)
     # torch.compile's caches (the flex_attention yardstick) stay in the
     # checkout's build/
     os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
@@ -977,6 +994,7 @@ def main(argv=None) -> int:
     smoke.main_path()
     smoke.segment_sizes()
     smoke.kernels_at_main_shapes()
+    smoke.scan_at_cell_shape()
     smoke.bitmatch_battery()
     for cell, n, d, alpha in BITMATCH_FULL:
         smoke.bitmatch_full(cell, n, d, alpha)
@@ -1013,6 +1031,19 @@ def layout_alone(torch) -> int:
     smoke.layout(card)
     print("timings_ms: " + json.dumps(
         {k: round(v, 3) for k, v in smoke.phase_ms.items()}))
+    print(card)
+    return 0
+
+
+def delta_scan_alone(torch) -> int:
+    """``chip_smoke.py --delta-scan``: phase 4's delta-scan row at
+    ``ddm-paper.match-a100``'s shape alone."""
+    card = card_line()
+    print(card, flush=True)
+    smoke = Smoke(torch)
+    smoke.build()
+    smoke.scan_at_cell_shape()
+    print(json.dumps({"card": card, "kernels": list(smoke.rows.values())}))
     print(card)
     return 0
 
@@ -1139,8 +1170,6 @@ class Smoke:
     def pass_inputs(self, subs, upds):
         """Every kernel's inputs for one workload, as the entry points in
         repro_torch.kernels.ops build them."""
-        from repro_torch.core import prefix
-
         torch, K = self.torch, self.K
         n, m = subs.size, upds.size
         ep, deltas = self.stream(subs, upds, self.ops.COUNT_BLOCK)
@@ -1159,9 +1188,10 @@ class Smoke:
             "deltas": deltas, "deltas4": deltas4, "ep4": ep4, "up": up,
             "vs": vs, "vu": vu,
             "ws": ws, "wu": wu, "cap": max(int(seg.max()), 1), "k": int(k),
+            "scan": (sa, sd, ua, ud),
             "c_args": (ep4.owner.clamp(min=0), up, ep4.is_sub.to(torch.int32),
-                       real.to(torch.int32), prefix.delta_scan_exclusive(sa, sd),
-                       prefix.delta_scan_exclusive(ua, ud)),
+                       real.to(torch.int32), K.delta_scan(sa, sd),
+                       K.delta_scan(ua, ud)),
         }
 
     def check_counting(self, deltas, what, bs):
@@ -1195,6 +1225,21 @@ class Smoke:
                                               block_size=bs)
                 self.same("delta_bitmasks", got, want,
                           f"delta bitmasks {what}{kind}")
+
+    def check_scan(self, x, what):
+        """The delta-scan kernel == the plain loop on the same card tensors:
+        each extent type's Add/Del words as the bitmask kernel gives them,
+        and with Del widened to share every bit of Add."""
+        from repro_torch.core import prefix
+
+        sa, sd, ua, ud = x["scan"]
+        for side, add, rem in (("subscriptions", sa, sd),
+                               ("updates", ua, ud)):
+            for kind, r in (("", rem), (", Add and Del overlapping",
+                                        rem | add)):
+                self.same("delta_scan", [self.K.delta_scan(add, r)],
+                          [prefix.delta_scan_exclusive(add, r)],
+                          f"delta scan {what}, {side}{kind}")
 
     def check_pass_c(self, x, what, placement=None):
         """Pass C == its replay; the kernel's mask placement must be
@@ -1299,6 +1344,7 @@ class Smoke:
         k = self.check_counting(x["deltas"], tag, self.ops.COUNT_BLOCK)
         k4 = self.check_counting(x["deltas4"], tag, self.ops.ENUMERATE_BLOCK)
         self.check_bitmasks(x, tag)
+        self.check_scan(x, tag)
         t0 = time.perf_counter()
         k_seq = sequential_sbm_count_numpy(subs, upds)
         require(k == k4 == k_seq == x["k"],
@@ -1680,6 +1726,8 @@ class Smoke:
         return start.elapsed_time(end) / reps
 
     def kernels_at_main_shapes(self):
+        from repro_torch.core import prefix
+
         torch, K, ref = self.torch, self.K, self.ref
         self.timing_source = {}
         subs, upds = self.main_live
@@ -1692,6 +1740,7 @@ class Smoke:
         for bs in PASS_B_EXTRA_BLOCKS:
             self.check_counting(self.stream(subs, upds, bs)[1], tag, bs)
         self.check_bitmasks(x, tag)
+        self.check_scan(x, tag)
         plain_c_ms = self.check_pass_c(x, tag, "shared")
         require(int(K.emit_pairs.general_blocks) == 0, "pass C at the main "
                 "path's shapes: a block took the general path")
@@ -1724,6 +1773,10 @@ class Smoke:
                                                num_words=x["ws"],
                                                block_size=bse),
                 12 * total4 + 8 * nbe * x["ws"], "delta_bitmask_kernel", 20),
+            "delta_scan": (
+                lambda: K.delta_scan(*x["scan"][:2]),
+                lambda: prefix.delta_scan_exclusive(*x["scan"][:2]),
+                12 * nbe * x["ws"], "delta_scan_kernel", 20),
             "emit_pairs": (
                 lambda: K.emit_pairs(*c_args, block_size=bse, cap=cap),
                 None,
@@ -1760,6 +1813,60 @@ class Smoke:
               f"{self.rows['emit_pairs']['ms']:.4f} ms)", flush=True)
         self.check_pass_c_any_records(x, "main-path shapes", "shared",
                                       with_stray=True)
+
+    def scan_at_cell_shape(self):
+        """The delta-scan kernel at ``ddm-paper.match-a100``'s shape (n = m
+        = 5e5, alpha = 100): both extent types' words held against the
+        plain loop, both launches timed (device time) beside the loop on the
+        same card tensors and the byte bound (Add and Del read, active
+        written, once); then one ``ops.sbm_enumerate_kernel`` match there
+        must launch it twice and count K."""
+        from repro_torch.core import prefix
+
+        torch, K = self.torch, self.K
+        n, alpha = SCAN_CELL
+        tag = f"n=m={n} alpha={alpha:g}"
+        subs, upds = self.workload(n, alpha, SEED + 7)
+        x = self.pass_inputs(subs, upds)
+        sa, sd, ua, ud = x["scan"]
+        rows = sa.shape[0]
+        require((rows, x["ws"], x["wu"]) == (489, 15_625, 15_625),
+                f"delta scan at {tag}: ({rows}, {x['ws']}, {x['wu']}) words, "
+                "not the cell's (489, 15625, 15625)")
+        self.check_scan(x, tag)
+        ms = sum(self.time_ms(lambda a=a, r=r: K.delta_scan(a, r), 20,
+                              "delta_scan_kernel")
+                 for a, r in ((sa, sd), (ua, ud)))
+        call_ms = self.time_ms(lambda: (K.delta_scan(sa, sd),
+                                        K.delta_scan(ua, ud)), 20)
+        plain_ms = self.time_ms(lambda: (prefix.delta_scan_exclusive(sa, sd),
+                                         prefix.delta_scan_exclusive(ua, ud)),
+                                3)
+        torch.cuda.synchronize()
+        K.delta_scan.launches = 0
+        _, count = self.ops.sbm_enumerate_kernel(
+            subs, upds, max_pairs=self.round_up_pow2(x["k"]))
+        torch.cuda.synchronize()
+        launches = K.delta_scan.launches
+        require(launches == 2 and int(count) == x["k"],
+                f"delta scan at {tag}: {launches} launches in a match "
+                f"(want 2), count {int(count)} != K {x['k']}")
+        self.rows["delta_scan_ddm_cell"] = {
+            "name": "delta_scan_ddm_cell", "route": "cuda",
+            "source": SOURCES["delta_scan"], "replaces": REPLACES["delta_scan"],
+            "launches": launches, "max_abs_err": self.err["delta_scan"],
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": 12 * rows * (x["ws"] + x["wu"]) / HBM_BYTES_PER_S
+            * 1e3, "bound_by": "bytes", "library_ms": None,
+        }
+        row = self.rows["delta_scan_ddm_cell"]
+        print(f"delta scan at {tag} ({rows} segments, {x['ws']} words a "
+              f"side): == the plain loop (also Add and Del overlapping); both "
+              f"sides {ms:.5f} ms device (source "
+              f"{self.timing_source.get('delta_scan_kernel')}), whole calls "
+              f"{call_ms:.5f} ms (events), the loop {plain_ms:.3f} ms, bound "
+              f"{row['bound_ms']:.5f} ms; {launches} launches in a match, "
+              f"K={x['k']}", flush=True)
 
     def check_pass_c_any_records(self, x, tag, placement, with_stray):
         """Pass C on records outside the contract of its fast path must

@@ -1,17 +1,22 @@
 // Hand-written CUDA kernels for the parallel SBM sweep (sm_90a).
 //
-// Four kernels, each replacing one Pallas TPU kernel of the JAX package's
-// repro/kernels/sbm_sweep.py.  Every kernel gives one CUDA block one
-// segment of the sorted endpoint stream: on the TPU the grid runs the
-// segments in order on one core, here the blocks run in parallel and in no
-// order, so nothing is carried from one block to the next inside a kernel.
-// Cross-segment carries are computed between launches by the wrapper.
+// Four kernels replace the Pallas TPU kernels of the JAX package's
+// repro/kernels/sbm_sweep.py; each gives one CUDA block one segment of the
+// sorted endpoint stream: on the TPU the grid runs the segments in order
+// on one core, here the blocks run in parallel and in no order, so nothing
+// is carried from one block to the next inside a kernel.  Cross-segment
+// carries are computed between launches: the counting sweep's by the
+// wrapper, the active sets entering each segment by a fifth kernel, the
+// monoid scan of the delta words (one launch an extent type).
 //
 //   sbm_block_sums      pass A   replaces _block_sums_kernel
 //   sbm_emission        pass B   replaces _emission_kernel
 //   sbm_delta_bitmasks           replaces _delta_bitmask_kernel
 //   sbm_emit_pairs      pass C   replaces _emission_pairs_kernel
 //   (sbm_emit_pairs_placement says where pass C keeps its masks)
+//   sbm_delta_scan               Algorithm 6's exclusive scan of the delta
+//                                words (lax.associative_scan in the JAX
+//                                package, no Pallas kernel)
 //
 // Each C entry point launches on the caller's stream, does not
 // synchronise, allocates nothing, and returns cudaGetLastError().
@@ -900,6 +905,63 @@ emit_pairs_kernel(const int* __restrict__ owner,
   }
 }
 
+// Algorithm 6's exclusive scan of one extent type's per-segment delta
+// words:  active[0] = 0,  active[p] = (active[p-1] & ~del[p-1]) | add[p-1].
+// Row p is the transformer S -> (S & ~del[p]) | add[p]; two of them
+// compose (apply 1, then 2) as A = (A1 & ~D2) | A2, D = D1 | D2, which is
+// exact for any words, add and del overlapping included, since only A is
+// read out.  The paper's two-level scan (Fig. 5) on this monoid: a block
+// takes kScanCols word columns and cuts the rows into kScanChunks chunks,
+// a warp a chunk; each thread composes its chunk of its column in
+// registers, the block composes the chunks' transformers in order in
+// shared memory (the master step), and each thread walks its chunk again
+// from that carry, writing the active words.  A warp reads one row's 32
+// consecutive words (128 bytes, whole sectors) a load, so rows of any
+// width and alignment take the same 4-byte path; each word of add and del
+// is read twice (the second time partly from L2) and active written once.
+constexpr int kScanCols = 32;
+constexpr int kScanChunks = 8;
+
+__global__ void __launch_bounds__(kScanCols * kScanChunks)
+delta_scan_kernel(const unsigned* __restrict__ add,
+                  const unsigned* __restrict__ del,
+                  unsigned* __restrict__ active, int num_words, int rows) {
+  __shared__ unsigned chunk_a[kScanChunks][kScanCols];
+  __shared__ unsigned chunk_d[kScanChunks][kScanCols];
+  const int col = threadIdx.x, chunk = threadIdx.y;
+  const long long w = (long long)blockIdx.x * kScanCols + col;
+  const bool live = w < num_words;
+  const size_t stride = (size_t)num_words;
+  const int len = (rows + kScanChunks - 1) / kScanChunks;
+  const int r0 = min(chunk * len, rows), r1 = min(r0 + len, rows);
+  unsigned a = 0u, d = 0u;
+  if (live) {
+    const unsigned* pa = add + r0 * stride + w;
+    const unsigned* pd = del + r0 * stride + w;
+#pragma unroll 8
+    for (int r = r0; r < r1; ++r, pa += stride, pd += stride) {
+      const unsigned x = __ldg(pa), y = __ldg(pd);
+      a = (a & ~y) | x;
+      d |= y;
+    }
+  }
+  chunk_a[chunk][col] = a;
+  chunk_d[chunk][col] = d;
+  __syncthreads();
+  if (!live) return;
+  unsigned acc = 0u;   // the active words entering this chunk
+  for (int c = 0; c < chunk; ++c)
+    acc = (acc & ~chunk_d[c][col]) | chunk_a[c][col];
+  const unsigned* pa = add + r0 * stride + w;
+  const unsigned* pd = del + r0 * stride + w;
+  unsigned* out = active + r0 * stride + w;
+#pragma unroll 8
+  for (int r = r0; r < r1; ++r, pa += stride, pd += stride, out += stride) {
+    *out = acc;
+    acc = (acc & ~__ldg(pd)) | __ldg(pa);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1006,6 +1068,18 @@ int sbm_emit_pairs(const int* owner, const int* is_upper, const int* is_sub,
   kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
       owner, is_upper, is_sub, valid, sub0, upd0, sub_mask, upd_mask, out_i,
       out_j, general, block_size, ws, wu, (int)cap);
+  return (int)cudaGetLastError();
+}
+
+// One extent type's active words entering each of `rows` segments of
+// `num_words` words.
+int sbm_delta_scan(const unsigned* add, const unsigned* del, unsigned* active,
+                   int num_words, int rows, void* stream) {
+  if (rows < 1 || num_words < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((num_words + kScanCols - 1) / kScanCols));
+  delta_scan_kernel<<<grid, dim3(kScanCols, kScanChunks), 0,
+                      (cudaStream_t)stream>>>(add, del, active, num_words,
+                                               rows);
   return (int)cudaGetLastError();
 }
 

@@ -21,7 +21,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import prefix as prefix_lib
 from repro_torch.core.errors import ValidationError
 from repro_torch.core.intervals import Extents
 from repro_torch.core.sweep import _indicator_deltas, _pad_stream, encode_endpoints
@@ -130,11 +129,11 @@ def _stitch_blocks(out_i, out_j, block_sums, k_total, *, max_pairs: int,
 def sbm_enumerate_kernel(subs: Extents, upds: Extents, *, max_pairs: int,
                          block_size: int = ENUMERATE_BLOCK
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """All matching (i, j) pairs via the four sweep kernels.
+    """All matching (i, j) pairs via the five sweep kernels.
 
     Passes A/B size the output: the per-segment emission totals and their
     exclusive scan are the cross-segment pair offsets.  The delta-bitmask
-    kernel plus the Algorithm-6 monoid scan seed each segment's active
+    kernel plus the Algorithm-6 monoid scan kernel seed each segment's active
     sets, and pass C writes each segment's pairs into its own region,
     stitched by the offset table.  Returns (pairs (max_pairs, 2) int32
     padded with −1, exact count as a 0-d int64 tensor) — the contract of
@@ -171,8 +170,8 @@ def sbm_enumerate_kernel(subs: Extents, upds: Extents, *, max_pairs: int,
         up = ep.is_upper.to(torch.int32)
         sadd, sdel, uadd, udel = _type_bitmasks(ep, up, n, m, block_size)
     with spans.span("sweep.scan"):
-        sub_active0 = prefix_lib.delta_scan_exclusive(sadd, sdel)
-        upd_active0 = prefix_lib.delta_scan_exclusive(uadd, udel)
+        sub_active0 = sweep_kernels.delta_scan(sadd, sdel)
+        upd_active0 = sweep_kernels.delta_scan(uadd, udel)
     with spans.span("sweep.pass_c"):
         out_i, out_j = sweep_kernels.emit_pairs(
             ep.owner.clamp(min=0), up, ep.is_sub.to(torch.int32),

@@ -1,7 +1,7 @@
 """Wrappers of the hand-written CUDA kernels of the parallel SBM sweep.
 
-Four kernels (``csrc/sbm_sweep.cu``), each the port of one Pallas TPU
-kernel of the JAX package's ``repro/kernels/sbm_sweep.py``:
+Five kernels (``csrc/sbm_sweep.cu``).  The first four are each the port of
+one Pallas TPU kernel of the JAX package's ``repro/kernels/sbm_sweep.py``:
 
 * :func:`block_sums` — ``block_sums_kernel`` (pass A), replaces
   ``_block_sums_kernel``;
@@ -26,11 +26,17 @@ kernel of the JAX package's ``repro/kernels/sbm_sweep.py``:
   Pallas kernel's set/clear semantics, so any records give the Pallas
   kernel's arrays (see :func:`emit_pairs`).
 
+The fifth, :func:`delta_scan` — ``delta_scan_kernel``, is Algorithm 6's
+exclusive scan of one extent type's Add/Del words, which the JAX package
+computes with ``lax.associative_scan`` (no Pallas kernel) and the plain
+version as a loop over the segments: the paper's two-level scan (Fig. 5)
+on the delta-set monoid.
+
 What bounds each on an H100, and its measured time, is in ``PERF.md`` and
 in the kernel source's comments.  Each wrapper:
 
-* takes the plain version of :mod:`repro_torch.kernels.ref` only when its
-  tensors lie on the CPU;
+* takes its plain version (:mod:`repro_torch.kernels.ref`; for the scan
+  :mod:`repro_torch.core.prefix`) only when its tensors lie on the CPU;
 * for CUDA tensors builds the library on first use, launches its kernel on
   the current stream, raises :class:`KernelError` if the launch returned a
   CUDA error, and adds one to its ``launches`` count;
@@ -45,6 +51,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import prefix as prefix_lib
 from repro_torch.core.errors import ValidationError
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_lib
@@ -249,11 +256,37 @@ def emit_pairs(owner: torch.Tensor, is_upper: torch.Tensor,
     return out_i, out_j
 
 
+def delta_scan(add: torch.Tensor, rem: torch.Tensor) -> torch.Tensor:
+    """Algorithm 6's exclusive scan of one extent type's delta words.
+
+    ``add``, ``rem``: (P, W) int32 Add/Del words, any bits (a word may set
+    the same extent in both).  Returns the active words entering each
+    segment, row 0 empty and row p = (row p-1 & ~rem[p-1]) | add[p-1]: on
+    the CPU :func:`repro_torch.core.prefix.delta_scan_exclusive`, on the
+    card one launch of ``delta_scan_kernel``.
+    """
+    if add.ndim != 2 or add.shape != rem.shape or 0 in add.shape:
+        raise ValidationError(
+            "the delta scan expects non-empty (P, W) Add/Del words of one "
+            f"shape, got {tuple(add.shape)} and {tuple(rem.shape)}")
+    if not _on_card(add, rem):
+        return prefix_lib.delta_scan_exclusive(add, rem)
+    active = torch.empty_like(add)
+    lib = _build.library()
+    rc = lib.sbm_delta_scan(_ptr(add), _ptr(rem), _ptr(active), add.shape[1],
+                            add.shape[0], _build.stream_handle(add.device))
+    _build.check(rc, "sbm_delta_scan")
+    delta_scan.launches += 1
+    return active
+
+
 block_sums.launches = 0
 emission.launches = 0
 delta_bitmasks.launches = 0
 emit_pairs.launches = 0
 emit_pairs.general_blocks = None
+delta_scan.launches = 0
 
-#: the four kernel wrappers, in pipeline order
-KERNEL_WRAPPERS = (block_sums, emission, delta_bitmasks, emit_pairs)
+#: the five kernel wrappers, in pipeline order
+KERNEL_WRAPPERS = (block_sums, emission, delta_bitmasks, delta_scan,
+                   emit_pairs)

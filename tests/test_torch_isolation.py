@@ -448,6 +448,66 @@ def test_enumerate_kernel_answers_at_any_segment_size():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("p,w", [(1, 1), (2, 3), (7, 4097), (489, 15625),
+                                 (977, 31250)])
+def test_delta_scan_kernel_matches_the_plain_loop_bit_for_bit(p, w):
+    """``delta_scan`` on the card against ``delta_scan_exclusive`` on the
+    same card tensors, exactly, one launch a call: random words with Add
+    and Del sharing bits, then disjoint at another width (the update side
+    of a match with m != n); (489, 15625) is the paper's deployment (n = m
+    = 5e5, 4096-record segments), (977, 31250) n = m = 1e6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build the kernels)")
+    g = torch.Generator(device="cuda").manual_seed(p * 100_003 + w)
+
+    def words(width):
+        return tprefix.words_from_values(torch.randint(
+            0, 2**32, (p, width), dtype=torch.int64, device="cuda",
+            generator=g))
+
+    wu = w // 2 + 1
+    sadd, sdel, uadd = words(w), words(w), words(wu)
+    udel = words(wu) & ~uadd
+    assert bool((sadd & sdel).any()) and not bool((uadd & udel).any())
+    for add, rem in ((sadd, sdel), (uadd, udel)):
+        before = tkernels.delta_scan.launches
+        got = tkernels.delta_scan(add, rem)
+        assert tkernels.delta_scan.launches == before + 1
+        assert torch.equal(got, tprefix.delta_scan_exclusive(add, rem))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_enumerate_kernel_scans_on_the_card(monkeypatch):
+    """``ops.sbm_enumerate_kernel`` on card extents seeds pass C with one
+    ``delta_scan`` launch a side and never runs the plain scan on card
+    tensors; its pairs and count equal the plain versions' on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build the kernels)")
+    plain = tprefix.delta_scan_exclusive
+    on_card = []
+
+    def counted(add, rem):
+        on_card.append(add.is_cuda)
+        return plain(add, rem)
+
+    monkeypatch.setattr(tprefix, "delta_scan_exclusive", counted)
+    g = torch.Generator().manual_seed(9)
+    subs, upds = intervals.make_uniform_workload(20_000, 15_000, 5.0,
+                                                 generator=g, device="cuda")
+    k = int(tops.sbm_count_kernel(subs, upds))
+    before = tkernels.delta_scan.launches
+    pairs, count = tops.sbm_enumerate_kernel(subs, upds, max_pairs=k)
+    assert tkernels.delta_scan.launches == before + 2
+    assert not any(on_card) and int(count) == k
+    cpu = [intervals.Extents(e.lo.cpu(), e.hi.cpu()) for e in (subs, upds)]
+    want, count = tops.sbm_enumerate_kernel(*cpu, max_pairs=k)
+    assert on_card == [False, False] and int(count) == k
+    assert torch.equal(pairs.cpu(), want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_pass_b_kernel_matches_plain_at_every_block_size():
     """Pass B against ``ref_emission``, exactly: block sizes 4 and 36
     (shorter than a warp's span), 2048 and 4096 (the main path's), 8192

@@ -22,6 +22,7 @@ from repro_torch.core import enumerate as tenum
 from repro_torch.core import prefix as tprefix
 from repro_torch.core import runtime as truntime
 from repro_torch.core import sweep as tsweep
+from repro_torch.core.errors import ValidationError
 from repro_torch.core.intervals import Extents
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -190,6 +191,69 @@ def test_delta_scan_exclusive_matches_reference():
                                            (jnp.asarray(add[1]), jnp.asarray(rem[1])))
     np.testing.assert_array_equal(a.numpy().view(np.uint32), np.asarray(ra))
     np.testing.assert_array_equal(d.numpy().view(np.uint32), np.asarray(rd))
+
+
+def _random_words(rng, shape):
+    return rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+@pytest.mark.parametrize("overlap", [False, True],
+                         ids=["disjoint", "overlapping"])
+@pytest.mark.parametrize("w", [1, 3, 5])
+@pytest.mark.parametrize("p", [1, 2, 7])
+def test_delta_scan_exclusive_matches_reference_on_any_words(p, w, overlap):
+    """The plain scan on packed words equals the JAX package's associative
+    scan over P segments of W words, Add and Del disjoint or sharing bits
+    (as the delta-bitmask kernel's words may)."""
+    rng = np.random.default_rng(100 * p + 10 * w + overlap)
+    add = _random_words(rng, (p, w))
+    rem = _random_words(rng, (p, w))
+    if not overlap:
+        rem &= ~add
+    assert bool((add & rem).any()) == overlap
+    got = tprefix.delta_scan_exclusive(torch.from_numpy(add.view(np.int32)),
+                                       torch.from_numpy(rem.view(np.int32)))
+    want = ref_prefix.delta_scan_exclusive(jnp.asarray(add), jnp.asarray(rem))
+    assert got.dtype == torch.int32 and got.shape == add.shape
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  np.asarray(want))
+
+
+def test_delta_scan_wrapper_on_cpu_is_the_plain_scan():
+    """On CPU words the scan kernel's wrapper returns the plain scan and
+    counts no launch."""
+    rng = np.random.default_rng(11)
+    add, rem = (torch.from_numpy(_random_words(rng, (7, 5)).view(np.int32))
+                for _ in range(2))
+    before = tkernels.delta_scan.launches
+    got = tkernels.delta_scan(add, rem)
+    assert tkernels.delta_scan.launches == before
+    assert torch.equal(got, tprefix.delta_scan_exclusive(add, rem))
+
+
+def _scan_args(kind):
+    add, rem = (torch.zeros((3, 4), dtype=torch.int32) for _ in range(2))
+    if kind == "float":
+        return add.float(), rem.float()
+    if kind == "bool":
+        return add.bool(), rem.bool()
+    if kind == "int64":
+        return add.long(), rem.long()
+    if kind == "shapes":
+        return add, torch.zeros((3, 5), dtype=torch.int32)
+    if kind == "one_d":
+        return add[0], rem[0]
+    if kind == "empty":
+        return (torch.zeros((3, 0), dtype=torch.int32),) * 2
+    assert kind == "non_contiguous"
+    return torch.zeros((4, 3), dtype=torch.int32).t(), rem
+
+
+@pytest.mark.parametrize("kind", ["float", "bool", "int64", "shapes",
+                                  "one_d", "empty", "non_contiguous"])
+def test_delta_scan_refuses_what_the_kernel_cannot_take(kind):
+    with pytest.raises(ValidationError):
+        tkernels.delta_scan(*_scan_args(kind))
 
 
 # ---------------------------------------------------------------------------
