@@ -1,11 +1,15 @@
-"""Architecture and shape registry of the port: the ten configs.
+"""Architecture and shape registry of the port.
 
-The port's own copies of the JAX package's config data
-(``repro/configs``), with ``torch`` dtypes, of ``reduce_config`` (the
-CPU-test variant: same family and pattern, tiny dims), of
-``batch_shapes`` (the inputs of one batch, shapes and dtypes only), of
-``shape_applicable``, ``make_batch`` (a concrete synthetic batch) and
-``input_specs`` (allocation-free stand-ins on the ``meta`` device).
+``ARCH_IDS``: the port's own copies of the JAX package's ten configs
+(``repro/configs``), with ``torch`` dtypes; the tests that hold the port
+against the JAX package run over these.  ``PORT_ONLY_ARCH_IDS``: configs
+the port alone has (granite-4.0-h-small), which no JAX-parity test
+looks up.  :func:`get_config` finds both.  Also the port's copies of
+``reduce_config`` (the CPU-test variant: same family and pattern, tiny
+dims), of ``batch_shapes`` (the inputs of one batch, shapes and dtypes
+only), of ``shape_applicable``, ``make_batch`` (a concrete synthetic
+batch) and ``input_specs`` (allocation-free stand-ins on the ``meta``
+device).
 
 ``make_batch`` seeds each input from a stable digest of its name
 (``zlib.crc32``): the JAX package folds Python's per-process salted
@@ -37,12 +41,18 @@ _MODULES = {
     "mamba2-2.7b": "mamba2_2p7b",
 }
 ARCH_IDS = tuple(_MODULES)
+_PORT_ONLY = {
+    "granite-4.0-h-small": "granite_4h_small",
+}
+PORT_ONLY_ARCH_IDS = tuple(_PORT_ONLY)
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in _MODULES:
-        raise ValidationError(f"unknown arch {arch!r}; choices: {ARCH_IDS}")
-    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}").CONFIG
+    module = _MODULES.get(arch) or _PORT_ONLY.get(arch)
+    if module is None:
+        raise ValidationError(f"unknown arch {arch!r}; choices: "
+                              f"{ARCH_IDS + PORT_ONLY_ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{module}").CONFIG
 
 
 def reduce_config(cfg: ModelConfig) -> ModelConfig:
@@ -65,6 +75,7 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         window=32 if cfg.window else None,
         num_experts=4 if cfg.num_experts else 0,
         num_experts_per_token=min(cfg.num_experts_per_token, 2),
+        moe_shared_ff=32 if cfg.moe_shared_ff else 0,
         # drop-free at test scale: decode equals forward exactly only when
         # the capacity drop sets match
         moe_capacity_factor=8.0,

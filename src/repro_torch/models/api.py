@@ -57,6 +57,7 @@ class ModelConfig:
     moe_capacity_factor: float = 1.25
     moe_group_rows: int = 1          # rows merged per dispatch group
     moe_impl: str = "auto"           # auto | gspmd | ep | cap | ffn
+    moe_shared_ff: int = 0           # a shared SwiGLU expert's width; 0: none
     # per-arch sharding rule overrides: (("logical_axis", "mesh_axis"|None),…)
     sharding_overrides: Tuple[Tuple[str, Any], ...] = ()
     # Mamba-2 (SSD)
@@ -64,6 +65,17 @@ class ModelConfig:
     mamba_head_dim: int = 64
     mamba_expand: int = 2
     mamba_conv: int = 4
+    mamba_conv_bias: bool = False    # a bias on the conv of x, B and C
+    # the gated RMSNorm over d_inner / g channels; 0: each head on its own
+    mamba_norm_groups: int = 0
+    # the scalar multipliers (granite's): the embeddings (None: √d_model),
+    # the attention scores (None: head_dim**-0.5), each residual branch,
+    # and the divisor of the logits
+    embedding_multiplier: Optional[float] = None
+    attention_multiplier: Optional[float] = None
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    use_rope: bool = True            # False: no positional encoding (NoPE)
     # encoder-decoder
     is_encoder_decoder: bool = False
     num_encoder_layers: int = 0
@@ -89,6 +101,11 @@ class ModelConfig:
     @property
     def mamba_heads(self) -> int:
         return self.d_inner // self.mamba_head_dim
+
+    @property
+    def attn_scale(self) -> float:
+        return self.head_dim ** -0.5 if self.attention_multiplier is None \
+            else self.attention_multiplier
 
     @property
     def padded_vocab(self) -> int:

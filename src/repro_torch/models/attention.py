@@ -226,6 +226,8 @@ def attention_layer(params, x, cfg: ModelConfig,
     """Full attention sub-layer (projections + core + output).
 
     * forward/prefill: pass ``positions`` (B, S); returns (out, cache|None).
+      Rope rotates q and k at ``positions`` unless ``cfg.use_rope`` is
+      False (NoPE); the scores are scaled by ``cfg.attn_scale``.
     * decode: pass ``cache`` and x of shape (B, 1, D); this token's K/V go
       to position ``cache.length``.
     * cross-attention: pass ``kv_override`` = the encoder's (k, v) heads
@@ -240,7 +242,7 @@ def attention_layer(params, x, cfg: ModelConfig,
     ``heads`` splits.
     """
     s = x.shape[1]
-    scale = cfg.head_dim ** -0.5
+    scale = cfg.attn_scale
     dt = cfg.dtype
     lay = head_layout(cfg, sharder or Sharder())
 
@@ -250,7 +252,7 @@ def attention_layer(params, x, cfg: ModelConfig,
         xkv = xq if lay.kv_groups else x
         k = _project(xkv, params["wk"], dt)
         v = _project(xkv, params["wv"], dt)
-        if positions is not None:
+        if positions is not None and cfg.use_rope:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
         k = k.transpose(1, 2).contiguous()                 # (B, Hkv, S, hd)

@@ -10,8 +10,19 @@ Recurrence (per head, state N × head_dim P):
     h_t = a_t · h_{t-1} + Δt_t · B_t ⊗ x_t        a_t = exp(Δt_t · A)
     y_t = C_t · h_t + D · x_t
 Simplifications vs the released model, as in the JAX package: n_groups = 1
-(B/C shared across heads), no bias terms.  Decode keeps (h, conv window)
-as explicit state.  The counterpart of ``repro/models/mamba.py``.
+(B/C shared across heads), no bias terms, the gated RMSNorm over each
+head's channels.  ``cfg.mamba_conv_bias`` adds the released conv's bias
+on x, B and C (its leaves exist only then), ``cfg.mamba_norm_groups`` the
+released gated norm over groups of d_inner / groups channels (one group:
+all of d_inner).  Decode keeps (h, conv window) as explicit state.  The
+counterpart of ``repro/models/mamba.py``.
+
+The layer's phases are spans of :mod:`repro_torch.perf.spans`:
+``mamba.proj``, ``mamba.conv``, ``mamba.ssd`` (the whole chunked SSD,
+device-timed), inside it ``mamba.scan`` (the loop between chunks, whose
+host launches a reader counts) and ``mamba.out``; the counter
+``mamba.pad_tokens`` adds the tokens padded up to a chunk multiple.  All
+recorded only under a profiler.
 
 The intra-chunk product ``bclm,bclmh,bcmhp->bclhp`` is taken in two steps:
 the (B, nc, Hm, L, L) weights ``g · decay`` first, then one batched
@@ -33,10 +44,12 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.errors import ValidationError
 from repro_torch.models.api import ModelConfig, ParamDef
 from repro_torch.models.common import rmsnorm
 from repro_torch.parallel.collectives import copy_to, reduce_from
 from repro_torch.parallel.sharding import Sharder
+from repro_torch.perf import spans
 
 CHUNK = 128
 
@@ -44,7 +57,7 @@ CHUNK = 128
 def mamba_defs(cfg: ModelConfig):
     d, hm, p, n = cfg.d_model, cfg.mamba_heads, cfg.mamba_head_dim, cfg.ssm_state
     k = cfg.mamba_conv
-    return {
+    defs = {
         # fused input projections: z and x side by side per head; B ‖ C ‖ Δt
         "w_zx": ParamDef((d, hm, 2 * p), ("embed", "mamba_heads", None),
                          "normal"),
@@ -62,6 +75,13 @@ def mamba_defs(cfg: ModelConfig):
         "w_out": ParamDef((hm, p, d), ("mamba_heads", None, "embed"), "normal",
                           scale_dim=hm * p),
     }
+    if cfg.mamba_conv_bias:
+        defs.update({
+            "conv_x_bias": ParamDef((hm, p), ("mamba_heads", None), "zeros"),
+            "conv_B_bias": ParamDef((n,), ("mamba_state",), "zeros"),
+            "conv_C_bias": ParamDef((n,), ("mamba_state",), "zeros"),
+        })
+    return defs
 
 
 class MambaState(NamedTuple):
@@ -72,9 +92,11 @@ class MambaState(NamedTuple):
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 history: Optional[torch.Tensor]):
-    """Depthwise causal conv along axis 1.  x: (B, S, ...), w: (K, ...).
-    Returns (out, the last K-1 inputs, in x's dtype)."""
+                 history: Optional[torch.Tensor],
+                 bias: Optional[torch.Tensor] = None):
+    """Depthwise causal conv along axis 1.  x: (B, S, ...), w: (K, ...),
+    ``bias`` (...) added last.  Returns (out, the last K-1 inputs, in x's
+    dtype)."""
     k, s = w.shape[0], x.shape[1]
     if history is None:
         pad = x.new_zeros((x.shape[0], k - 1) + x.shape[2:])
@@ -84,7 +106,27 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     out = xp[:, 0:s] * w[0]
     for i in range(1, k):
         out = out + xp[:, i:i + s] * w[i]
+    if bias is not None:
+        out = out + bias
     return out, xp[:, s:]
+
+
+def _gated_norm(params, y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The gated output's RMSNorm (B, S, Hl, P): over each head's P
+    channels, or with ``cfg.mamba_norm_groups`` over groups of d_inner /
+    groups channels (one group: all of d_inner, Mamba-2's ``n_groups`` 1
+    norm); scaled by ``1 + norm_scale``."""
+    groups = cfg.mamba_norm_groups
+    if not groups:
+        return rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps)
+    b, s, hl, p = y.shape
+    width = cfg.d_inner // groups
+    if (hl * p) % width:
+        raise ValidationError(f"{cfg.name}: a rank's {hl} Mamba heads do not "
+                              f"hold whole norm groups of {width} channels")
+    g = rmsnorm({"scale": params["norm_scale"].reshape(-1, width)},
+                y.reshape(b, s, -1, width), cfg.norm_eps)
+    return g.reshape(b, s, hl, p)
 
 
 def _ssd_chunked(xh, dt, a_log, bmat, cmat, h0):
@@ -131,14 +173,21 @@ def _ssd_chunked(xh, dt, a_log, bmat, cmat, h0):
         .permute(0, 1, 3, 2, 4)                              # (B,nc,Hm,N,P)
     chunk_decay = torch.exp(last[:, :, 0])                   # (B,nc,Hm)
 
-    # across chunks: the exclusive scan of the (decay, accumulate) monoid
+    # across chunks: the exclusive scan of the (decay, accumulate) monoid.
+    # The loop carries the recurrence alone (two launches a chunk) and
+    # keeps the state entering each chunk; what those states add to the
+    # chunks' outputs is one product over every chunk after it
     h = h0.float()
-    y_inter = []
-    for c in range(nc):
-        yc = cm[:, c, None] @ h                              # (B,Hm,L,P)
-        y_inter.append(yc * torch.exp(cs[:, c]).transpose(1, 2)[..., None])
-        h = chunk_decay[:, c, :, None, None] * h + chunk_state[:, c]
-    y = y_intra + torch.stack(y_inter, dim=1)                # (B,nc,Hm,L,P)
+    decay = chunk_decay[..., None, None].unbind(1)           # (B,Hm,1,1)
+    state = chunk_state.unbind(1)                            # (B,Hm,N,P)
+    entering = []
+    with spans.span("mamba.scan"):
+        for c in range(nc):
+            entering.append(h)
+            h = decay[c] * h + state[c]
+    y_inter = (cm[:, :, None] @ torch.stack(entering, dim=1)) \
+        * torch.exp(cs).transpose(2, 3)[..., None]           # (B,nc,Hm,L,P)
+    y = y_intra + y_inter
     return y.permute(0, 1, 3, 2, 4).reshape(b, s, hm, p), h
 
 
@@ -164,27 +213,36 @@ def mamba_layer(params, x: torch.Tensor, cfg: ModelConfig, sharder=None, *,
     hl = hm // split.size                    # this rank's heads
     h_lo = split.index * hl
 
-    zx = (copy_to(x, groups) @ params["w_zx"].to(dt_).reshape(d, hl * 2 * p)) \
-        .view(b, s, hl, 2 * p)
-    z, xin = zx[..., :p], zx[..., p:]
-    bcdt = x @ params["w_bcdt"].to(dt_)
-    bproj = bcdt[..., :n]
-    cproj = bcdt[..., n:2 * n]
-    # Δt of every head, used for this rank's: the gradient of the other
-    # columns comes from the other ranks
-    dt_raw = copy_to(bcdt[..., 2 * n:], groups)[..., h_lo:h_lo + hl]
+    with spans.span("mamba.proj"):
+        zx = (copy_to(x, groups)
+              @ params["w_zx"].to(dt_).reshape(d, hl * 2 * p)) \
+            .view(b, s, hl, 2 * p)
+        z, xin = zx[..., :p], zx[..., p:]
+        bcdt = x @ params["w_bcdt"].to(dt_)
+        bproj = bcdt[..., :n]
+        cproj = bcdt[..., n:2 * n]
+        # Δt of every head, used for this rank's: the gradient of the
+        # other columns comes from the other ranks
+        dt_raw = copy_to(bcdt[..., 2 * n:], groups)[..., h_lo:h_lo + hl]
 
-    xin, nhx = _causal_conv(xin, params["conv_x"].to(dt_),
-                            None if state is None else state.conv_x)
-    bproj, nhb = _causal_conv(bproj, params["conv_B"].to(dt_),
-                              None if state is None else state.conv_B)
-    cproj, nhc = _causal_conv(cproj, params["conv_C"].to(dt_),
-                              None if state is None else state.conv_C)
-    xin = F.silu(xin)
-    # B and C feed every rank's heads
-    bproj = copy_to(F.silu(bproj), groups)
-    cproj = copy_to(F.silu(cproj), groups)
-    dt_soft = F.softplus(dt_raw.float() + params["dt_bias"].float())
+    def bias(name):
+        return params[name].to(dt_) if cfg.mamba_conv_bias else None
+
+    with spans.span("mamba.conv"):
+        xin, nhx = _causal_conv(xin, params["conv_x"].to(dt_),
+                                None if state is None else state.conv_x,
+                                bias("conv_x_bias"))
+        bproj, nhb = _causal_conv(bproj, params["conv_B"].to(dt_),
+                                  None if state is None else state.conv_B,
+                                  bias("conv_B_bias"))
+        cproj, nhc = _causal_conv(cproj, params["conv_C"].to(dt_),
+                                  None if state is None else state.conv_C,
+                                  bias("conv_C_bias"))
+        xin = F.silu(xin)
+        # B and C feed every rank's heads
+        bproj = copy_to(F.silu(bproj), groups)
+        cproj = copy_to(F.silu(cproj), groups)
+        dt_soft = F.softplus(dt_raw.float() + params["dt_bias"].float())
 
     h0 = state.h if state is not None else torch.zeros(
         (b, hl, n, p), dtype=dt_soft.dtype, device=x.device)
@@ -201,23 +259,26 @@ def mamba_layer(params, x: torch.Tensor, cfg: ModelConfig, sharder=None, *,
         y = y.transpose(1, 2)                                   # (B,1,Hm,P)
     else:
         pad = (-s) % min(CHUNK, s)   # only pad up to a chunk multiple
-        if pad:
-            def padit(t):
-                return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
-            y, h_final = _ssd_chunked(padit(xin), padit(dt_soft),
-                                      params["A_log"], padit(bproj),
-                                      padit(cproj), h0)
-            y = y[:, :s]
-        else:
-            y, h_final = _ssd_chunked(xin, dt_soft, params["A_log"],
-                                      bproj, cproj, h0)
+        spans.count("mamba.pad_tokens", b * pad)
+        with spans.span("mamba.ssd", device=x.is_cuda):
+            if pad:
+                def padit(t):
+                    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                y, h_final = _ssd_chunked(padit(xin), padit(dt_soft),
+                                          params["A_log"], padit(bproj),
+                                          padit(cproj), h0)
+                y = y[:, :s]
+            else:
+                y, h_final = _ssd_chunked(xin, dt_soft, params["A_log"],
+                                          bproj, cproj, h0)
 
-    y = y + params["D_skip"].float()[None, None, :, None] * xin.float()
-    y = (y * F.silu(z.float())).to(dt_)                         # gate
-    y = rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps)
-    out = reduce_from(
-        y.reshape(b, s, hl * p) @ params["w_out"].to(dt_).reshape(hl * p, d),
-        groups)
+    with spans.span("mamba.out"):
+        y = y + params["D_skip"].float()[None, None, :, None] * xin.float()
+        y = (y * F.silu(z.float())).to(dt_)                     # gate
+        y = _gated_norm(params, y, cfg)
+        out = reduce_from(
+            y.reshape(b, s, hl * p)
+            @ params["w_out"].to(dt_).reshape(hl * p, d), groups)
 
     new_state = None
     if state is not None:

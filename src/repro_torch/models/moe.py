@@ -36,11 +36,16 @@ outputs follow Switch / GShard: load-balancing loss and the router
 z-loss, over the whole batch (their sums all-reduced over the batch axes
 when the batch is split).
 
+With ``cfg.moe_shared_ff`` a shared SwiGLU expert of that width runs on
+every token (never dropped, no capacity) and its output is added to the
+routed sum (granite-4.0-h's ``shared_mlp``); its leaves exist only then,
+and it runs on one device only (a mesh is refused).
+
 The layer's phases are spans of :mod:`repro_torch.perf.spans`
 (``moe.route``, ``moe.dispatch``, and in :func:`_apply` ``moe.gather``,
 ``moe.experts``, ``moe.combine``, the gather and the combine timed on the
-device too), with the counters ``moe.records`` and ``moe.dropped``; all
-recorded only under a profiler.
+device too, and ``moe.shared``, device-timed), with the counters
+``moe.records`` and ``moe.dropped``; all recorded only under a profiler.
 
 Top-k takes a stable descending sort of the router probabilities, so
 among equal probabilities the lower expert index comes first, as
@@ -56,6 +61,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.errors import ValidationError
 from repro_torch.models.api import ModelConfig, ParamDef
+from repro_torch.models import mlp as mlp_lib
 from repro_torch.parallel.collectives import (all_reduce_sum, copy_to,
                                               gather_from, reduce_from)
 from repro_torch.parallel.sharding import (BATCH_AXES, REPLICATED, Sharder,
@@ -74,7 +80,7 @@ _MANUAL_AXIS = {"ep": "experts", "cap": "moe_cap", "ffn": "expert_ffn"}
 
 def moe_defs(cfg: ModelConfig):
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
-    return {
+    defs = {
         "router": ParamDef((d, e), ("embed", "experts"), "normal"),
         "w_gate": ParamDef((e, d, f), ("experts", "embed", "expert_ffn"),
                            "normal", scale_dim=d),
@@ -83,6 +89,9 @@ def moe_defs(cfg: ModelConfig):
         "w_down": ParamDef((e, f, d), ("experts", "expert_ffn", "embed"),
                            "normal", scale_dim=f),
     }
+    if cfg.moe_shared_ff:
+        defs["shared"] = mlp_lib.mlp_defs(cfg, cfg.moe_shared_ff)
+    return defs
 
 
 def _capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
@@ -127,6 +136,9 @@ def check_moe_mode(cfg: ModelConfig, mesh) -> None:
     if select_moe_mode(cfg, mesh) in MESH_MODES and mesh is None:
         raise ValidationError(f"{cfg.name}: moe_impl {cfg.moe_impl!r} "
                               "needs a device mesh (Model(cfg, sharder=...))")
+    if cfg.moe_shared_ff and mesh is not None:
+        raise ValidationError(f"{cfg.name}: the shared expert is not split "
+                              "over a mesh yet; run it on one device")
 
 
 def sort_based_dispatch(expert_ids: torch.Tensor, capacity: int,
@@ -393,4 +405,7 @@ def moe_layer(params, x: torch.Tensor, cfg: ModelConfig,
         x = copy_to(x.to(dt), sharder.groups(es.axes + cs.axes + fs.axes))
     out = _apply(x, bin_token, w, records, sharder.groups(fs.axes))
     out = reduce_from(out, sharder.groups(es.axes + cs.axes))
+    if cfg.moe_shared_ff:
+        with spans.span("moe.shared", device=x.is_cuda):
+            out = out + mlp_lib.mlp(params["shared"], x, cfg)
     return out.to(dt).reshape(b0, s0, d), aux

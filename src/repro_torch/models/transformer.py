@@ -122,6 +122,15 @@ def model_defs(cfg: ModelConfig):
     return defs
 
 
+def _residual(cfg: ModelConfig, x: torch.Tensor,
+              branch: torch.Tensor) -> torch.Tensor:
+    """x plus a sub-layer's output, scaled by ``cfg.residual_multiplier``
+    (at 1 added as it is)."""
+    if cfg.residual_multiplier == 1.0:
+        return x + branch
+    return x + branch * cfg.residual_multiplier
+
+
 def _apply_block(cfg: ModelConfig, sharder: Sharder,
                  pattern: Tuple[LayerSpec, ...], params_block, x, positions,
                  segments, caches=None, enc_out=None, rows=None):
@@ -152,7 +161,7 @@ def _apply_block(cfg: ModelConfig, sharder: Sharder,
                 positions=positions, segments=segments, cache=cache_i)
         if nc is not None:
             new_caches[f"layer{i}"] = nc
-        x = x + o
+        x = _residual(cfg, x, o)
         if spec.cross_attn:
             if enc_out is None:
                 raise ValidationError(f"{cfg.name}: cross-attention needs "
@@ -161,17 +170,17 @@ def _apply_block(cfg: ModelConfig, sharder: Sharder,
             kv = attn_lib.make_cross_kv(sub["cross"], enc_out, cfg, sharder)
             o, _ = attn_lib.attention_layer(sub["cross"], h, cfg, sharder,
                                             causal=False, kv_override=kv)
-            x = x + o
+            x = _residual(cfg, x, o)
         if spec.mlp == "dense":
             h = rmsnorm(sub["norm_mlp"], x, cfg.norm_eps)
-            x = x + mlp_lib.mlp(sub["mlp"], h, cfg, sharder)
+            x = _residual(cfg, x, mlp_lib.mlp(sub["mlp"], h, cfg, sharder))
         elif spec.mlp == "moe":
             h = rmsnorm(sub["norm_mlp"], x, cfg.norm_eps)
             o, moe_aux = moe_lib.moe_layer(sub["mlp"], h, cfg, sharder,
                                            batch=rows)
             aux = aux + torch.stack([moe_aux["moe_aux_loss"],
                                      moe_aux["moe_z_loss"]])
-            x = x + o
+            x = _residual(cfg, x, o)
     return x, new_caches, aux
 
 
@@ -306,7 +315,9 @@ class Model:
         return self.sharder.local(t, ("batch",) + (None,) * (t.dim() - 1))
 
     def _scaled(self, x: torch.Tensor) -> torch.Tensor:
-        return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.cfg.dtype,
+        mult = self.cfg.embedding_multiplier
+        return x * torch.tensor(self.cfg.d_model ** 0.5 if mult is None
+                                else mult, dtype=self.cfg.dtype,
                                 device=x.device)
 
     @staticmethod
@@ -382,8 +393,11 @@ class Model:
         (this rank's rows and vocab block)."""
         x = rmsnorm(self._whole(params, "final_norm", rows), x,
                     self.cfg.norm_eps)
-        return unembed(self._whole(params, "embed", rows), x, self.cfg,
-                       self.sharder)
+        logits = unembed(self._whole(params, "embed", rows), x, self.cfg,
+                         self.sharder)
+        if self.cfg.logits_scaling != 1.0:
+            logits = logits / self.cfg.logits_scaling
+        return logits
 
     def forward(self, params, batch) -> torch.Tensor:
         """The logits of :meth:`forward_with_aux`."""
