@@ -367,6 +367,14 @@ its world of 4 on NCCL across 4 cards, one rank a card.
 ``python3 chip_smoke.py --delta-scan`` runs phase 4's delta-scan kernel at
 ``ddm-paper.match-a100``'s shape alone.
 
+``python3 chip_smoke.py --pass-c [SRC]`` times pass C (``emit_pairs_kernel``,
+device time) at the main path's shapes, at full sizes A and B and at
+``ddm-paper.match-a100``'s shape
+on the port under SRC (another checkout's ``src/``, default this one's), so
+that two commits' pass C are timed in one call on one card; at the cell's
+shape one ``ops.sbm_enumerate_kernel`` match must give
+``core.sbm_enumerate``'s pair set.
+
 ``python3 chip_smoke.py --flash-d96 [SRC]`` runs row 6c and phase 17
 alone the same way, on the route that port takes for bf16 at D = 96.
 
@@ -960,6 +968,7 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     rows_only = argv[0] if argv[:1] in (["--flash-f32-rows"],
                                         ["--flash-d96"]) else None
+    rows_only = "--pass-c" if argv[:1] == ["--pass-c"] else rows_only
     src = pathlib.Path(argv[1]).resolve() if rows_only and len(argv) > 1 \
         else ROOT / "src"
     if not torch.cuda.is_available():
@@ -974,6 +983,8 @@ def main(argv=None) -> int:
         return flash_f32_rows(torch, src)
     if rows_only == "--flash-d96":
         return flash_d96(torch, src)
+    if rows_only == "--pass-c":
+        return pass_c_alone(torch, src)
     if argv[:1] == ["--model-parallel-cards"]:
         return model_parallel_cards(torch)
     if argv[:1] == ["--layout"]:
@@ -995,6 +1006,7 @@ def main(argv=None) -> int:
     smoke.segment_sizes()
     smoke.kernels_at_main_shapes()
     smoke.scan_at_cell_shape()
+    smoke.pass_c_at_cell_shape()
     smoke.bitmatch_battery()
     for cell, n, d, alpha in BITMATCH_FULL:
         smoke.bitmatch_full(cell, n, d, alpha)
@@ -1044,6 +1056,29 @@ def delta_scan_alone(torch) -> int:
     smoke.build()
     smoke.scan_at_cell_shape()
     print(json.dumps({"card": card, "kernels": list(smoke.rows.values())}))
+    print(card)
+    return 0
+
+
+def pass_c_alone(torch, src) -> int:
+    """``chip_smoke.py --pass-c [SRC]``: pass C's device time at the main
+    path's shapes (shared masks), at full sizes A and B and at
+    ``ddm-paper.match-a100``'s shape, on the port whose ``src/`` directory
+    is SRC (default this checkout's)."""
+    card = card_line()
+    print(card, flush=True)
+    smoke = Smoke(torch)
+    smoke.build()
+    subs, upds = smoke.workload(MAIN_N, 1.0, SEED + 2)
+    smoke.pass_c_timed(smoke.pass_inputs(subs, upds),
+                       f"main path n=m={MAIN_N} alpha=1")
+    for n, alpha in FULL:
+        subs, upds = smoke.workload(n, alpha, SEED)
+        smoke.pass_c_timed(smoke.pass_inputs(subs, upds),
+                           f"n=m={n} alpha={alpha:g}")
+    smoke.pass_c_at_cell_shape()
+    print(json.dumps({"src": str(src), "card": card,
+                      "pass_c": smoke.pass_c_rows}))
     print(card)
     return 0
 
@@ -1138,6 +1173,7 @@ class Smoke:
         self.launches = {}
         self.rows = {}
         self.timing_source = {}
+        self.pass_c_rows = {}
 
     # -- helpers ---------------------------------------------------------
     def workload(self, n: int, alpha: float, seed: int):
@@ -1418,21 +1454,13 @@ class Smoke:
         """Pass C at full size: its device time per launch and, when
         ``check``, == its replay with its masks in global memory (at the
         other cell, dense sets, the reduced replay above holds it)."""
-        K, bs = self.K, self.ops.ENUMERATE_BLOCK
-        line = ""
         if check:
             replay_ms = self.check_pass_c(x, tag, "global")
-            line = (f"kernel == replay ({replay_ms:.0f} ms), masks in global "
-                    f"memory, ")
+            print(f"pass C at full size {tag}: kernel == replay "
+                  f"({replay_ms:.0f} ms), masks in global memory", flush=True)
             self.check_pass_c_any_records(x, tag, "global",
                                           with_stray=False)
-        ms = self.time_ms(lambda: K.emit_pairs(*x["c_args"], block_size=bs,
-                                               cap=x["cap"]),
-                          3, "emit_pairs_kernel")
-        self.phase_ms[f"emit_pairs kernel device {tag}"] = ms
-        print(f"pass C at full size {tag}: {line}cap={x['cap']}, {ms:.4f} ms "
-              f"per launch (source "
-              f"{self.timing_source.get('emit_pairs_kernel')})", flush=True)
+        self.pass_c_timed(x, tag)
 
     def drive_service(self, tag, dims, subs, upds, move_bounds, rng):
         """Bulk register, flush, match_count, pairs, then the CHURN flushes
@@ -1867,6 +1895,61 @@ class Smoke:
               f"{call_ms:.5f} ms (events), the loop {plain_ms:.3f} ms, bound "
               f"{row['bound_ms']:.5f} ms; {launches} launches in a match, "
               f"K={x['k']}", flush=True)
+
+    def pass_c_timed(self, x, tag):
+        """Pass C's device time per launch on ``x``'s inputs, its mask
+        placement and its blocks on the general path (with a list path:
+        those that left it)."""
+        K, bs = self.K, self.ops.ENUMERATE_BLOCK
+        ms = self.time_ms(lambda: K.emit_pairs(*x["c_args"], block_size=bs,
+                                               cap=x["cap"]),
+                          5, "emit_pairs_kernel")
+        self.torch.cuda.synchronize()
+        row = {"ms": ms, "source": self.timing_source.get("emit_pairs_kernel"),
+               "blocks": x["c_args"][0].shape[0] // bs,
+               "placement": K.emit_pairs_placement(bs, x["ws"], x["wu"]),
+               "general_blocks": int(K.emit_pairs.general_blocks),
+               "cap": x["cap"], "k": x["k"],
+               "bound_ms": (16 * x["c_args"][0].shape[0] + 8 * x["k"])
+               / HBM_BYTES_PER_S * 1e3}
+        self.pass_c_rows[tag] = row
+        self.phase_ms[f"emit_pairs kernel device {tag}"] = ms
+        print(f"pass C at {tag}: {ms:.4f} ms per launch (source "
+              f"{row['source']}), bound {row['bound_ms']:.4f} ms, "
+              f"{row['placement']} masks, blocks {row['blocks']}, general "
+              f"path {row['general_blocks']}", flush=True)
+        return row
+
+    def pass_c_at_cell_shape(self):
+        """Pass C at ``ddm-paper.match-a100``'s shape (n = m = 5e5, alpha =
+        100, 489 segments of 15,625 words a side, masks in global memory):
+        its device time; one ``ops.sbm_enumerate_kernel`` match there must
+        count K and give ``core.sbm_enumerate``'s pair set."""
+        from repro_torch.core import sbm_enumerate
+
+        torch = self.torch
+        n, alpha = SCAN_CELL
+        tag = f"n=m={n} alpha={alpha:g}"
+        subs, upds = self.workload(n, alpha, SEED + 7)
+        x = self.pass_inputs(subs, upds)
+        require((x["c_args"][4].shape[0], x["ws"], x["wu"])
+                == (489, 15_625, 15_625), f"pass C at {tag}: not the cell's "
+                "(489, 15625, 15625)")
+        row = self.pass_c_timed(x, tag)
+        require(row["general_blocks"] == 0, f"pass C at {tag}: blocks left "
+                f"the fast path: {row}")
+        max_pairs = self.round_up_pow2(x["k"])
+        pairs, count = self.ops.sbm_enumerate_kernel(subs, upds,
+                                                     max_pairs=max_pairs)
+        plain, plain_count = sbm_enumerate(subs, upds, max_pairs=max_pairs)
+        torch.cuda.synchronize()
+        require(int(count) == int(plain_count) == x["k"],
+                f"pass C at {tag}: count {int(count)} != K {x['k']}")
+        require(torch.equal(self.pair_keys(pairs, n),
+                            self.pair_keys(plain, n)),
+                f"pass C at {tag}: pair set != sbm_enumerate pair set")
+        print(f"pass C at {tag}: the engine's pair set == sbm_enumerate's "
+              f"(K={x['k']})", flush=True)
 
     def check_pass_c_any_records(self, x, tag, placement, with_stray):
         """Pass C on records outside the contract of its fast path must

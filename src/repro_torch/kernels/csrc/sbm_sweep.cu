@@ -252,9 +252,9 @@ constexpr int kBitmaskWarps = kBitmaskThreads / 32;
 constexpr int kBitmaskMaxBlock = 16384;
 constexpr int kDigitBits = 8;
 constexpr int kDigits = 1 << kDigitBits;
-// radix counters, (digit, warp) order; each thread scans kPerThread of them
-constexpr int kCounters = kDigits * kBitmaskWarps;
-constexpr int kPerThread = kCounters / kBitmaskThreads;
+// radix counters, (digit, warp) order, kDigits a warp; each thread scans
+// kPerThread of them
+constexpr int kPerThread = kDigits / 32;
 
 // Zero the n words at p with 16-byte stores between a scalar head and tail.
 __device__ __forceinline__ void zero_words(unsigned* p, int n) {
@@ -269,32 +269,36 @@ __device__ __forceinline__ void zero_words(unsigned* p, int n) {
     p[i] = 0u;
 }
 
-// This warp's span of [0, n): whole rounds of 32, in warp order.
+// This warp's span of [0, n) in a block of kWarps warps: whole rounds of
+// 32, in warp order.
+template <int kWarps>
 __device__ __forceinline__ void warp_span(int n, int* lo, int* hi) {
-  const int span =
-      (n + 32 * kBitmaskWarps - 1) / (32 * kBitmaskWarps) * 32;
+  const int span = (n + 32 * kWarps - 1) / (32 * kWarps) * 32;
   *lo = min((int)(threadIdx.x >> 5) * span, n);
   *hi = min(*lo + span, n);
 }
 
-// One stable pass of the radix sort: records [0, n) of (so, sv) to
-// (dst_o, dst_v) by the digit of the owner at `shift`.
+// One stable pass of the radix sort by a block of kWarps warps: records
+// [0, n) of (so, sv) to (dst_o, dst_v) by the digit of the owner at
+// `shift`; `cnt` holds kDigits * kWarps ints.
+template <int kWarps>
 __device__ void radix_pass(const int* so, const unsigned short* sv,
                            int* dst_o, unsigned short* dst_v, int n,
                            int shift, int* cnt, int* scratch) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
-  for (int i = threadIdx.x; i < kCounters; i += blockDim.x) cnt[i] = 0;
+  for (int i = threadIdx.x; i < kDigits * kWarps; i += blockDim.x)
+    cnt[i] = 0;
   __syncthreads();
   int lo, hi;
-  warp_span(n, &lo, &hi);
+  warp_span<kWarps>(n, &lo, &hi);
   // the warp's count per digit; a digit's lowest lane adds its peers
   for (int base = lo; base < hi; base += 32) {
     const int i = base + lane;
     const int d = i < hi ? (so[i] >> shift) & (kDigits - 1) : -1 - lane;
     const unsigned peers = __match_any_sync(0xffffffffu, d);
-    if (i < hi && (peers & below) == 0) cnt[d * kBitmaskWarps + warp] +=
+    if (i < hi && (peers & below) == 0) cnt[d * kWarps + warp] +=
         __popc(peers);
     __syncwarp();
   }
@@ -319,13 +323,13 @@ __device__ void radix_pass(const int* so, const unsigned short* sv,
     const unsigned short v = i < hi ? sv[i] : 0;
     const int d = i < hi ? (o >> shift) & (kDigits - 1) : -1 - lane;
     const unsigned peers = __match_any_sync(0xffffffffu, d);
-    const int slot = i < hi ? cnt[d * kBitmaskWarps + warp] : 0;
+    const int slot = i < hi ? cnt[d * kWarps + warp] : 0;
     __syncwarp();
     if (i < hi) {
       dst_o[slot + __popc(peers & below)] = o;
       dst_v[slot + __popc(peers & below)] = v;
       if ((peers & below) == 0)
-        cnt[d * kBitmaskWarps + warp] = slot + __popc(peers);
+        cnt[d * kWarps + warp] = slot + __popc(peers);
     }
     __syncwarp();
   }
@@ -340,7 +344,7 @@ delta_bitmask_kernel(const int* __restrict__ owner,
                      int num_words, int passes) {
   // two buffers of block_size owners, then two of block_size positions
   extern __shared__ __align__(16) unsigned char bitmask_smem[];
-  __shared__ int cnt[kCounters];
+  __shared__ int cnt[kDigits * kBitmaskWarps];
   __shared__ int scratch[33];
   __shared__ int warp_kept[kBitmaskWarps];
   int* so = reinterpret_cast<int*>(bitmask_smem);
@@ -359,7 +363,7 @@ delta_bitmask_kernel(const int* __restrict__ owner,
   // step 1: the kept records in position order (loads issued together,
   // none waiting on another)
   int lo, hi;
-  warp_span(block_size, &lo, &hi);
+  warp_span<kBitmaskWarps>(block_size, &lo, &hi);
   int kept = 0;
 #pragma unroll 4
   for (int base = lo; base < hi; base += 32) {
@@ -398,7 +402,8 @@ delta_bitmask_kernel(const int* __restrict__ owner,
 
   // step 2: stable radix sort by owner, the result back in (so, sv)
   for (int p = 0; p < passes; ++p) {
-    radix_pass(so, sv, to, tv, n, p * kDigitBits, cnt, scratch);
+    radix_pass<kBitmaskWarps>(so, sv, to, tv, n, p * kDigitBits, cnt,
+                              scratch);
     int* x = so;
     so = to;
     to = x;
@@ -424,82 +429,112 @@ delta_bitmask_kernel(const int* __restrict__ owner,
 //
 // The Pallas kernel replays each segment in order: an endpoint opens or
 // closes its own extent, an upper endpoint emits the counterpart set as it
-// stands.  On this card such a chain is bound by the latency of its steps
-// (each a dependent shared-memory access and a dozen instructions of one
-// warp), not by bytes: a segment's outputs are a few KB.  So
-// the design takes what it can off the chain and shortens the rest:
+// stands.  On this card such a chain is bound by the latency of its steps,
+// not by bytes: a segment's outputs are a few hundred KB at most.  So no
+// step of the main path waits on the record before it in the stream:
 //
 //   1. Everything that has a closed form is computed by all threads in
-//      parallel before any replay.  At an upper endpoint the counterpart
-//      set's popcount is the popcount entering the segment plus the
-//      counterpart lowers before it in the segment minus the counterpart
-//      uppers before it (each extent's lower precedes its upper in the
-//      sorted stream): block scans of those ±1 indicators give every
-//      emission count (the same count as pass B's emission_kernel), a scan
-//      of the counts every upper's slot base, and their sum the segment's
-//      total.  The XOR of the set's member ids has the same form (XOR in
-//      at a lower, XOR out at an upper), so where the count is 1 the XOR
-//      scan is the one member and that pair is written right there.
-//   2. Only emissions of two or more pairs need the set itself, and the
-//      two sets are independent: the subscription set changes only at
-//      subscription endpoints and is read only at update uppers, and the
-//      other way round.  So warp 0 replays the subscription set and warp 1
-//      the update set, in parallel, each from a list built in step 1 that
-//      holds, in stream order, a toggle for each endpoint of its own type
-//      and an emission for each counterpart upper with a count >= 2.
-//   3. A run of toggles between two emissions commutes (a lower's bit is
-//      clear, an upper's set: each toggle flips one bit), so the warp
-//      applies up to 32 of them at once with shared-memory atomics.
-//      Each set keeps its mask words and two levels of summary: bit b of
-//      summary word s is set iff mask word 32 s + b is nonzero, bit b of
+//      parallel.  At an upper endpoint the counterpart set's popcount is
+//      the popcount entering the segment plus the counterpart lowers
+//      before it in the segment minus the counterpart uppers before it
+//      (each extent's lower precedes its upper in the sorted stream):
+//      block scans of those ±1 indicators give every emission count (the
+//      same count as pass B's emission_kernel), a scan of the counts every
+//      upper's slot base, and their sum the segment's total.  The XOR of
+//      the set's member ids has the same form (XOR in at a lower, XOR out
+//      at an upper), so where the count is 1 the XOR scan is the one
+//      member and that pair is written right there.
+//   2. The list path answers every other upper on its own, with no
+//      replay.  For one side T of the segment, every extent that can be
+//      active anywhere in it is one entry (id, open, close): a member of
+//      the entering set with open = -1, a lower of side T with open = its
+//      position; close is the position of the extent's upper in the
+//      segment, or the segment's end.  The counterpart set at the upper at
+//      position i is exactly the entries with open < i < close, in
+//      ascending id order: the replay's set in the replay's order, so the
+//      (num_blocks, cap) arrays are equal element for element.
+//      (a) While step 1 reads the entering rows (coalesced, once), every
+//          set bit is appended to the sort buffer as an entering record;
+//          step 1 then appends the segment's valid records in position
+//          order.
+//      (b) A stable LSD radix sort on (side, owner) in shared memory, 8-bit
+//          digits, __match_any_sync ranks (radix_pass, as the delta-bitmask
+//          kernel sorts): each owner's records become one run, its
+//          entering record first, then its records in position order.
+//      (c) Each thread checks the runs at its records against the only
+//          patterns a sorted stream with exact entering sets gives
+//          (entering; entering, upper; lower; lower, upper) and writes the
+//          packed (open + 1, close) of each run's first record, 0 (never
+//          active) for the others.
+//      (d) The segment is cut into sub-ranges of kSubRange positions, one
+//          warp each.  The warp lists, in id order, each side's entries
+//          active anywhere in its sub-range (a ballot compaction through
+//          its staging row), kHeld a lane into registers; so no upper
+//          rescans the whole side.
+//      (e) For every upper of the sub-range whose count is >= 2 the warp
+//          tests the other side's entries held in its registers, 32 at a
+//          time, and writes each one active at i to the slot base plus its
+//          ballot rank (slots >= cap dropped); a list longer than the
+//          registers hold is walked in shared memory.  All threads first
+//          fill the slots no pair lands in with -1.
+//      A block takes the list path when its lists fit the dynamic shared
+//      memory (6 ints a record, two stages and the summaries, all taken
+//      whole by the list path): a slot base a position, the sort's two
+//      buffers (an int key and a 16-bit value for each record and entering
+//      member) and its counters; the staging rows reuse the sort's spare
+//      buffer.  So the choice is made per block, from its entering
+//      popcounts and its record count.
+//
+// Slots are int32, as in the Pallas kernel: the entry point takes
+// cap < 2^31.  The closed forms, the XOR and the list's patterns hold only
+// where the Pallas kernel's set and clear are flips: a sorted stream (each
+// extent's lower before its upper) and entering sets that agree with it,
+// as ops builds them.  The list path checks every owner's run, each
+// emission's member count against step 1's, and refuses a negative count;
+// a block that fails a check, or whose lists do not fit, takes step 3.
+//
+//   3. The general path: the block restores its live masks and summaries
+//      from the entering sets, refills its (1, cap) row of out_i / out_j
+//      with -1 (no other block writes there), and warp 0 replays the
+//      segment in stream order: at an upper it emits the counterpart set
+//      in ascending id order at the running slot (emit_set; slots >= cap
+//      dropped) and advances it by the set's popcount, kept as a running
+//      count; then the endpoint sets (lower) or clears (upper) its own
+//      bit.  Each set keeps its mask words and two levels of summary: bit b
+//      of summary word s is set iff mask word 32 s + b is nonzero, bit b of
 //      top word t iff summary word 32 t + b is (one warp load covers the
-//      top level up to n = 2^20); after the flips each lane rewrites the
-//      summary bit of its word, then the top bit.  An emission walks the
-//      summaries down to the nonzero mask words, lists them, reads them
-//      32 at a time (one a lane) and gives each set bit its slot: the base
-//      plus its rank in ascending id order from a warp prefix of popcounts
-//      (six independent ballots).  That is the Pallas kernel's order, so
-//      the (num_blocks, cap) arrays are equal element for element.  Steps
-//      are ordered by __syncwarp.
-//
-// The masks live in shared memory when both fit beside the lists and
-// summaries (kSharedMasks; at n = m = 1e5, 2 x 12.5 KB); otherwise in the
-// block's rows of the global scratch sub_mask / upd_mask (at n = m = 1e6,
-// 2 x 125 KB), read past L1 (the atomics land in L2), with the summaries
-// still in shared memory so only nonzero words are read.  The C entry
-// point chooses.  Slots are int32, as in the Pallas kernel: the entry
-// point takes cap < 2^31.
-//
-// The closed forms and the XOR toggles hold only where the Pallas
-// kernel's set and clear are flips: a sorted stream (each extent's lower
-// before its upper) and entering sets that agree with it, as ops builds
-// them.  The kernel checks that as it goes, at no cost to the chain beyond
-// a match and a compare per toggle run: a toggle that finds its bit the
-// wrong way, or a negative count.  Where every toggle is a flip the
-// replayed sets are the Pallas kernel's at every step, so the check is
-// exact.  A block that fails it then takes the general path (4): the
-// Pallas semantics for any records.
-//
-//   4. The block restores its live masks and summaries from the entering
-//      sets, refills its (1, cap) row of out_i / out_j with -1 (no other
-//      block writes there), and warp 0 replays the segment in stream
-//      order: at an upper it emits the counterpart set in ascending id
-//      order at the running slot (emit_set; slots >= cap dropped) and
-//      advances it by the set's popcount, kept as a running count; then
-//      the endpoint sets (lower) or clears (upper) its own bit.  One warp,
-//      one record at a time: only exact, not fast.  *general counts the
-//      blocks that took it; nothing waits for it.
+//      top level up to n = 2^20).  An emission walks the summaries down to
+//      the nonzero mask words, lists them in `stage`, reads them 32 at a
+//      time (one a lane) and gives each set bit its slot from a warp prefix
+//      of popcounts.  The masks live in shared memory when they fit beside
+//      the rest (kSharedMasks; at n = m = 1e5, 2 x 12.5 KB); otherwise in
+//      the block's rows of the global scratch sub_mask / upd_mask (at
+//      n = m = 1e6, 2 x 125 KB), read past L1.  The C entry point chooses.
+//      One warp, one record at a time: only exact, not fast.  *general
+//      counts the blocks that took it, those that left the list path;
+//      nothing waits for it.
 
 // static shared memory of emit_pairs_kernel, kept out of the dynamic budget
 constexpr int kPassCStaticSmem = 1024;
-// a replay warp's list of the nonzero mask words under one top word
+// the general path's list of the nonzero mask words under one top word
 constexpr int kStage = 32 * 32;
+constexpr int kPassCWarps = kThreads / 32;
+// positions a sub-range of the list path, and list entries a lane holds in
+// registers for one (longer lists are walked in shared memory)
+constexpr int kSubRange = 128;
+constexpr int kHeld = 4;
+// entering words a thread loads at once
+constexpr int kRowLoads = 8;
+// the sort value of an entering member (a record's is position << 1 |
+// is_upper, below it: segments hold fewer than 2^15 records)
+constexpr unsigned short kEntering = 0xffffu;
 
 __host__ __device__ inline int words_over(int bits) { return (bits + 31) / 32; }
 
-// Dynamic shared memory of pass C: two lists of block_size entries (id,
-// count, slot base; int each), the two replay warps' stages, the two
-// summary levels of both sets, and the masks when kSharedMasks.
+// Dynamic shared memory of pass C: 6 ints a record and two stages of
+// kStage ints (the list path's sort and staging rows; the general path
+// uses one stage), the two summary levels of both sets, and the masks when
+// kSharedMasks.
 __host__ __device__ inline size_t pass_c_smem(int block_size, int ws, int wu,
                                               bool shared_masks) {
   const size_t words = 6 * (size_t)block_size + 2 * kStage + words_over(ws) +
@@ -592,46 +627,6 @@ __device__ __forceinline__ void emit_set(const ActiveSet& a, bool subs, int o,
   }
 }
 
-// Warp-cooperative: flip the bits of ids[0 .. run) (run <= 32; lane l
-// takes ids[l], an upper where kinds[l] < 0) and bring both summary
-// levels up to date.  Returns, per lane, whether its toggle broke the
-// contract that makes a flip a set or a clear: a lower must find its bit
-// clear, an upper set.  The bit before a lane's toggle is the word's bit
-// after the run, undone by the parity of the run's toggles of that id and
-// redone by those of the lanes before it (the run is in stream order).
-template <bool kShared>
-__device__ __forceinline__ bool toggle_run(const ActiveSet& a, const int* ids,
-                                           const int* kinds, int run) {
-  const int lane = threadIdx.x & 31;
-  const bool mine = lane < run;
-  const int o = mine ? ids[lane] : 0;
-  const bool up = mine && kinds[lane] < 0;
-  const int w = o >> 5, s = o >> 10;
-  const unsigned peers = __match_any_sync(0xffffffffu, mine ? o : -1 - lane);
-  if (mine) atomicXor(a.mask + w, 1u << (o & 31));
-  if (!kShared) __threadfence_block();
-  __syncwarp();
-  bool broken = false;
-  if (mine) {
-    const unsigned x = load_word<kShared>(a.mask + w);
-    const unsigned below = (1u << lane) - 1u;
-    const unsigned was =
-        ((x >> (o & 31)) ^ __popc(peers) ^ __popc(peers & below)) & 1u;
-    broken = was != (up ? 1u : 0u);
-    const unsigned bit = 1u << (w & 31);
-    if (x != 0u) atomicOr(a.sum + s, bit);
-    else atomicAnd(a.sum + s, ~bit);
-  }
-  __syncwarp();
-  if (mine) {
-    const unsigned bit = 1u << (s & 31);
-    if (a.sum[s] != 0u) atomicOr(a.top + (s >> 5), bit);
-    else atomicAnd(a.top + (s >> 5), ~bit);
-  }
-  __syncwarp();
-  return broken;
-}
-
 // Warp-cooperative, lane 0 writes: set (a lower) or clear (an upper) bit
 // o of `a` and bring both summary levels up to date.  Returns, in every
 // lane, the change of the set's popcount (-1, 0 or +1).
@@ -676,6 +671,208 @@ __device__ __forceinline__ void build_top(const ActiveSet& a) {
   }
 }
 
+// The list path's layout in the dynamic shared memory of `words` ints, for
+// a segment of block_size records: the slot base of every position (and
+// the segment's total at block_size), the sort's two buffers of n_max keys
+// and of n_max 16-bit values (n_max even), the radix counters; after the
+// sort the spare buffer's keys hold the packed (open + 1, close), and its
+// values and the counters the warps' staging rows.
+struct ListLayout {
+  int* base;
+  int* keys[2];
+  unsigned short* vals[2];
+  int* cnt;
+  unsigned short* stage;   // 2 * 32 * kHeld a warp
+  int n_max;               // records and entering members the sort takes
+};
+
+__device__ __forceinline__ ListLayout list_layout(int* smem, int words,
+                                                  int block_size) {
+  ListLayout l;
+  const int base_words = (block_size + 2) & ~1;
+  l.n_max = max((words - base_words - kDigits * kPassCWarps) / 3, 0) & ~1;
+  l.base = smem;
+  l.keys[0] = smem + base_words;
+  l.keys[1] = l.keys[0] + l.n_max;
+  l.vals[0] = reinterpret_cast<unsigned short*>(l.keys[1] + l.n_max);
+  l.vals[1] = l.vals[0] + l.n_max;
+  l.cnt = reinterpret_cast<int*>(l.vals[1] + l.n_max);
+  l.stage = l.vals[1];
+  return l;
+}
+
+// Warp-cooperative: the entries k of [lo, hi) (packed (open + 1, close))
+// active at some position of [s, e), in ascending k; the first `room`
+// written to out.  Returns their number.
+__device__ __forceinline__ int active_in(const int* packed, int lo, int hi,
+                                         int s, int e, unsigned short* out,
+                                         int room) {
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  int got = 0;
+  for (int k0 = lo; k0 < hi; k0 += 32) {
+    const int k = k0 + (threadIdx.x & 31);
+    const int x = k < hi ? packed[k] : 0;
+    const int open1 = x >> 16, close = x & 0xffff;
+    const bool in = open1 < e && s < close && open1 < close;
+    const unsigned b = __ballot_sync(0xffffffffu, in);
+    const int at = got + __popc(b & below);
+    if (in && at < room) out[at] = (unsigned short)k;
+    got += __popc(b);
+  }
+  return got;
+}
+
+// Steps 2 (b)-(e) for one block; sets *bad_flag where an owner's run or
+// an emission's count broke the contract.  The sort input is in buffer
+// `passes & 1`: n = entering members, then the records.
+__device__ void list_emit(const ListLayout& l, int n, int block_size,
+                          int key_bits, int passes, int cap, int fill_from,
+                          const int* seg_sub, const int* seg_owner, int* oi,
+                          int* oj, int* scratch, int* split, int* bad_flag) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  // (b) the sort, its result in buffer 0
+  const bool odd = passes & 1;
+  int* from_k = odd ? l.keys[1] : l.keys[0];
+  int* to_k = odd ? l.keys[0] : l.keys[1];
+  unsigned short* from_v = odd ? l.vals[1] : l.vals[0];
+  unsigned short* to_v = odd ? l.vals[0] : l.vals[1];
+  for (int p = 0; p < passes; ++p) {
+    radix_pass<kPassCWarps>(from_k, from_v, to_k, to_v, n, p * kDigitBits,
+                            l.cnt, scratch);
+    int* k = from_k;
+    from_k = to_k;
+    to_k = k;
+    unsigned short* v = from_v;
+    from_v = to_v;
+    to_v = v;
+  }
+  const int* key = l.keys[0];
+  const unsigned short* val = l.vals[0];
+  int* packed = l.keys[1];
+  // (c) each owner's run; the first record of the update side
+  bool bad = false;
+  for (int k = tid; k < n; k += blockDim.x) {
+    const int kk = key[k];
+    const unsigned short v = val[k];
+    const bool up = v != kEntering && (v & 1u);
+    const bool first = k == 0 || key[k - 1] != kk;
+    int x = 0;
+    if (first) {
+      if (up) {
+        bad = true;   // an upper whose bit is clear: no lower, not entering
+      } else {
+        int close = block_size;
+        if (k + 1 < n && key[k + 1] == kk && val[k + 1] != kEntering &&
+            (val[k + 1] & 1u))
+          close = val[k + 1] >> 1;
+        x = (v == kEntering ? 0 : (v >> 1) + 1) << 16 | close;
+      }
+    } else if (!up || (k >= 2 && key[k - 2] == kk)) {
+      bad = true;     // a lower after a record of its owner, or a third
+    }
+    packed[k] = x;
+    if ((kk >> key_bits) != (k > 0 ? key[k - 1] >> key_bits : 0)) *split = k;
+  }
+  if (bad) *bad_flag = 1;
+  __syncthreads();
+  if (*bad_flag) return;
+  for (int s = fill_from + tid; s < cap; s += blockDim.x) {
+    oi[s] = -1;
+    oj[s] = -1;
+  }
+  // (d) one warp a sub-range: each side's entries active anywhere in it,
+  // listed in id order through the warp's staging row into registers
+  // (kHeld a lane); side 0 (subscriptions) is [0, mid), side 1 [mid, n)
+  const int mid = *split;
+  const int held = 32 * kHeld;
+  unsigned short* stage = l.stage + warp * 2 * held;
+  const int owner_mask = (1 << key_bits) - 1;
+  bool wrong = false;
+  for (int r = warp; r * kSubRange < block_size; r += kPassCWarps) {
+    const int s = r * kSubRange, e = min(s + kSubRange, block_size);
+    const int len_s = active_in(packed, 0, mid, s, e, stage, held);
+    const int len_u = active_in(packed, mid, n, s, e, stage + held, held);
+    __syncwarp();
+    int sub_x[kHeld], sub_id[kHeld], upd_x[kHeld], upd_id[kHeld];
+#pragma unroll
+    for (int m = 0; m < kHeld; ++m) {
+      const int j = m * 32 + lane;
+      sub_x[m] = sub_id[m] = upd_x[m] = upd_id[m] = 0;
+      if (j < min(len_s, held)) {
+        sub_x[m] = packed[stage[j]];
+        sub_id[m] = key[stage[j]] & owner_mask;
+      }
+      if (j < min(len_u, held)) {
+        upd_x[m] = packed[stage[held + j]];
+        upd_id[m] = key[stage[held + j]] & owner_mask;
+      }
+    }
+    __syncwarp();   // the next sub-range rewrites the stage
+    // (e) every upper of the sub-range whose count is >= 2, from the
+    // other side's entries
+    for (int q0 = s; q0 < e; q0 += 32) {
+      const int q = q0 + lane;
+      int b = 0, c = 0, o = 0, sb = 0;
+      bool task = false;
+      if (q < e) {
+        b = l.base[q];
+        c = l.base[q + 1] - b;   // >= 1 only at a valid upper
+        if (c >= 2 && b < cap) {
+          task = true;
+          sb = seg_sub[q] != 0;
+          o = seg_owner[q];
+        }
+      }
+      for (unsigned tasks = __ballot_sync(0xffffffffu, task); tasks != 0u;
+           tasks &= tasks - 1u) {
+        const int src = __ffs(tasks) - 1;
+        const int i = q0 + src;
+        const int slot = __shfl_sync(0xffffffffu, b, src);
+        const int count = __shfl_sync(0xffffffffu, c, src);
+        const int oo = __shfl_sync(0xffffffffu, o, src);
+        const bool sub_upper = __shfl_sync(0xffffffffu, sb, src) != 0;
+        const int len = sub_upper ? len_u : len_s;
+        int found = 0;
+        if (len <= held) {
+#pragma unroll
+          for (int m = 0; m < kHeld; ++m) {
+            if (m * 32 >= len) break;
+            const int x = sub_upper ? upd_x[m] : sub_x[m];
+            const bool in = (x >> 16) <= i && i < (x & 0xffff);
+            const unsigned hits = __ballot_sync(0xffffffffu, in);
+            const int d = slot + found + __popc(hits & below);
+            if (in && d < cap) {
+              const int id = sub_upper ? upd_id[m] : sub_id[m];
+              oi[d] = sub_upper ? oo : id;
+              oj[d] = sub_upper ? id : oo;
+            }
+            found += __popc(hits);
+          }
+        } else {   // more than the registers hold: the side's entries walked
+          const int k1 = sub_upper ? n : mid;
+          for (int k0 = sub_upper ? mid : 0; k0 < k1; k0 += 32) {
+            const int k = k0 + lane;
+            const int x = k < k1 ? packed[k] : 0;
+            const bool in = (x >> 16) <= i && i < (x & 0xffff);
+            const unsigned hits = __ballot_sync(0xffffffffu, in);
+            const int d = slot + found + __popc(hits & below);
+            if (in && d < cap) {
+              const int id = key[k] & owner_mask;
+              oi[d] = sub_upper ? oo : id;
+              oj[d] = sub_upper ? id : oo;
+            }
+            found += __popc(hits);
+          }
+        }
+        wrong |= found != count;
+      }
+    }
+  }
+  if (wrong) *bad_flag = 1;
+}
+
 template <bool kSharedMasks>
 __global__ void __launch_bounds__(kThreads)
 emit_pairs_kernel(const int* __restrict__ owner,
@@ -686,29 +883,26 @@ emit_pairs_kernel(const int* __restrict__ owner,
                   const unsigned* __restrict__ upd0, unsigned* sub_scratch,
                   unsigned* upd_scratch, int* __restrict__ out_i,
                   int* __restrict__ out_j, int* __restrict__ general,
-                  int block_size, int ws, int wu, int cap) {
+                  int block_size, int ws, int wu, int cap, int smem_words,
+                  int key_bits, int passes) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int scratch[33];
   __shared__ unsigned scratch_x[33];
   __shared__ long long scratch_ll[33];
-  __shared__ int list_len[2];
-  __shared__ int fill_from;
-  __shared__ int off_contract;   // a toggle or a count broke the contract
+  __shared__ int off_contract;   // a run or a count broke it
+  __shared__ int entering;       // entering members appended to the sort
+  __shared__ int split;          // the sorted update side's first record
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const size_t p = blockIdx.x;
-  // list L (0: the subscription set's, 1: the update set's) at
-  // [L * block_size, L * block_size + list_len[L])
-  int* e_id = reinterpret_cast<int*>(smem);
-  int* e_count = e_id + 2 * block_size;   // toggles: 0 lower, -1 upper
-  int* e_base = e_count + 2 * block_size;
   ActiveSet sset, uset;
   sset.nsum = words_over(ws);
   sset.ntop = words_over(sset.nsum);
   uset.nsum = words_over(wu);
   uset.ntop = words_over(uset.nsum);
-  int* stage = e_base + 2 * block_size;   // kStage ints per replay warp
+  // the general path's stage and summaries, past the list path's records
+  int* stage = reinterpret_cast<int*>(smem) + 6 * block_size;
   sset.sum = reinterpret_cast<unsigned*>(stage + 2 * kStage);
   sset.top = sset.sum + sset.nsum;
   uset.sum = sset.top + sset.ntop;
@@ -722,152 +916,167 @@ emit_pairs_kernel(const int* __restrict__ owner,
   }
   int* oi = out_i + p * cap;
   int* oj = out_j + p * cap;
+  const ListLayout lay =
+      list_layout(reinterpret_cast<int*>(smem), smem_words, block_size);
+  // the sort's input, in the buffer that leaves its result in buffer 0
+  int* sort_key = passes & 1 ? lay.keys[1] : lay.keys[0];
+  unsigned short* sort_val = passes & 1 ? lay.vals[1] : lay.vals[0];
+  if (tid == 0) {
+    off_contract = 0;
+    entering = 0;
+  }
+  __syncthreads();
 
-  // the live masks; popcount and id XOR of the sets entering the segment
+  // popcount and id XOR of the sets entering the segment; their members
+  // appended to the sort as entering records, one atomic a warp for each
+  // round of loads.  A warp whose round would pass n_max stops appending:
+  // the block cannot take the list path then.
+  bool append = passes > 0 && block_size < kEntering >> 1;   // warp-uniform
   int cs = 0, cu = 0;
   unsigned xs = 0u, xu = 0u;
-  for (int w = tid; w < ws; w += blockDim.x) {
-    const unsigned x = sub0[p * ws + w];
-    sset.mask[w] = x;
-    cs += __popc(x);
-    xs ^= word_xor(x, w);
-  }
-  for (int w = tid; w < wu; w += blockDim.x) {
-    const unsigned x = upd0[p * wu + w];
-    uset.mask[w] = x;
-    cu += __popc(x);
-    xu ^= word_xor(x, w);
+  for (int side = 0; side < 2; ++side) {
+    const int nw = side ? wu : ws;
+    const unsigned* row = (side ? upd0 : sub0) + p * nw;
+    int c = 0;
+    unsigned x_ids = 0u;
+    // (w0 - lane, the warp's first word: its lanes take the same rounds)
+    for (int w0 = tid; w0 - lane < nw; w0 += kRowLoads * blockDim.x) {
+      unsigned xw[kRowLoads];
+#pragma unroll
+      for (int u = 0; u < kRowLoads; ++u) {
+        const int w = w0 + u * blockDim.x;
+        xw[u] = w < nw ? __ldg(row + w) : 0u;
+      }
+      int got = 0;
+#pragma unroll
+      for (int u = 0; u < kRowLoads; ++u) {
+        got += __popc(xw[u]);
+        if (xw[u] != 0u) x_ids ^= word_xor(xw[u], w0 + u * blockDim.x);
+      }
+      c += got;
+      if (!append) continue;
+      const int before = warp_inclusive_scan(got) - got;
+      const int round = __shfl_sync(0xffffffffu, before + got, 31);
+      if (round == 0) continue;
+      int at = 0;
+      if (lane == 0) at = atomicAdd(&entering, round);
+      at = __shfl_sync(0xffffffffu, at, 0);
+      if (at + round > lay.n_max) {
+        append = false;
+        continue;
+      }
+      at += before;
+#pragma unroll
+      for (int u = 0; u < kRowLoads; ++u) {
+        const int w = w0 + u * blockDim.x;
+        for (unsigned y = xw[u]; y != 0u; y &= y - 1u, ++at) {
+          sort_key[at] = side << key_bits | (w * 32 + __ffs(y) - 1);
+          sort_val[at] = kEntering;
+        }
+      }
+    }
+    if (side) { cu = c; xu = x_ids; }
+    else      { cs = c; xs = x_ids; }
   }
   int cs0, cu0;
   unsigned xs0, xu0;
-  if (tid == 0) off_contract = 0;
-  block_exclusive_scan(cs, &cs0, scratch);   // its barriers publish the masks
+  block_exclusive_scan(cs, &cs0, scratch);
   block_exclusive_scan(cu, &cu0, scratch);
   block_exclusive_scan(xs, &xs0, scratch_x, Xor());
   block_exclusive_scan(xu, &xu0, scratch_x, Xor());
-  build_sum(sset, ws);
-  build_sum(uset, wu);
 
   // step 1: each thread a contiguous chunk of the segment's records
   const long long seg0 = (long long)p * block_size;
   const int chunk = (block_size + blockDim.x - 1) / blockDim.x;
   const int lo = min(tid * chunk, block_size);
   const int hi = min(lo + chunk, block_size);
-  int ds = 0, du = 0;
+  // (the four loads of a record issued before any branch on them)
+  int ds = 0, du = 0, nv = 0;
   xs = xu = 0u;
+#pragma unroll 4
   for (int i = lo; i < hi; ++i) {
     const long long g = seg0 + i;
-    if (!valid[g]) continue;
-    const int d = is_upper[g] ? -1 : 1;
-    if (is_sub[g]) { ds += d; xs ^= owner[g]; }
-    else           { du += d; xu ^= owner[g]; }
+    const int v = valid[g], up = is_upper[g], sb = is_sub[g], o = owner[g];
+    if (!v) continue;
+    ++nv;
+    const int d = up ? -1 : 1;
+    if (sb) { ds += d; xs ^= o; }
+    else    { du += d; xu ^= o; }
   }
-  int tot;
+  int tot, records;
   unsigned xtot;
   const int as0 = block_exclusive_scan(ds, &tot, scratch) + cs0;
   const int au0 = block_exclusive_scan(du, &tot, scratch) + cu0;
   const unsigned xs1 = block_exclusive_scan(xs, &xtot, scratch_x, Xor()) ^ xs0;
   const unsigned xu1 = block_exclusive_scan(xu, &xtot, scratch_x, Xor()) ^ xu0;
-  build_top(sset);   // the scans' barriers published the summaries
-  build_top(uset);
-  // entries per list and the sum of counts of the chunk
-  int n0 = 0, n1 = 0;
+  int rec = block_exclusive_scan(nv, &records, scratch) + cs0 + cu0;
+  // the sum of counts of the chunk
   long long mine = 0;
   int as = as0, au = au0;
+#pragma unroll 4
   for (int i = lo; i < hi; ++i) {
     const long long g = seg0 + i;
-    if (!valid[g]) continue;
+    const int v = valid[g];
     const bool sb = is_sub[g] != 0, up = is_upper[g] != 0;
+    if (!v) continue;
     const int c = up ? (sb ? au : as) : 0;
-    if (sb) { as += up ? -1 : 1; ++n0; n1 += c >= 2; }
-    else    { au += up ? -1 : 1; ++n1; n0 += c >= 2; }
+    if (sb) as += up ? -1 : 1;
+    else    au += up ? -1 : 1;
     mine += c;
   }
-  int len0, len1;
   long long seg_total;
-  int at0 = block_exclusive_scan(n0, &len0, scratch);
-  int at1 = block_exclusive_scan(n1, &len1, scratch) + block_size;
   long long slot = block_exclusive_scan(mine, &seg_total, scratch_ll);
-  // the entries, and the pairs of the uppers whose count is 1; a negative
-  // count breaks the contract (an upper before its lower, or entering
-  // sets that disagree with the records)
-  bool bad = false;
-  as = as0;
-  au = au0;
-  xs = xs1;
-  xu = xu1;
-  for (int i = lo; i < hi; ++i) {
-    const long long g = seg0 + i;
-    if (!valid[g]) continue;
-    const bool sb = is_sub[g] != 0, up = is_upper[g] != 0;
-    const int o = owner[g];
-    const int c = up ? (sb ? au : as) : 0;
-    const int own = sb ? at0++ : at1++;
-    e_id[own] = o;
-    e_count[own] = up ? -1 : 0;
-    bad |= c < 0;
-    if (c >= 2) {
-      const int other = sb ? at1++ : at0++;
-      e_id[other] = o;
-      e_count[other] = c;
-      e_base[other] = (int)max(min(slot, (long long)cap), 0LL);
-    } else if (c == 1 && slot >= 0 && slot < cap) {
-      const int member = (int)(sb ? xu : xs);
-      oi[slot] = sb ? o : member;
-      oj[slot] = sb ? member : o;
-    }
-    if (sb) { as += up ? -1 : 1; xs ^= o; }
-    else    { au += up ? -1 : 1; xu ^= o; }
-    slot += c;
-  }
-  if (bad) off_contract = 1;
-  if (tid == 0) {
-    list_len[0] = len0;
-    list_len[1] = len1;
-    fill_from = (int)max(min(seg_total, (long long)cap), 0LL);
-  }
-  __syncthreads();
-
-  // steps 2-3: warp 0 replays the subscription set, warp 1 the update
-  // set; the other warps fill the slots no pair lands in
-  if (warp >= 2) {
-    for (int s = fill_from + tid - 64; s < cap; s += blockDim.x - 64) {
-      oi[s] = -1;
-      oj[s] = -1;
-    }
-  } else {
-    const bool subs = warp == 0;
-    const ActiveSet a = subs ? sset : uset;
-    const int n = list_len[warp];
-    const int* id_l = e_id + warp * block_size;
-    const int* count_l = e_count + warp * block_size;
-    const int* base_l = e_base + warp * block_size;
-    bool flipped_wrong = false;
-    for (int k = 0; k < n;) {
-      // the run of toggles starting at k, up to 32
-      const bool in = k + lane < n;
-      const unsigned stops =
-          __ballot_sync(0xffffffffu, !in || count_l[k + lane] > 0);
-      const int run = stops != 0u ? __ffs(stops) - 1 : 32;
-      if (run > 0) {
-        flipped_wrong |=
-            toggle_run<kSharedMasks>(a, id_l + k, count_l + k, run);
-        k += run;
-      } else {
-        const int b = base_l[k];
-        if (b < cap)
-          emit_set<kSharedMasks>(a, subs, id_l[k], b, count_l[k], cap, oi, oj,
-                                 stage + warp * kStage);
-        __syncwarp();
-        ++k;
+  // the list path when the sort takes every record and entering member
+  // and every slot base is an int (the same in every thread)
+  const int n_sort = cs0 + cu0 + records;
+  const bool listed = passes > 0 && block_size < kEntering >> 1 &&
+                      n_sort <= lay.n_max && seg_total >= 0 &&
+                      seg_total < 0x7fffffffLL;
+  if (listed) {
+    // the slot bases, the sort's records and the pairs of the uppers whose
+    // count is 1; a negative count breaks the contract (an upper before
+    // its lower, or entering sets that disagree with the records)
+    bool bad = false;
+    as = as0;
+    au = au0;
+    xs = xs1;
+    xu = xu1;
+#pragma unroll 4
+    for (int i = lo; i < hi; ++i) {
+      const long long g = seg0 + i;
+      const int v = valid[g], o = owner[g];
+      const bool sb = is_sub[g] != 0, up = is_upper[g] != 0;
+      lay.base[i] = (int)slot;
+      if (!v) continue;
+      const int c = up ? (sb ? au : as) : 0;
+      bad |= c < 0 || o < 0 || o >= 32 * (sb ? ws : wu);
+      sort_key[rec] = (sb ? 0 : 1 << key_bits) | (o & ((1 << key_bits) - 1));
+      sort_val[rec++] = (unsigned short)(i << 1 | (up ? 1 : 0));
+      if (c == 1 && slot >= 0 && slot < cap) {
+        const int member = (int)(sb ? xu : xs);
+        oi[slot] = sb ? o : member;
+        oj[slot] = sb ? member : o;
       }
+      if (sb) { as += up ? -1 : 1; xs ^= o; }
+      else    { au += up ? -1 : 1; xu ^= o; }
+      slot += c;
     }
-    if (flipped_wrong) off_contract = 1;
+    if (bad) off_contract = 1;
+    if (tid == 0) {
+      lay.base[block_size] = (int)seg_total;
+      split = n_sort;
+    }
+    __syncthreads();
+    // step 2: the list path
+    if (!off_contract)
+      list_emit(lay, n_sort, block_size, key_bits, passes, cap,
+                (int)min(seg_total, (long long)cap), is_sub + seg0,
+                owner + seg0, oi, oj, scratch, &split, &off_contract);
+    __syncthreads();
+    if (!off_contract) return;   // the same in every thread of the block
   }
-  __syncthreads();
-  if (!off_contract) return;   // the same in every thread of the block
 
-  // step 4, the general path: the Pallas kernel's replay
+  // step 3, the general path: the Pallas kernel's replay
   if (tid == 0) atomicAdd(general, 1);
   for (int s = tid; s < cap; s += blockDim.x) {
     oi[s] = -1;
@@ -1047,8 +1256,8 @@ int sbm_emit_pairs_max_block(int ws, int wu) {
   return (int)((room - fixed) / (6 * sizeof(int)));
 }
 
-// *general: incremented by each block that took the general path (the
-// caller zeroes it; nothing here reads it back).
+// *general: incremented by each block that left the list path for the
+// general path (the caller zeroes it; nothing here reads it back).
 int sbm_emit_pairs(const int* owner, const int* is_upper, const int* is_sub,
                    const int* valid, const unsigned* sub0,
                    const unsigned* upd0, unsigned* sub_mask,
@@ -1061,13 +1270,21 @@ int sbm_emit_pairs(const int* owner, const int* is_upper, const int* is_sub,
   const int place = sbm_emit_pairs_placement(block_size, ws, wu);
   if (place < 0) return (int)cudaErrorInvalidValue;
   const size_t smem = pass_c_smem(block_size, ws, wu, place == 1);
+  // the list path's sort key: side << key_bits | owner, owners below
+  // 32 * max(ws, wu); no list path where the key would pass 30 bits
+  const long long top = 32LL * (ws > wu ? ws : wu) - 1;
+  int key_bits = 0;
+  while (key_bits < 31 && (top >> key_bits) != 0) ++key_bits;
+  const int passes =
+      key_bits < 30 ? (key_bits + kDigitBits) / kDigitBits : 0;
   auto kernel = place == 1 ? emit_pairs_kernel<true> : emit_pairs_kernel<false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
       owner, is_upper, is_sub, valid, sub0, upd0, sub_mask, upd_mask, out_i,
-      out_j, general, block_size, ws, wu, (int)cap);
+      out_j, general, block_size, ws, wu, (int)cap,
+      (int)(smem / sizeof(int)), key_bits, passes);
   return (int)cudaGetLastError();
 }
 

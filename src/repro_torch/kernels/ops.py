@@ -11,7 +11,9 @@ grad.
 The sweeps' phases are spans of :mod:`repro_torch.perf.spans`
 (``sweep.count``; in :func:`sbm_enumerate_kernel` ``sweep.passes_ab``,
 ``sweep.segment_max``, ``sweep.bitmasks``, ``sweep.scan``,
-``sweep.pass_c``, ``sweep.stitch``), recorded only under a profiler.
+``sweep.pass_c``, ``sweep.stitch``) and, on the card, the counters
+``sweep.pass_c_blocks`` and ``sweep.pass_c_fallback_blocks`` (pass C's
+blocks that left its list path), recorded only under a profiler.
 """
 from __future__ import annotations
 
@@ -177,6 +179,12 @@ def sbm_enumerate_kernel(subs: Extents, upds: Extents, *, max_pairs: int,
             ep.owner.clamp(min=0), up, ep.is_sub.to(torch.int32),
             (ep.owner >= 0).to(torch.int32), sub_active0, upd_active0,
             block_size=block_size, cap=cap)
+        if out_i.is_cuda:
+            # the launch's blocks, and on the device those that left the
+            # kernel's list path: summed when the store is read, no sync
+            spans.count("sweep.pass_c_blocks", out_i.shape[0])
+            spans.count("sweep.pass_c_fallback_blocks",
+                        sweep_kernels.emit_pairs.general_blocks)
     with spans.span("sweep.stitch"):
         pairs = _stitch_blocks(out_i, out_j, seg_totals, k_total,
                                max_pairs=max_pairs, cap=cap)

@@ -271,6 +271,89 @@ def ref_emit_pairs(owner, is_upper, is_sub, valid, sub_active0, upd_active0,
     return torch.from_numpy(out_i).to(dev), torch.from_numpy(out_j).to(dev)
 
 
+def ref_emit_pairs_lists(owner, is_upper, is_sub, valid, sub_active0,
+                         upd_active0, *, block_size: int, cap: int):
+    """Pass C by the membership rule of the CUDA kernel's list path.
+
+    For each segment and side T, every extent that can be active in it is
+    one entry (id, open, close): a member of T's entering set with open =
+    -1, a lower of side T with open = its position in the segment; close
+    is the position of the extent's upper in the segment, else
+    ``block_size``.  At an upper of the other side at position i the
+    counterpart set is the entries with open < i < close, in ascending id
+    order, written at the slot base that the closed form gives (T's
+    entering popcount plus T's lowers before i minus T's uppers before i,
+    summed over the uppers before).
+
+    The rule holds where each owner's records on a side, after its
+    entering bit, are one of: entering; entering, upper; lower; lower,
+    upper — and each set's size equals its closed-form count, and owners
+    lie below 32·W of their side.  A segment that breaks it is flagged
+    and takes :func:`ref_emit_pairs`' replay, as the kernel's general
+    path does.  Returns (out_i, out_j, off_contract): the arrays of
+    :func:`ref_emit_pairs` and a (num_blocks,) bool tensor.  A Python
+    loop: fit for small sizes only.
+    """
+    dev = owner.device
+    ow, up, sb, va = (_host(x).tolist() for x in (owner, is_upper, is_sub,
+                                                    valid))
+    words = {True: _host(sub_active0).view(np.uint32),
+             False: _host(upd_active0).view(np.uint32)}
+    nb = len(ow) // block_size
+    out_i = np.full((nb, cap), -1, np.int32)
+    out_j = np.full((nb, cap), -1, np.int32)
+    flagged = np.zeros(nb, bool)
+    for p in range(nb):
+        seg = range(p * block_size, (p + 1) * block_size)
+        runs = {side: {o: ["entering"] for o in _members(words[side][p])}
+                for side in (True, False)}
+        entries = {side: {o: [-1, block_size] for o in runs[side]}
+                   for side in (True, False)}
+        bad = False
+        for t in seg:
+            if not va[t]:
+                continue
+            side, i = bool(sb[t]), t - p * block_size
+            bad |= not 0 <= ow[t] < 32 * words[side].shape[1]
+            runs[side].setdefault(ow[t], []).append(
+                "upper" if up[t] else "lower")
+            if up[t]:
+                entries[side].setdefault(ow[t], [None, None])[1] = i
+            else:
+                entries[side][ow[t]] = [i, block_size]
+        bad |= any(run not in (["entering"], ["entering", "upper"],
+                               ["lower"], ["lower", "upper"])
+                   for side in runs for run in runs[side].values())
+        live = {side: len(_members(words[side][p])) for side in words}
+        slot = 0
+        for t in seg:
+            if bad:
+                break
+            if not va[t]:
+                continue
+            side, i, o = bool(sb[t]), t - p * block_size, ow[t]
+            if up[t]:
+                members = sorted(k for k, (a, b) in entries[not side].items()
+                                 if a < i < b)
+                bad |= len(members) != live[not side]
+                for k, c in enumerate(members):
+                    if slot + k < cap:
+                        out_i[p, slot + k], out_j[p, slot + k] = \
+                            (o, c) if side else (c, o)
+                slot += live[not side]
+            live[side] += -1 if up[t] else 1
+        if bad:
+            flagged[p] = True
+            rows = slice(p * block_size, (p + 1) * block_size)
+            ri, rj = ref_emit_pairs(
+                *(x[rows] for x in (owner, is_upper, is_sub, valid)),
+                sub_active0[p:p + 1], upd_active0[p:p + 1],
+                block_size=block_size, cap=cap)
+            out_i[p], out_j[p] = ri[0].cpu().numpy(), rj[0].cpu().numpy()
+    return (torch.from_numpy(out_i).to(dev), torch.from_numpy(out_j).to(dev),
+            torch.from_numpy(flagged).to(dev))
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------

@@ -19,12 +19,14 @@ one Pallas TPU kernel of the JAX package's ``repro/kernels/sbm_sweep.py``:
 * :func:`emit_pairs` — ``emit_pairs_kernel`` (pass C), replaces
   ``_emission_pairs_kernel``: not the Pallas kernel's serial replay of each
   segment, but counts, slot bases and every single-pair emission in
-  closed form across the block, then one warp per extent type replaying
-  only its own set for the emissions of two or more pairs.  The closed
-  forms hold on the streams ``ops`` builds; a block whose records break
-  them (the kernel checks every toggle) replays its segment again with the
-  Pallas kernel's set/clear semantics, so any records give the Pallas
-  kernel's arrays (see :func:`emit_pairs`).
+  closed form across the block, then every warp answering uppers on their
+  own from per-side lists of (id, open, close) sorted by id in shared
+  memory (the list path; :func:`repro_torch.kernels.ref.ref_emit_pairs_lists`
+  states its rule).  The closed forms hold on the streams ``ops`` builds;
+  a block whose records break them (the kernel checks every owner's
+  records), or whose lists do not fit, replays its segment with the Pallas
+  kernel's set/clear semantics, so any records give the Pallas kernel's
+  arrays (see :func:`emit_pairs`).
 
 The fifth, :func:`delta_scan` — ``delta_scan_kernel``, is Algorithm 6's
 exclusive scan of one extent type's Add/Del words, which the JAX package
@@ -207,11 +209,11 @@ def emit_pairs(owner: torch.Tensor, is_upper: torch.Tensor,
     card the fast path derives every slot base in closed form, which
     holds where every lower finds its bit clear and every upper finds it
     set (a sorted stream with the exact entering sets, as ``ops`` builds
-    them); a block where one does not replays its segment exactly
-    instead.  The launch does not
-    wait: ``emit_pairs.general_blocks`` is then a (1,) int32 tensor on the
-    card that counts the blocks of the last launch that took the replay
-    (read it after a sync).
+    them); a block where one does not, or whose lists do not fit its
+    shared memory, replays its segment exactly instead.  The launch does
+    not wait: ``emit_pairs.general_blocks`` is then a (1,) int32 tensor on
+    the card that counts the blocks of the last launch that left the list
+    path for that replay (read it after a sync).
 
     Returns (out_i, out_j): (num_blocks, cap) int32, each segment's pairs
     at slots [0, segment emission total), −1 elsewhere.

@@ -177,7 +177,7 @@ class Store:
         return _Live(self, name, device, ids)
 
     def count(self, name: str, value) -> None:
-        """Add ``value`` (an int or a 0-d integer tensor, read at
+        """Add ``value`` (an int or a one-element integer tensor, read at
         :func:`snapshot`) to counter ``name`` while spans are active."""
         if not self.active():
             return

@@ -410,6 +410,83 @@ def test_pass_c_kernel_refuses_segments_above_its_shared_memory():
     torch.cuda.synchronize()
 
 
+def _pass_c_stream(n, alpha, block_size, spread=1):
+    """Pass C's inputs for a uniform workload of n extents a side, built on
+    the CPU by the plain versions and moved to the card: owners times
+    ``spread`` (ids spread over ``spread`` times the words), the cap the
+    largest segment total."""
+    from repro_torch.core.sweep import (_indicator_deltas, _pad_stream,
+                                        encode_endpoints)
+
+    g = torch.Generator().manual_seed(n + int(alpha))
+    subs, upds = intervals.make_uniform_workload(n, n, alpha, generator=g,
+                                                 device="cpu")
+    ep = _pad_stream(encode_endpoints(subs, upds), block_size)
+    up = ep.is_upper.to(torch.int32)
+    real = ep.owner >= 0
+    owner = ep.owner.clamp(min=0) * spread
+    words = -(-n * spread // 32)
+    active = []
+    for side in (ep.is_sub, ~ep.is_sub):
+        add, rem = tref.ref_delta_bitmasks(owner, up,
+                                           (side & real).to(torch.int32),
+                                           num_words=words,
+                                           block_size=block_size)
+        active.append(tprefix.delta_scan_exclusive(add, rem))
+    deltas = torch.stack(_indicator_deltas(ep))
+    sums = tref.ref_block_sums(deltas, block_size=block_size)
+    _, seg = tref.ref_emission(
+        deltas, torch.cumsum(sums, dim=0, dtype=torch.int32) - sums,
+        block_size=block_size)
+    args = (owner, up, ep.is_sub.to(torch.int32), real.to(torch.int32),
+            *active)
+    return [a.cuda() for a in args], max(int(seg.max()), 1)
+
+
+@pytest.mark.cuda
+def test_pass_c_list_path_at_the_cells_segments_and_past_its_room():
+    """Pass C's list path against the replay, element for element: (a) as
+    the DDM cell runs it (4096-record segments, masks in global memory at
+    15,938 words a side, about 50 entering members a side) at the full cap
+    and at one that cuts, no block leaving the list path; (b) entering
+    sets too dense for the lists (alpha 400 at 128-record segments):
+    blocks leave the list path for the general path; (c)
+    ``ops.sbm_enumerate_kernel`` counts the launch's blocks and those that
+    left the list path in the spans store."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build the kernels)")
+    from repro_torch.perf import spans
+
+    args, cap = _pass_c_stream(3000, 100.0, 4096, spread=170)
+    assert args[4].shape == (3, 15_938)
+    assert tkernels.emit_pairs_placement(4096, 15_938, 15_938) == "global"
+    for c in (cap, max(cap // 3, 1)):
+        got = tkernels.emit_pairs(*args, block_size=4096, cap=c)
+        want = tref.ref_emit_pairs(*args, block_size=4096, cap=c)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert int(tkernels.emit_pairs.general_blocks) == 0
+    args, cap = _pass_c_stream(2000, 400.0, 128)
+    got = tkernels.emit_pairs(*args, block_size=128, cap=cap)
+    want = tref.ref_emit_pairs(*args, block_size=128, cap=cap)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(tkernels.emit_pairs.general_blocks) > 0
+    g = torch.Generator().manual_seed(11)
+    subs, upds = intervals.make_uniform_workload(20_000, 20_000, 10.0,
+                                                 generator=g, device="cuda")
+    spans.enable()
+    try:
+        before = len(spans.snapshot().counts)
+        out, count = tops.sbm_enumerate_kernel(subs, upds, max_pairs=1 << 20)
+        counts = spans.snapshot().counts[before:]
+    finally:
+        spans.disable()
+    got = {c.name: c.value for c in counts}
+    assert got == {"sweep.pass_c_blocks": -(-80_000 // tops.ENUMERATE_BLOCK),
+                   "sweep.pass_c_fallback_blocks": 0}
+    assert all(c.parent == "sweep.pass_c" for c in counts)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_enumerate_kernel_answers_at_any_segment_size():
     """``ops.sbm_enumerate_kernel`` on the card at block sizes 4096, 16385

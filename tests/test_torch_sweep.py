@@ -586,6 +586,48 @@ def test_pass_c_plain_matches_pallas_outside_the_contract(name, kind):
     assert kind != "cap_cuts" or bool((got_i[:, -1] >= 0).any())  # it cuts
 
 
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_pass_c_list_rule_matches_pallas_interpret(name):
+    """The membership rule of the CUDA kernel's list path (each upper's
+    counterpart set: the entries (id, open, close) with open < i < close,
+    in id order) gives the Pallas kernel's arrays element for element, at
+    the full cap and at one that cuts, and flags no segment of a stream
+    the engine builds."""
+    (rs, ru), _ = WORKLOADS[name]()
+    block_size = 64
+    args, cap = _pass_c_inputs(rs, ru, block_size)
+    targs = [torch.from_numpy(np.array(a).view(np.int32)) for a in args]
+    for c in (cap, max(cap // 3, 1)):
+        want_i, want_j = ref_kernels.sweep_emit_pairs_pallas(
+            *args, block_size=block_size, cap=c, interpret=True)
+        got_i, got_j, flagged = tref.ref_emit_pairs_lists(
+            *targs, block_size=block_size, cap=c)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(got_j.numpy(), np.asarray(want_j))
+        assert flagged.dtype == torch.bool and not bool(flagged.any())
+
+
+@pytest.mark.parametrize("kind", OFF_CONTRACT)
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_pass_c_list_rule_flags_every_kind_outside_the_contract(name, kind):
+    """Records outside the contract: the list rule flags a segment (which
+    the kernel sends to its general path) and, with those segments
+    replayed, still gives the Pallas kernel's arrays."""
+    (rs, ru), _ = WORKLOADS[name]()
+    block_size = 64
+    args, cap = _pass_c_inputs(rs, ru, block_size)
+    args, cap = _off_contract(kind, args, cap, block_size, seed=len(name))
+    want_i, want_j = ref_kernels.sweep_emit_pairs_pallas(
+        *(jnp.asarray(a) for a in args), block_size=block_size, cap=cap,
+        interpret=True)
+    got_i, got_j, flagged = tref.ref_emit_pairs_lists(
+        *(torch.from_numpy(a.view(np.int32)) for a in args),
+        block_size=block_size, cap=cap)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_j.numpy(), np.asarray(want_j))
+    assert bool(flagged.any())
+
+
 def _toggle_faults(owner, up, sub, valid, s0, u0, block_size):
     """How many toggles of the records find their bit the wrong way."""
     faults = 0
